@@ -7,23 +7,30 @@ result line) when any phase fails:
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: the CUDA kernel library (``nvcc``) and the native host library
    (``g++``), both from the sources in this checkout, in parallel.
-3. Kernels: the count kernel (``csrc/count_cells.cu``) against its plain
-   PyTorch version on the card, exact equality, at the main path's shapes
-   and a few others, with Zipf-skewed campaigns and ~30 % masked rows;
-   device times from CUDA events over CUDA-graph replays, beside the byte
-   bound at 3.35 TB/s and one ``index_add_`` call as a library yardstick.
+3. Kernels: the count kernel K1 (``csrc/count_cells.cu``) against its
+   plain PyTorch version and a numpy count on the card, exact equality, at
+   the main path's shapes and others (``CASES``: Zipf-skewed campaigns and
+   ~30 % masked rows, a hot cell, views misaligned by 1 and 3 rows, and a
+   16.7M-row bandwidth case), each with the launch plan it took; device
+   times from CUDA events over CUDA-graph replays and eager call times,
+   beside the byte bound at 3.35 TB/s, one ``index_add_`` call as a
+   library yardstick, the launch floor (an empty kernel), and the share
+   of a warp's rounds of atomics in which two rows hit one cell.
 4. End to end: BASELINE config #1 (``conf/benchmarkConf.yaml`` with the
    in-process Redis store): generate the catchup journal (10,000,000
    events by default), run ``AdAnalyticsEngine(device="cuda")`` under
    ``StreamRunner.run_catchup``, and require the generator's oracle
    (``gen.check_correct``) to find every window exact and the count
    kernel to have launched during the run; then replay the first
-   1,000,000 events under ``torch.profiler`` for the device busy share.
+   1,000,000 events under ``torch.profiler`` for the device busy share,
+   and once more to keep the rows of every K1 launch.
+5. K1 on the main path's own rows: the launches kept in phase 4, held and
+   timed as the cases of phase 3 are.
 
 The line before the nvidia-smi line is ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py [--events N]
+    python3 chip_smoke.py [--events N] [--out results.json]
 """
 
 from __future__ import annotations
@@ -42,15 +49,22 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PROFILE_EVENTS = 1_000_000         # events replayed under torch.profiler
 REPO = os.path.dirname(os.path.abspath(__file__))
 CASES = (
-    # (label, B, C, W)
+    # (label, B, C, W, inputs): "zipf" = Zipf(1.2) campaigns, uniform
+    # slots, ~30 % masked; "hot" = every unmasked row on one cell;
+    # "offsetK" = zipf inputs read through views K rows into their buffers
     ("main path: one step of the stock catchup (8192-row batch halved by "
-     "the span guard)", 4096, 100, 16),
-    ("one full micro-batch", 8192, 100, 16),
-    ("one full scan group", 65536, 100, 16),
-    ("ragged, non-power-of-two", 300, 7, 5),
-    ("BASELINE #5 key space (global-memory path)", 8192, 1_000_000, 16),
+     "the span guard)", 4096, 100, 16, "zipf"),
+    ("one full micro-batch", 8192, 100, 16, "zipf"),
+    ("one full scan group", 65536, 100, 16, "zipf"),
+    ("ragged, non-power-of-two", 300, 7, 5, "zipf"),
+    ("BASELINE #5 key space (global-memory path)", 8192, 1_000_000, 16,
+     "zipf"),
+    ("hot cell: every unmasked row on one cell", 4096, 100, 16, "hot"),
+    ("misaligned views, 1 row in", 4096, 100, 16, "offset1"),
+    ("misaligned views, 3 rows in", 4096, 100, 16, "offset3"),
+    ("bandwidth (not a main-path shape): 16.7M rows, 151 MB of input",
+     16_777_216, 100, 16, "zipf"),
 )
-
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -71,7 +85,7 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> list[str]:
     from streambench_tpu_torch import native
     from streambench_tpu_torch.ops import _build
 
@@ -98,12 +112,16 @@ def phase_build() -> None:
             raise err
     from streambench_tpu_torch.utils.build import BUILD_DIR
 
+    ptxas = []
     for log in sorted(os.listdir(BUILD_DIR)):
         if log.startswith("libcount_cells") and log.endswith(".log"):
             with open(os.path.join(BUILD_DIR, log)) as f:
-                for line in f.read().splitlines():
-                    if "ptxas info" in line and "Used" in line:
-                        print(f"[build] {line.strip()}", flush=True)
+                ptxas += [line.strip() for line in f.read().splitlines()
+                          if "spill" in line or "ptxas" in line and (
+                              "entry function" in line or "Used" in line)]
+    for line in ptxas:
+        print(f"[build] {line}", flush=True)
+    return ptxas
 
 
 def _device_ms(fn, reps: int = 100) -> float:
@@ -150,69 +168,201 @@ def _call_ms(fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels() -> list[dict]:
+def _inputs(rng, B: int, C: int, W: int, kind: str):
+    """numpy (campaign, slot, mask) of ``kind`` (see CASES) and the offset
+    of the views the kernel reads them through."""
+    import numpy as np
+
+    offset = int(kind[6:]) if kind.startswith("offset") else 0
+    n = B + offset
+    if kind == "hot":
+        camp = np.full(n, C // 2, np.int32)
+        slot = np.full(n, W - 1, np.int32)
+    else:
+        camp = ((rng.zipf(1.2, n) - 1) % C).astype(np.int32)
+        slot = rng.integers(0, W, n, dtype=np.int32)
+    mask = rng.random(n) >= 0.3
+    return camp, slot, mask, offset
+
+
+def empty_launch() -> None:
+    """One empty kernel on the current stream (the launch floor)."""
+    import torch
+
+    from streambench_tpu_torch.ops import _build
+
+    rc = _build.count_cells_lib().sb_empty_launch(
+        torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
+    if rc:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+
+
+def _call_ms_in_turns(fns: dict, rounds: int = 5, reps: int = 200) -> dict:
+    """Median ``_call_ms`` of each of ``fns`` over ``rounds`` rounds run in
+    turns, so host noise falls on all of them alike."""
+    import statistics
+
+    times: dict = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(_call_ms(fn, reps))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _repeat_rounds(cells, head: int) -> tuple[int, int]:
+    """Of a launch's rounds of atomics (the 32 threads of a warp, one row
+    of each thread's run of 4 vector-loaded rows), how many add twice to
+    one cell, and how many add at all; ``cells`` holds each row's cell,
+    or -1 where the row does not count."""
+    import numpy as np
+
+    body = cells[head:]
+    body = body[:body.size // 128 * 128]
+    rounds = np.sort(body.reshape(-1, 32, 4).transpose(0, 2, 1)
+                     .reshape(-1, 32), axis=1)
+    repeat = (rounds[:, 1:] == rounds[:, :-1]) & (rounds[:, 1:] >= 0)
+    return int(repeat.any(axis=1).sum()), int((rounds[:, -1] >= 0).sum())
+
+
+def _kernel_case(label: str, C: int, W: int, kind: str, steps: list,
+                 base_np, floor: dict) -> dict:
+    """K1 against its plain version and a numpy count, exactly, over
+    ``steps``: ``(campaign, slot, mask)`` on the card, launched one after
+    another into one ``[C, W]`` plane that starts at ``base_np``.  Times
+    and the byte bound are per launch."""
     import numpy as np
     import torch
 
-    from streambench_tpu_torch.ops.count import count_cells, count_cells_plain
+    from streambench_tpu_torch.ops.count import (count_cells,
+                                                 count_cells_plain,
+                                                 device_limits, launch_plan)
 
-    rng = np.random.default_rng(1234)
-    out = []
-    for label, B, C, W in CASES:
-        # Zipf-skewed campaigns (rank 1 hottest), uniform slots, ~30 %
-        # of rows masked out
-        camp_np = ((rng.zipf(1.2, B) - 1) % C).astype(np.int32)
-        slot_np = rng.integers(0, W, B, dtype=np.int32)
-        mask_np = rng.random(B) >= 0.3
-        base_np = rng.integers(0, 50, (C, W), dtype=np.int32)
-        camp = torch.from_numpy(camp_np).cuda()
-        slot = torch.from_numpy(slot_np).cuda()
-        mask = torch.from_numpy(mask_np).cuda()
-        base = torch.from_numpy(base_np).cuda()
-
-        got = base.clone()
-        count_cells(got, camp, slot, mask)
-        want = base.clone()
-        count_cells_plain(want, camp, slot, mask)
-        torch.cuda.synchronize()
-        diff = int((got.long() - want.long()).abs().max().item())
-        expect = base_np.copy().reshape(-1)
-        np.add.at(expect, (camp_np.astype(np.int64) * W + slot_np)[mask_np],
-                  1)
-        host_diff = int(np.abs(got.cpu().numpy().reshape(-1).astype(np.int64)
-                               - expect).max())
-
-        scratch = base.clone()
-        kernel_ms = _device_ms(lambda: count_cells(scratch, camp, slot, mask))
-        kernel_call_ms = _call_ms(
-            lambda: count_cells(scratch, camp, slot, mask))
-        plain_ms = _device_ms(
-            lambda: count_cells_plain(scratch, camp, slot, mask))
-        flat = torch.where(mask, camp.long() * W + slot.long(), C * W)
-        padded = torch.zeros(C * W + 1, dtype=torch.int32, device="cuda")
-        ones = torch.ones(B, dtype=torch.int32, device="cuda")
-        library_ms = _device_ms(lambda: padded.index_add_(0, flat, ones))
-
+    camp, slot, mask = steps[0]
+    plan = launch_plan(camp.shape[0], C, W, (camp.data_ptr() % 16,
+                                             slot.data_ptr() % 16,
+                                             mask.data_ptr() % 16),
+                       *device_limits(camp.get_device()))
+    base = torch.from_numpy(base_np).to(camp.device)
+    got, want = base.clone(), base.clone()
+    for step in steps:
+        count_cells(got, *step)
+        count_cells_plain(want, *step)
+    torch.cuda.synchronize()
+    host = base_np.reshape(-1).astype(np.int64)
+    rows = nbytes = touched = masked = repeat = rounds = 0
+    for c, s, m in steps:
+        c, s, m = c.cpu().numpy(), s.cpu().numpy(), m.cpu().numpy()
+        cells = np.where(m, c.astype(np.int64) * W + s, -1)
+        host += np.bincount(cells[m], minlength=C * W)
+        n_touched = int(np.unique(cells[m]).size)
         # bytes the function must move for THIS data: each input row read
         # once (4 + 4 + 1 B), each counts cell it touches read and written
-        touched = int(np.unique((camp_np.astype(np.int64) * W
-                                 + slot_np)[mask_np]).size)
-        nbytes = B * 9 + touched * 8
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out.append({
-            "case": label, "shape": {"B": B, "C": C, "W": W},
-            "masked_rows": int((~mask_np).sum()), "touched_cells": touched,
-            "max_abs_diff": max(diff, host_diff),
-            "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_bytes": nbytes,
-        })
-        print(f"[kernels] {json.dumps(out[-1])}", flush=True)
-        if diff or host_diff:
-            raise AssertionError(f"count_cells disagrees with its plain "
-                                 f"version at B={B} C={C} W={W}: "
-                                 f"max |diff| {max(diff, host_diff)}")
-    return out
+        rows += c.size
+        nbytes += c.size * 9 + n_touched * 8
+        touched += n_touched
+        masked += int((~m).sum())
+        r, n = _repeat_rounds(cells, plan.head)
+        repeat += r
+        rounds += n
+    diff = max(int((got.long() - want.long()).abs().max().item()),
+               int(np.abs(got.cpu().numpy().reshape(-1) - host).max()))
+
+    launches = len(steps)
+    scratch = base.clone()
+    flats = [(torch.where(m, c.long() * W + s.long(), C * W),
+              torch.ones(c.shape[0], dtype=torch.int32, device=c.device))
+             for c, s, m in steps]
+    padded = torch.zeros(C * W + 1, dtype=torch.int32, device=camp.device)
+
+    def kernel():
+        for step in steps:
+            count_cells(scratch, *step)
+
+    def plain():
+        for step in steps:
+            count_cells_plain(scratch, *step)
+
+    def library():
+        for flat, ones in flats:
+            padded.index_add_(0, flat, ones)
+
+    reps = max(1, 100 // launches)
+    kernel_ms = _device_ms(kernel, reps) / launches
+    plain_ms = _device_ms(plain, reps) / launches
+    library_ms = _device_ms(library, reps) / launches
+    calls = _call_ms_in_turns({"kernel": kernel, "library": library},
+                              reps=max(1, 200 // launches))
+    bound_ms = nbytes / launches / HBM_BYTES_PER_S * 1e3
+    case = {
+        "case": label, "shape": {"B": camp.shape[0], "C": C, "W": W},
+        "inputs": kind, "launches_held": launches, "rows": rows,
+        "plan": plan._asdict(), "masked_rows": masked,
+        "touched_cells": touched, "rounds_with_repeat": repeat,
+        "rounds_adding": rounds,
+        "repeat_share": repeat / rounds if rounds else 0.0,
+        "max_abs_diff": diff,
+        "kernel_ms": kernel_ms, "kernel_call_ms": calls["kernel"] / launches,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call_ms": calls["library"] / launches,
+        "bound_ms": bound_ms, "bound_bytes": nbytes / launches,
+        "bound_share": bound_ms / kernel_ms, **floor,
+    }
+    print(f"[kernels] {json.dumps(case)}", flush=True)
+    if diff:
+        raise AssertionError(f"count_cells disagrees with its plain version "
+                             f"at {label!r}: max |diff| {diff}")
+    return case
+
+
+def phase_kernels() -> tuple[list[dict], dict]:
+    import numpy as np
+    import torch
+
+    floor = {"launch_floor_ms": _device_ms(empty_launch),
+             "launch_floor_call_ms": _call_ms_in_turns(
+                 {"floor": empty_launch})["floor"]}
+    print(f"[kernels] {json.dumps(floor)}", flush=True)
+    rng = np.random.default_rng(1234)
+    out = []
+    for label, B, C, W, kind in CASES:
+        camp_np, slot_np, mask_np, off = _inputs(rng, B, C, W, kind)
+        base_np = rng.integers(0, 50, (C, W), dtype=np.int32)
+        step = tuple(torch.from_numpy(a).cuda()[off:]
+                     for a in (camp_np, slot_np, mask_np))
+        out.append(_kernel_case(label, C, W, kind, [step], base_np, floor))
+    return out, floor
+
+
+def _capture_steps(cfg, mapping, campaigns, broker, events: int):
+    """The plane's ``(C, W)`` and the ``(campaign, slot, count_mask)`` of
+    every K1 launch, cloned, while a fresh engine and store fold the first
+    ``events`` of the journal."""
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis
+    from streambench_tpu_torch.ops import windowcount
+
+    steps, planes = [], set()
+    count_cells = windowcount.count_cells
+
+    def keep(counts, campaign, slot, count_mask):
+        planes.add(tuple(counts.shape))
+        steps.append((campaign.clone(), slot.clone(), count_mask.clone()))
+        return count_cells(counts, campaign, slot, count_mask)
+
+    engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                               redis=as_redis(make_store()), device="cuda")
+    reader = broker.reader(cfg.kafka_topic)
+    windowcount.count_cells = keep
+    try:
+        StreamRunner(engine, reader).run_catchup(max_events=events)
+    finally:
+        windowcount.count_cells = count_cells
+        engine.close()
+        reader.close()
+    if len(planes) != 1 or not steps:
+        raise AssertionError(f"kept {len(steps)} launches on planes {planes}")
+    return planes.pop(), steps
 
 
 def _profile_catchup(cfg, mapping, campaigns, broker, events: int,
@@ -257,7 +407,7 @@ def _profile_catchup(cfg, mapping, campaigns, broker, events: int,
     }
 
 
-def phase_end_to_end(events: int) -> dict:
+def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
     import torch
     import yaml
 
@@ -352,7 +502,9 @@ def phase_end_to_end(events: int) -> dict:
             cfg, mapping, campaigns, broker, min(events, PROFILE_EVENTS),
             run_s / max(stats.events, 1))
         print(f"[profile] {json.dumps(result['profile'])}", flush=True)
-        return result
+        plane, steps = _capture_steps(cfg, mapping, campaigns, broker,
+                                      min(events, PROFILE_EVENTS))
+        return result, plane, steps
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -361,6 +513,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--events", type=int, default=10_000_000,
                     help="catchup events for the end-to-end phase")
+    ap.add_argument("--out", help="also write every phase's result to "
+                    "this JSON file")
     args = ap.parse_args(argv)
 
     try:
@@ -379,10 +533,16 @@ def main(argv: list[str] | None = None) -> int:
             REPO, "streambench_tpu_torch", "ops"):
         return fail("imported a port package from outside this checkout")
 
+    import numpy as np
+
     smi = phase_device()
-    phase_build()
-    cases = phase_kernels()
-    e2e = phase_end_to_end(args.events)
+    ptxas = phase_build()
+    cases, floor = phase_kernels()
+    e2e, (C, W), steps = phase_end_to_end(args.events)
+    cases.append(_kernel_case(
+        f"the main path's own rows: every launch of the catchup's first "
+        f"{min(args.events, PROFILE_EVENTS)} events", C, W, "catchup",
+        steps, np.zeros((C, W), np.int32), floor))
 
     main_case = cases[0]
     kernels = [{
@@ -400,8 +560,14 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
+        "launch_floor_ms": main_case["launch_floor_ms"],
         "cases": cases,
     }]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"kernels": kernels,
+                       "end_to_end": e2e, "nvidia_smi": smi,
+                       "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,13 +47,20 @@ def count_cells_lib() -> ctypes.CDLL:
     """The count kernel's library, built on first call; raises when it
     cannot be built."""
     global _count_lib
+    if _count_lib is not None:          # built: no lock on the launch path
+        return _count_lib
     with _lock:
         if _count_lib is None:
             lib = ctypes.CDLL(build_library(
                 "count_cells", [COUNT_CELLS_SRC], _nvcc(COUNT_CELLS_SRC)))
             p = ctypes.c_void_p
             lib.sb_count_cells.restype = ctypes.c_int
-            lib.sb_count_cells.argtypes = [p, p, p, p, ctypes.c_int64,
-                                           ctypes.c_int64, ctypes.c_int64, p]
+            # counts, campaign, slot, mask, plan (ops/count.py:_PlanArgs),
+            # stream
+            lib.sb_count_cells.argtypes = [p, p, p, p, p, p]
+            lib.sb_device_limits.restype = ctypes.c_int
+            lib.sb_device_limits.argtypes = [ctypes.c_int, p, p]
+            lib.sb_empty_launch.restype = ctypes.c_int
+            lib.sb_empty_launch.argtypes = [p]
             _count_lib = lib
         return _count_lib
