@@ -10,8 +10,9 @@ result line) when any phase fails:
 3. Kernels: the count kernel K1 (``csrc/count_cells.cu``) against its
    plain PyTorch version and a numpy count on the card, exact equality, at
    the main path's shapes and others (``CASES``: Zipf-skewed campaigns and
-   ~30 % masked rows, a hot cell, views misaligned by 1 and 3 rows, and a
-   16.7M-row bandwidth case), each with the launch plan it took; device
+   ~30 % masked rows, a hot cell, views misaligned by 1 and 3 rows,
+   config #5's step on its 256 MB plane, and a 16.7M-row bandwidth
+   case), each with the launch plan it took; device
    times from CUDA events over CUDA-graph replays and eager call times,
    beside the byte bound at 3.35 TB/s, one ``index_add_`` call as a
    library yardstick, the launch floor (an empty kernel), and the share
@@ -26,11 +27,33 @@ result line) when any phase fails:
    and once more to keep the rows of every K1 launch.
 5. K1 on the main path's own rows: the launches kept in phase 4, held and
    timed as the cases of phase 3 are.
+6. Large key space: BASELINE config #5's settings (1,000,000 campaigns x 1
+   ad, a 64-slot ring, 8192-event batches, no scan groups) over a
+   generated 1,000,000-event journal through ``StreamRunner.run_catchup``,
+   oracle-exact, with the drains per branch of ``_drain_device`` (touched
+   rows compacted on the card, whole-plane compaction, dense), the
+   overflows of the compaction cap, K1's launches, the peak device memory
+   and the ``drain`` span; the first drains run under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a drain that waits
+   for the card fails the phase (``chip_drain_probe.py`` breaks the
+   drains' host time down; this run is not instrumented past the check).
+7. Exactly-once resume: the stock configuration with
+   ``jax.sink.exactly_once: true`` and a checkpoint directory over a
+   generated 1,000,000-event journal.  Engine A catches up part of it,
+   checkpoints, flushes again after its last checkpoint and is abandoned
+   without ``close()``; engine B resumes from the checkpoint on the same
+   store and finishes.  B must detect the unfenced flush
+   (``sink_unfenced_resumes``), reconcile windows absolute
+   (``reconciled_windows``) and leave every window oracle-exact.  The
+   same journal then runs once with the flag off, for the writer's cost
+   per row without the fence.
 
-The line before the nvidia-smi line is ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``.
+K1's launches are counted over each of phases 4, 6 and 7, from 0 just
+before the phase's run to just after it.  The line before the nvidia-smi
+line is ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+{...}}``.
 
-    python3 chip_smoke.py [--events N] [--out results.json]
+    python3 chip_smoke.py [--events N] [--out FILE]
 """
 
 from __future__ import annotations
@@ -47,11 +70,21 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PROFILE_EVENTS = 1_000_000         # events replayed under torch.profiler
+SYNC_CHECKED_DRAINS = 8            # config #5 drains under sync-debug
+LARGE_EVENTS = 1_000_000           # config #5's dataset, bench.py:1227-1230
+# bench.py's config #5 row (1238-1247): 1e6 campaigns x 1 ad, W = 64, no
+# scan groups, the stock 8192-event batch
+CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
+           "jax.batch.size": 8192, "jax.num.campaigns": 1_000_000,
+           "jax.ads.per.campaign": 1}
 REPO = os.path.dirname(os.path.abspath(__file__))
 CASES = (
     # (label, B, C, W, inputs): "zipf" = Zipf(1.2) campaigns, uniform
     # slots, ~30 % masked; "hot" = every unmasked row on one cell;
-    # "offsetK" = zipf inputs read through views K rows into their buffers
+    # "offsetK" = zipf inputs read through views K rows into their buffers;
+    # "config5" = config #5's generator rows: campaigns uniform (one ad
+    # each), event times 10 ms apart (the ring slots of ~9 consecutive
+    # 10 s windows), a third of them views
     ("main path: one step of the stock catchup (8192-row batch halved by "
      "the span guard)", 4096, 100, 16, "zipf"),
     ("one full micro-batch", 8192, 100, 16, "zipf"),
@@ -59,6 +92,8 @@ CASES = (
     ("ragged, non-power-of-two", 300, 7, 5, "zipf"),
     ("BASELINE #5 key space (global-memory path)", 8192, 1_000_000, 16,
      "zipf"),
+    ("config #5 step: one 8192-event batch of the large-key-space catchup",
+     8192, 1_000_000, 64, "config5"),
     ("hot cell: every unmasked row on one cell", 4096, 100, 16, "hot"),
     ("misaligned views, 1 row in", 4096, 100, 16, "offset1"),
     ("misaligned views, 3 rows in", 4096, 100, 16, "offset3"),
@@ -178,6 +213,11 @@ def _inputs(rng, B: int, C: int, W: int, kind: str):
     if kind == "hot":
         camp = np.full(n, C // 2, np.int32)
         slot = np.full(n, W - 1, np.int32)
+    elif kind == "config5":
+        camp = rng.integers(0, C, n, dtype=np.int32)
+        t0 = int(rng.integers(0, 10_000_000))
+        slot = ((t0 + 10 * np.arange(n)) // 10_000 % W).astype(np.int32)
+        return camp, slot, rng.random(n) < 1 / 3, offset
     else:
         camp = ((rng.zipf(1.2, n) - 1) % C).astype(np.int32)
         slot = rng.integers(0, W, n, dtype=np.int32)
@@ -407,43 +447,83 @@ def _profile_catchup(cfg, mapping, campaigns, broker, events: int,
     }
 
 
-def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
-    import torch
+def _config(workdir: str, keys: dict | None = None):
+    """The fork's ``conf/benchmarkConf.yaml`` with the in-process Redis
+    store and ``keys`` (config names as the file spells them) set, written
+    into ``workdir`` and loaded as the CLI loads it."""
     import yaml
 
     from streambench_tpu_torch.config import find_and_read_config_file
-    from streambench_tpu_torch.datagen import gen
-    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
-    from streambench_tpu_torch.io.fakeredis import make_store
-    from streambench_tpu_torch.io.journal import FileBroker
-    from streambench_tpu_torch.io.redis_schema import as_redis
-    from streambench_tpu_torch.ops.count import count_cells
 
-    workdir = os.path.join(REPO, "build", "smoke")
+    with open(os.path.join(REPO, "conf", "benchmarkConf.yaml")) as f:
+        conf = yaml.safe_load(f)
+    conf["redis.host"] = ":inprocess:"
+    conf.update(keys or {})
+    conf_path = os.path.join(workdir, "benchmarkConf.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    return find_and_read_config_file(conf_path)
+
+
+def _workdir(name: str) -> str:
+    workdir = os.path.join(REPO, "build", name)
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    try:
-        with open(os.path.join(REPO, "conf", "benchmarkConf.yaml")) as f:
-            conf = yaml.safe_load(f)
-        conf["redis.host"] = ":inprocess:"
-        conf_path = os.path.join(workdir, "benchmarkConf.yaml")
-        with open(conf_path, "w") as f:
-            yaml.safe_dump(conf, f)
-        cfg = find_and_read_config_file(conf_path)
+    return workdir
 
-        r = as_redis(make_store())
-        broker = FileBroker(os.path.join(workdir, "broker"))
-        t0 = time.perf_counter()
-        gen.do_setup(r, cfg, broker=broker, events_num=events,
-                     num_campaigns=cfg.jax_num_campaigns,
-                     ads_per_campaign=cfg.jax_ads_per_campaign,
-                     rng=random.Random(42), workdir=workdir)
-        gen_s = time.perf_counter() - t0
+
+def _oracle(r, workdir: str, divisor_ms: int) -> dict:
+    """``gen.check_correct`` over the store; raises unless every window
+    the journal holds is in the store with its exact count."""
+    from streambench_tpu_torch.datagen import gen
+
+    logs: list[str] = []
+    t0 = time.perf_counter()
+    correct, differ, missing = gen.check_correct(r, workdir, divisor_ms,
+                                                 log=logs.append)
+    out = {"windows_checked": correct + differ + missing,
+           "correct": correct, "differ": differ, "missing": missing,
+           "check_correct_s": time.perf_counter() - t0}
+    if differ or missing or not correct:
+        raise AssertionError(f"oracle: correct={correct} differ={differ} "
+                             f"missing={missing}: {logs[:5]}")
+    return out
+
+
+def _generate(workdir: str, cfg, events: int, seed: int, **setup):
+    """The generator's dataset (ids, map, broker topic, oracle journal) in
+    ``workdir``, and an in-process store seeded with the campaigns."""
+    from streambench_tpu_torch.datagen import gen
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.journal import FileBroker
+    from streambench_tpu_torch.io.redis_schema import as_redis, seed_campaigns
+
+    broker = FileBroker(os.path.join(workdir, "broker"))
+    t0 = time.perf_counter()
+    gen.do_setup(None, cfg, broker=broker, events_num=events,
+                 rng=random.Random(seed), workdir=workdir, **setup)
+    mapping = gen.load_ad_mapping_file(
+        os.path.join(workdir, gen.AD_TO_CAMPAIGN_FILE))
+    campaigns = gen.load_ids(workdir)[0]
+    r = as_redis(make_store())
+    seed_campaigns(r, campaigns)
+    return broker, mapping, campaigns, r, time.perf_counter() - t0
+
+
+def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
+    import torch
+
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.ops.count import count_cells
+
+    workdir = _workdir("smoke")
+    try:
+        cfg = _config(workdir)
+        broker, mapping, campaigns, r, gen_s = _generate(
+            workdir, cfg, events, 42, num_campaigns=cfg.jax_num_campaigns,
+            ads_per_campaign=cfg.jax_ads_per_campaign)
         print(f"[e2e] generated {events} events in {gen_s:.2f} s",
               flush=True)
-        mapping = gen.load_ad_mapping_file(
-            os.path.join(workdir, gen.AD_TO_CAMPAIGN_FILE))
-        campaigns = gen.load_ids(workdir)[0]
 
         # as the engine CLI does: build and run every device path once on
         # a throwaway engine before the measured run
@@ -468,11 +548,6 @@ def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
         launches = count_cells.launches   # main path ends here
         reader.close()
 
-        logs: list[str] = []
-        t0 = time.perf_counter()
-        correct, differ, missing = gen.check_correct(
-            r, workdir, cfg.jax_time_divisor_ms, log=logs.append)
-        check_s = time.perf_counter() - t0
         result = {
             "events": stats.events, "batches": stats.batches,
             "flushes": stats.flushes,
@@ -481,18 +556,15 @@ def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
             "run_catchup_s": run_s, "catchup_with_close_s": total_s,
             "events_per_s": stats.events / run_s,
             "events_per_s_with_close": stats.events / total_s,
-            "windows_checked": correct + differ + missing,
-            "correct": correct, "differ": differ, "missing": missing,
-            "count_cells_launches": launches,
-            "generate_s": gen_s, "check_correct_s": check_s,
+            "count_cells_launches": launches, "generate_s": gen_s,
             "stages": engine.tracer.as_dict(),
         }
         print(f"[e2e] {json.dumps(result)}", flush=True)
+        result.update(_oracle(r, workdir, cfg.jax_time_divisor_ms))
+        print(f"[e2e] oracle {result['windows_checked']} windows exact in "
+              f"{result['check_correct_s']:.2f} s", flush=True)
         if stats.events != events:
             raise AssertionError(f"folded {stats.events} of {events}")
-        if differ or missing:
-            raise AssertionError(f"oracle: differ={differ} "
-                                 f"missing={missing}: {logs[:5]}")
         if engine.dropped:
             raise AssertionError(f"{engine.dropped} events dropped")
         if launches <= 0:
@@ -505,6 +577,202 @@ def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
         plane, steps = _capture_steps(cfg, mapping, campaigns, broker,
                                       min(events, PROFILE_EVENTS))
         return result, plane, steps
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_large_key_space(events: int) -> dict:
+    """BASELINE config #5's key space on one card (see the module doc)."""
+    import torch
+
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.ops.count import count_cells
+
+    workdir = _workdir("smoke_config5")
+    try:
+        cfg = _config(workdir, CONFIG5)
+        broker, mapping, campaigns, r, gen_s = _generate(
+            workdir, cfg, events, 7, num_campaigns=1_000_000,
+            ads_per_campaign=1)
+        print(f"[config5] generated {events} events over 1e6 campaigns "
+              f"in {gen_s:.2f} s", flush=True)
+        warm = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                                 device="cuda")
+        warm.warmup()
+        warm.close()
+        del warm
+        engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                                   redis=r, device="cuda")
+        if not (engine._track_dirty_rows() and engine._use_compact_drain()):
+            raise AssertionError("config #5 did not select the "
+                                 "large-key-space drains")
+
+        # the first drains dispatch under sync-debug "error": any wait for
+        # the card inside them raises.  Then the engine's own method is
+        # back, so the rest of the run is not instrumented.
+        drain = engine._drain_device
+        checked: list[dict] = []
+
+        def drain_checked():
+            before = dict(engine.drain_stats)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                drain()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            checked.append({k: v - before[k]
+                            for k, v in engine.drain_stats.items()
+                            if v != before[k]})
+            if len(checked) >= SYNC_CHECKED_DRAINS:
+                del engine._drain_device
+
+        engine._drain_device = drain_checked
+        reader = broker.reader(cfg.kafka_topic)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated_at_start = torch.cuda.memory_allocated()
+        count_cells.launches = 0          # this path starts here
+        t0 = time.perf_counter()
+        stats = StreamRunner(engine, reader).run_catchup()
+        run_s = time.perf_counter() - t0
+        engine.close()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = count_cells.launches   # this path ends here
+        reader.close()
+        result = {
+            "events": stats.events, "flushes": stats.flushes,
+            "windows_written": stats.windows_written,
+            "dropped": engine.dropped,
+            "run_catchup_s": run_s, "catchup_with_close_s": total_s,
+            "events_per_s": stats.events / run_s,
+            "events_per_s_with_close": stats.events / total_s,
+            "drains": dict(engine.drain_stats),
+            "sync_checked_drains": checked,
+            "count_cells_launches": launches,
+            "memory_allocated_at_start_bytes": allocated_at_start,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "counts_plane_bytes": engine.state.counts.numel() * 4,
+            "generate_s": gen_s, "stages": engine.tracer.as_dict(),
+        }
+        print(f"[config5] {json.dumps(result)}", flush=True)
+        result.update(_oracle(r, workdir, cfg.jax_time_divisor_ms))
+        print(f"[config5] oracle {json.dumps(result['windows_checked'])} "
+              f"windows exact in {result['check_correct_s']:.2f} s",
+              flush=True)
+        if stats.events != events or engine.dropped:
+            raise AssertionError(f"folded {stats.events} of {events}, "
+                                 f"dropped {engine.dropped}")
+        if not any(c.get("rows_compact") for c in checked):
+            raise AssertionError(f"no rows_compact drain ran under the "
+                                 f"sync check: {checked}")
+        if launches <= 0:
+            raise AssertionError("the count kernel never launched on the "
+                                 "config #5 path")
+        return result
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _plain_sink_catchup(workdir: str, broker, mapping, campaigns) -> dict:
+    """The cost of the fence, beside it: the same journal through one
+    engine with ``jax.sink.exactly_once`` off (the native bulk write)."""
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis, seed_campaigns
+
+    cfg = _config(workdir)
+    r = as_redis(make_store())
+    seed_campaigns(r, campaigns)
+    engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns, redis=r,
+                               device="cuda")
+    t0 = time.perf_counter()
+    with broker.reader(cfg.kafka_topic) as reader:
+        stats = StreamRunner(engine, reader).run_catchup()
+        engine.close()
+    return {"events": stats.events, "s_with_close": time.perf_counter() - t0,
+            "windows_written": engine.windows_written,
+            "stages": engine.tracer.as_dict()}
+
+
+def phase_exactly_once_resume(events: int) -> dict:
+    """A crash in the replay window, resumed exactly (see the module
+    doc)."""
+    import torch
+
+    from streambench_tpu_torch.checkpoint import Checkpointer
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.ops.count import count_cells
+
+    workdir = _workdir("smoke_xo")
+    try:
+        cfg = _config(workdir, {"jax.sink.exactly_once": True})
+        broker, mapping, campaigns, r, gen_s = _generate(
+            workdir, cfg, events, 43, num_campaigns=cfg.jax_num_campaigns,
+            ads_per_campaign=cfg.jax_ads_per_campaign)
+        ckpt = Checkpointer(os.path.join(workdir, "ckpt"))
+        count_cells.launches = 0          # this path starts here
+        t0 = time.perf_counter()
+        a = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns, redis=r,
+                              device="cuda")
+        reader_a = broker.reader(cfg.kafka_topic)
+        StreamRunner(a, reader_a, checkpointer=ckpt).run_catchup(
+            max_events=events * 2 // 5)
+        snap_seq = ckpt.load().meta["sink_seq"]
+        # flushed and landed after the last checkpoint, never covered
+        StreamRunner(a, reader_a).run_catchup(max_events=events // 5)
+        a.drain_writes()
+        a_events, a_written = a.events_processed, a.windows_written
+        a_stages = a.tracer.as_dict()
+        a._writer.close()                 # stop its thread; no close()
+        reader_a.close()
+        del a
+        a_s = time.perf_counter() - t0
+
+        b = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns, redis=r,
+                              device="cuda")
+        reader_b = broker.reader(cfg.kafka_topic)
+        runner_b = StreamRunner(b, reader_b, checkpointer=ckpt)
+        if not runner_b.resume():
+            raise AssertionError("engine B found no checkpoint")
+        resumed_at = b.events_processed
+        t0 = time.perf_counter()
+        stats = runner_b.run_catchup()
+        b.close()
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        launches = count_cells.launches   # this path ends here
+        reader_b.close()
+        faults = b.faults.snapshot()
+        result = {
+            "events": b.events_processed, "a_events": a_events,
+            "a_snapshot_sink_seq": snap_seq, "b_resumed_at": resumed_at,
+            "b_events": stats.events, "a_s": a_s,
+            "b_s_with_close": b_s, "a_windows_written": a_written,
+            "b_windows_written": b.windows_written, "stages_a": a_stages,
+            "sink_unfenced_resumes": faults.get("sink_unfenced_resumes", 0),
+            "reconciled_windows": faults.get("reconciled_windows", 0),
+            "faults": faults, "count_cells_launches": launches,
+            "generate_s": gen_s, "stages_b": b.tracer.as_dict(),
+        }
+        print(f"[xo] {json.dumps(result)}", flush=True)
+        result.update(_oracle(r, workdir, cfg.jax_time_divisor_ms))
+        print(f"[xo] oracle {result['windows_checked']} windows exact in "
+              f"{result['check_correct_s']:.2f} s", flush=True)
+        if b.events_processed != events or b.dropped:
+            raise AssertionError(f"folded {b.events_processed} of {events}, "
+                                 f"dropped {b.dropped}")
+        if not (result["sink_unfenced_resumes"] > 0
+                and result["reconciled_windows"] > 0):
+            raise AssertionError(f"the resume did not reconcile: {faults}")
+        if launches <= 0:
+            raise AssertionError("the count kernel never launched on the "
+                                 "exactly-once path")
+        result["plain_sink"] = _plain_sink_catchup(workdir, broker, mapping,
+                                                   campaigns)
+        print(f"[xo] the same journal, exactly-once off: "
+              f"{json.dumps(result['plain_sink'])}", flush=True)
+        return result
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -539,6 +807,8 @@ def main(argv: list[str] | None = None) -> int:
     ptxas = phase_build()
     cases, floor = phase_kernels()
     e2e, (C, W), steps = phase_end_to_end(args.events)
+    large = phase_large_key_space(LARGE_EVENTS)
+    xo = phase_exactly_once_resume(LARGE_EVENTS)
     cases.append(_kernel_case(
         f"the main path's own rows: every launch of the catchup's first "
         f"{min(args.events, PROFILE_EVENTS)} events", C, W, "catchup",
@@ -551,6 +821,10 @@ def main(argv: list[str] | None = None) -> int:
         "source": "streambench_tpu_torch/csrc/count_cells.cu",
         "replaces": "streambench_tpu/ops/pallas_count.py:51",
         "launches": e2e["count_cells_launches"],
+        "launches_by_path": {
+            "stock_catchup": e2e["count_cells_launches"],
+            "config5_catchup": large["count_cells_launches"],
+            "exactly_once_resume": xo["count_cells_launches"]},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -566,7 +840,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels,
-                       "end_to_end": e2e, "nvidia_smi": smi,
+                       "end_to_end": e2e, "large_key_space": large,
+                       "exactly_once_resume": xo, "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,10 +1,12 @@
 """The exact-count engine: encode -> device fold -> delta drain -> Redis.
 
-The port of ``streambench_tpu/engine/pipeline.py:AdAnalyticsEngine`` for
-BASELINE config #1 (the exact per-(campaign, 10 s window) view count).
-Host code (encoding, the Redis writer, the span guard) is the JAX
-engine's; the device fold is ``ops.windowcount`` on torch tensors, with
-the count going through the hand-written CUDA kernel on the card.
+The port of ``streambench_tpu/engine/pipeline.py:AdAnalyticsEngine``: the
+exact per-(campaign, 10 s window) view count of BASELINE config #1, and
+the same count at config #5's key space (1,000,000 campaigns, a 64-slot
+ring) on one card.  Host code (encoding, the Redis writer, the span
+guard, snapshots, the exactly-once ledger) is the JAX engine's; the
+device fold is ``ops.windowcount`` on torch tensors, with the count going
+through the hand-written CUDA kernel on the card.
 
 Correctness invariant (ring reuse): between two drains the stream's
 event-time span must stay within the ring's safe span, or a new window
@@ -13,9 +15,8 @@ event times on the host (no device sync) and drains the device deltas
 into a host-side pending buffer when the span guard trips; the wall-clock
 flush cadence to Redis stays the reference's 1 Hz.
 
-Not ported yet (later slices): the dirty-rows and compact drains (needed
-only at >= 2^22 cells), snapshot/restore, exactly-once writeback,
-observability hooks, device decode and the parallel encode pool.
+Not ported yet (later slices): observability hooks, device decode and the
+parallel encode pool.
 """
 
 from __future__ import annotations
@@ -29,11 +30,15 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from streambench_tpu_torch.checkpoint import Snapshot
 from streambench_tpu_torch.config import BenchmarkConfig
 from streambench_tpu_torch.encode.native_encoder import make_encoder
 from streambench_tpu_torch.io.redis_schema import (
     RedisLike,
+    claim_epoch,
     dump_latency_hash,
+    fence_key,
+    read_fence,
     write_windows_pipelined,
 )
 from streambench_tpu_torch.metrics import FaultCounters, LatencyTracker
@@ -90,8 +95,7 @@ class _ArrayRows:
 
 class _RedisWriter:
     """Background window-writeback thread (the reference's flusher thread,
-    ``CampaignProcessorCommon.java:35-55``), copied from the JAX engine
-    without its exactly-once fence protocol.
+    ``CampaignProcessorCommon.java:35-55``), copied from the JAX engine.
 
     ``time_updated`` is stamped by THIS thread at actual write time
     (``core.clj:149`` defines latency truth).  A bounded queue provides
@@ -99,12 +103,23 @@ class _RedisWriter:
     the next attempt waits a capped exponential backoff, a
     ``reconnect()``-capable client is re-dialed, and the retained buffer
     is coalesced by (campaign, window) past a high-water row count.
+
+    Exactly-once mode (``exactly_once=True``): every flush rides ONE
+    pipeline bracketed by fence records -- ``intent``/``epoch`` first, the
+    commit ``seq`` last -- and each apply is preceded by an epoch check,
+    so a superseded writer (an abandoned engine's thread still draining
+    its queue) drops its batch instead of applying stale deltas
+    (``fence_conflicts``).  A failed apply whose commit fence IS on the
+    sink actually landed (the error was response-side): the retry is
+    suppressed (``dedup_suppressed_flushes``) instead of applied twice.
     """
 
     def __init__(self, redis: RedisLike, tracer: Tracer,
                  on_written, faults: "FaultCounters | None" = None,
                  retry_base_ms: int = 100, retry_cap_ms: int = 5000,
-                 dirty_cap_rows: int = 1 << 18) -> None:
+                 dirty_cap_rows: int = 1 << 18,
+                 exactly_once: bool = False, fence_key: str = "",
+                 epoch: int | None = None, start_seq: int = 0) -> None:
         self._redis = redis
         self._tracer = tracer
         self._on_written = on_written   # (rows, stamp) latency bookkeeping
@@ -112,6 +127,17 @@ class _RedisWriter:
         self._retry_base_ms = max(int(retry_base_ms), 1)
         self._retry_cap_ms = max(int(retry_cap_ms), self._retry_base_ms)
         self._dirty_cap_rows = max(int(dirty_cap_rows), 1)
+        # exactly-once fence state (dormant when the flag is off): the
+        # epoch is claimed engine-side before the first submit; seq
+        # continues from the sink's high-water and is never reused, so
+        # the landed-or-not check is unambiguous
+        self._xo = bool(exactly_once)
+        self._fence_key = fence_key
+        self._epoch = epoch
+        self._seq = int(start_seq)
+        self._seq_acked = int(start_seq)
+        self._fenced = False            # a newer epoch owns the sink
+        self._last_attempt_seq: int | None = None
         self._consec_failures = 0
         # window/list-UUID memo across flushes (sole-writer assumption,
         # see write_windows_pipelined); only this thread touches it
@@ -163,7 +189,9 @@ class _RedisWriter:
 
     def _coalesce_failed_locked(self) -> None:
         """Merge the retained batches by (campaign, window); deltas sum.
-        Called with the lock held, past the high-water mark only."""
+        Called with the lock held, past the high-water mark only.  (In
+        exactly-once mode a failed batch only taints its windows, so its
+        values are never written back.)"""
         merged: dict[tuple, int] = {}
         for batch in self._failed:
             for camp, ts, n in batch:
@@ -183,12 +211,16 @@ class _RedisWriter:
             try:
                 if item is None:
                     return
-                payload, stamp = item
+                payload, stamp, absolute = item
                 stamp = now_ms() if stamp is None else stamp
                 arrays = not isinstance(payload, list)
+                fenced_out = False
                 try:
                     with self._tracer.span("redis_flush"):
-                        if arrays:
+                        if self._xo:
+                            fenced_out = not self._apply_fenced(
+                                payload, stamp, absolute)
+                        elif arrays:
                             # (ci, ts, cnt) numpy triple against the
                             # native store: campaign table passed once,
                             # zero per-row Python work
@@ -199,16 +231,82 @@ class _RedisWriter:
                         else:
                             write_windows_pipelined(
                                 self._redis, payload, time_updated=stamp,
-                                cache=self._uuid_cache)
+                                absolute=absolute, cache=self._uuid_cache)
                 except BaseException as e:  # retained for reclaim/retry
-                    self._on_failure(payload.to_rows() if arrays
-                                     else payload, e)
+                    if self._xo and self._landed(self._last_attempt_seq):
+                        # the whole pipeline, commit fence last, landed;
+                        # the failure was response-side: a retry would
+                        # apply the deltas twice
+                        self._faults.inc("dedup_suppressed_flushes")
+                        self._seq_acked = self._last_attempt_seq
+                        self._consec_failures = 0
+                        self._on_written(payload, stamp)
+                    else:
+                        self._on_failure(payload.to_rows() if arrays
+                                         else payload, e)
                 else:
+                    if fenced_out:
+                        continue   # superseded epoch: dropped, not written
                     self._consec_failures = 0
+                    if self._xo:
+                        self._seq_acked = self._last_attempt_seq
                     # latency bookkeeping only for rows that actually landed
                     self._on_written(payload, stamp)
             finally:
                 self._q.task_done()
+
+    # -- exactly-once fence protocol -----------------------------------
+    def _apply_fenced(self, rows: list, stamp: int, absolute: bool) -> bool:
+        """One fenced apply: check the epoch, then rows + fence in one
+        pipeline.  Returns False when a newer epoch owns the sink: this
+        writer is a zombie and the batch is DROPPED, never retained (the
+        new lineage's ledger is the truth).  Raises on sink errors like
+        the plain path (the rows are then retained)."""
+        self._last_attempt_seq = None
+        # The epoch is only ever claimed engine-side (_xo_attach_sink): a
+        # writer claiming lazily could be a zombie that reads the fence
+        # after its successor claimed and fences out the live writer.
+        if self._epoch is None:
+            raise RuntimeError(
+                "fenced writer received a batch without a claimed epoch")
+        e, _, _ = read_fence(self._redis, self._fence_key)
+        if e > self._epoch:
+            if not self._fenced:
+                print(f"redis writer: fenced out (sink epoch {e} > "
+                      f"writer epoch {self._epoch}); dropping "
+                      f"{len(rows)} stale rows", file=sys.stderr,
+                      flush=True)
+            self._fenced = True
+            self._faults.inc("fence_conflicts")
+            return False
+        self._seq += 1
+        self._last_attempt_seq = self._seq
+        write_windows_pipelined(
+            self._redis, rows, time_updated=stamp, absolute=absolute,
+            cache=self._uuid_cache,
+            fence=(self._fence_key, self._epoch, self._seq))
+        return True
+
+    def _landed(self, seq: int | None) -> bool:
+        """Did the flush with ``seq`` fully land despite the raised
+        error?  True iff the sink's commit fence -- the LAST command of
+        that flush's pipeline -- records exactly our (epoch, seq)."""
+        if seq is None or self._epoch is None:
+            return False
+        try:
+            e, s, _ = read_fence(self._redis, self._fence_key)
+        except BaseException:
+            return False    # sink still down: treat as not landed
+        return e == self._epoch and s == seq
+
+    def fence_state(self) -> tuple[int, int]:
+        """(epoch, last fully-landed flush seq): the fence a snapshot
+        covers.  Read after ``drain()`` for a stable value."""
+        return (self._epoch or 0, self._seq_acked)
+
+    def has_failed(self) -> bool:
+        with self._lock:
+            return bool(self._failed)
 
     def dirty_rows(self) -> int:
         """Retained failed-write rows awaiting reclaim."""
@@ -222,13 +320,16 @@ class _RedisWriter:
             self._failed_rows = 0
         return failed
 
-    def submit(self, rows, stamp: int | None) -> None:
-        """Queue one writeback payload (rows list or ``_ArrayRows``)."""
-        self._q.put((rows, stamp))
+    def submit(self, rows, stamp: int | None,
+               absolute: bool = False) -> None:
+        """Queue one writeback payload (rows list or ``_ArrayRows``).
+        ``absolute`` HSETs the counts instead of HINCRBY: the
+        exactly-once ledger's reconcile writes."""
+        self._q.put((rows, stamp, absolute))
 
     def drain(self) -> None:
         """Block until every submitted batch was attempted.  Failures are
-        not raised here — they sit in ``take_failed`` for reclaim."""
+        not raised here -- they sit in ``take_failed`` for reclaim."""
         self._q.join()
 
     def close(self) -> None:
@@ -249,20 +350,33 @@ class _RedisWriter:
             ) from err
 
 
+def _to_numpy(x) -> np.ndarray:
+    """A parked drain handle as numpy: tensors (device or host) are
+    copied or viewed, numpy arrays pass through."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
 class AdAnalyticsEngine:
-    """Exact per-(campaign, 10 s window) view counting — BASELINE config #1.
+    """Exact per-(campaign, 10 s window) view counting: BASELINE config #1
+    (100 campaigns x 10 ads, 16 ring slots) and config #5's key space
+    (1,000,000 campaigns x 1 ad, 64 slots) on one device, with snapshots
+    for checkpoint/resume and, under ``jax.sink.exactly_once``, the fenced
+    exactly-once writeback.
 
     ``device`` defaults to ``"cuda"``; without CUDA the constructor
     raises unless the caller passes ``device="cpu"``."""
+
+    # Checkpoint compatibility class, as in the JAX engine: restore
+    # refuses a snapshot of another family.
+    ENGINE_FAMILY = "exact"
 
     def __init__(self, cfg: BenchmarkConfig, ad_to_campaign: dict[str, str],
                  campaigns: list[str] | None = None,
                  redis: RedisLike | None = None,
                  method: str | None = None,
                  device: torch.device | str | None = None):
-        if cfg.jax_sink_exactly_once:
-            raise ValueError("jax.sink.exactly_once is not ported to the "
-                             "PyTorch engine yet")
         if cfg.jax_decode_device != "off":
             raise ValueError("jax.decode.device is not ported to the "
                              "PyTorch engine yet; set it to \"off\"")
@@ -297,21 +411,35 @@ class AdAnalyticsEngine:
                                    self.device)
 
         self._span_start: int | None = None   # min unflushed event time (abs)
-        # Parked drains ("dense", deltas, wids, copied_event): device
-        # tensors whose host materialization is postponed to flush time.
-        # On CUDA (_defer_pull) the device->host copies start at park
-        # time, non_blocking into pinned buffers, gated by a CUDA event;
-        # a periodic flush materializes only the drains parked one cycle
+        # Parked drains, each ``((tag, *handles), copied_event)``:
+        #   ("dense", deltas, wids)
+        #   ("compact", idx, vals, nnz, dense, wids)
+        #   ("rows_compact", rows_np, idx, vals, nnz, sub, wids)
+        #   ("rows_host", rows_np, sub_np, wids)          [CPU]
+        # whose host materialization is postponed to flush time.  On CUDA
+        # the device->host copies start at park time, non_blocking into
+        # pinned buffers, gated by a CUDA event, and (_defer_pull) a
+        # periodic flush materializes only the drains parked one cycle
         # earlier (_undrained_ready), whose copies have long landed.
         self._undrained: list[tuple] = []
         self._undrained_ready: list[tuple] = []
         self._defer_pull = self.device.type == "cuda"
+        # Drains taken per branch of _drain_device, and compact drains
+        # whose nonzero cells overflowed COMPACT_DRAIN_CAP.
+        self.drain_stats = dict.fromkeys(
+            ("free_slots", "rows_host", "rows_compact", "compact", "dense",
+             "overflow"), 0)
         # Packed wire word (ops.windowcount.pack_columns) while the ad
         # space fits its 28-bit field.
         self._pack_ok = self.encoder.join_table.size < wc.PACK_AD_MAX
+        # Dirty-campaign tracking (large key spaces only): per-batch
+        # campaign sets gathered on the host, so a drain reads just the
+        # touched rows instead of all C x W cells.
+        self._join_np = self.encoder.join_table
+        self._dirty_rows: list[np.ndarray] = []
         # pending Redis deltas: (campaign_idx, abs_window_ts) -> count
-        # (dict = slow path for reclaims; _pending_np = numpy triples
-        # straight from drains, the hot path)
+        # (dict = slow path for reclaims and snapshots; _pending_np =
+        # numpy triples straight from drains, the hot path)
         self._pending: dict[tuple[int, int], int] = defaultdict(int)
         self._pending_np: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         # campaign-name table for the native store's index-form bulk
@@ -326,6 +454,27 @@ class AdAnalyticsEngine:
         self.tracer = Tracer()
         self.latency_tracker = LatencyTracker(window_ms=self.divisor)
         self.faults = FaultCounters()
+        # exactly-once writeback (jax.sink.exactly_once), all dormant when
+        # the flag is off:
+        #   _sink_totals  cumulative per-window ledger of every delta
+        #                 handed to the writer (what an absolute
+        #                 reconcile writes)
+        #   _taint        windows whose last flush failed or may have
+        #                 partly applied: the next flush rewrites them
+        #                 absolute from the ledger
+        #   _reconcile_all  resumed over a sink holding unfenced flushes:
+        #                 every flush of this attempt writes absolute
+        #   _xo_baseline  the restored snapshot's (epoch, seq) fence,
+        #                 what the sink's fence is compared against
+        self._xo = bool(cfg.jax_sink_exactly_once)
+        self._fence_key = fence_key(cfg.kafka_topic)
+        self._sink_totals: dict[tuple[int, int], int] = {}
+        self._taint: set[tuple[int, int]] = set()
+        self._reconcile_all = False
+        self._xo_baseline: tuple[int, int] = (0, 0)
+        self._xo_attached = not self._xo
+        self._sink_epoch: int | None = None
+        self._sink_seq0 = 0
         self._writer: _RedisWriter | None = None
 
     # ------------------------------------------------------------------
@@ -400,6 +549,8 @@ class AdAnalyticsEngine:
         # No power-of-two padding of partial groups, unlike the JAX engine:
         # it pads for its compile buckets, and eager steps have none (an
         # all-invalid pad batch leaves the state unchanged anyway).
+        if self._track_dirty_rows():
+            self._note_batch_campaigns(batches)
         with self.tracer.span("device_scan"):
             self._fold_stack(batches)
         self.events_processed += sum(b.n for b in batches)
@@ -494,6 +645,8 @@ class AdAnalyticsEngine:
                 self._drain_device()
             if self._span_start is None or batch_min < self._span_start:
                 self._span_start = batch_min
+        if self._track_dirty_rows():
+            self._note_batch_campaigns([batch])
         with self.tracer.span("device_step"):
             self._device_step(batch)
         self.events_processed += batch.n
@@ -534,32 +687,129 @@ class AdAnalyticsEngine:
             method=self.method)
 
     # ------------------------------------------------------------------
+    # Drains at large key spaces (C x W >= COMPACT_DRAIN_MIN_CELLS, e.g.
+    # config #5's 1e6 x 64 = 2^26 cells): never move the whole [C, W]
+    # block.  First choice: the campaign rows the host saw batches touch
+    # since the last drain, gathered on the device; on the card their
+    # nonzero cells are compacted there too (rows_compact), on the CPU
+    # they are read through a numpy view (rows_host).  When the touched
+    # set overflows DIRTY_ROWS_CAP: on the card, on-device compaction of
+    # the whole plane (compact), else the dense walk.  A compact drain
+    # with more than COMPACT_DRAIN_CAP nonzero cells reads its pre-drain
+    # block instead (the overflow).
+    COMPACT_DRAIN_MIN_CELLS = 1 << 22
+    COMPACT_DRAIN_CAP = 1 << 18
+    DIRTY_ROWS_CAP = 1 << 17
+
+    def _device_compacts(self) -> bool:
+        """Whether drains compact on the device (the card) or read the
+        counts through host memory (the CPU)."""
+        return self.device.type != "cpu"
+
+    def _use_compact_drain(self) -> bool:
+        cells = self.state.counts.shape[0] * self.state.counts.shape[1]
+        return (cells >= self.COMPACT_DRAIN_MIN_CELLS
+                and self._device_compacts())
+
+    def _track_dirty_rows(self) -> bool:
+        return (self.state.counts.shape[0] * self.state.counts.shape[1]
+                >= self.COMPACT_DRAIN_MIN_CELLS)
+
+    def _note_batch_campaigns(self, batches) -> None:
+        """Record which campaign rows the given encoded batches touch.
+        Over-inclusion is harmless (rows drain as zero), so invalid rows
+        inside [:n] need no masking beyond the join-miss filter."""
+        parts = []
+        for b in batches:
+            c = self._join_np[b.ad_idx[:b.n]]
+            parts.append(c[c >= 0])
+        if parts:
+            self._dirty_rows.append(
+                np.unique(np.concatenate(parts))
+                if len(parts) > 1 else np.unique(parts[0]))
+
+    def _rows_on_device(self, rows: np.ndarray) -> torch.Tensor:
+        """The touched rows as an int64 index tensor on the device: from
+        pinned memory without waiting for the copy on the card."""
+        t = torch.from_numpy(rows.astype(np.int64))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def _drain_device(self) -> None:
         """Hand the device deltas to a parked drain for ring reuse;
-        materialization is deferred to ``_materialize_drains``."""
-        deltas, wids, self.state = wc.flush_deltas(
-            self.state, divisor_ms=self.divisor, lateness_ms=self.lateness)
-        self._park(deltas, wids)
+        materialization is deferred to ``_materialize_drains``.  Only
+        dispatches device work: nothing here waits for the card."""
+        kw = dict(divisor_ms=self.divisor, lateness_ms=self.lateness)
         self._span_start = None
+        if self._track_dirty_rows():
+            rows = (np.unique(np.concatenate(self._dirty_rows))
+                    if len(self._dirty_rows) > 1
+                    else (self._dirty_rows[0] if self._dirty_rows
+                          else np.empty(0, np.int64)))
+            self._dirty_rows = []
+            if rows.size == 0:
+                # nothing counted since the last drain: the counts are
+                # already zero, only closed slots need freeing
+                self.state = wc.flush_free_slots(self.state, **kw)
+                self.drain_stats["free_slots"] += 1
+                return
+            if rows.size <= self.DIRTY_ROWS_CAP:
+                # exactly the touched rows: no padding to one fixed size,
+                # which the JAX engine needs only to spare recompiles
+                rows_t = self._rows_on_device(rows)
+                if self._device_compacts():
+                    idx, vals, nnz, sub, wids, self.state = \
+                        wc.flush_deltas_rows_compact(
+                            self.state, rows_t, rows.size,
+                            cap=self.COMPACT_DRAIN_CAP, **kw)
+                    self._park(("rows_compact", rows, idx, vals, nnz, sub,
+                                wids))
+                else:
+                    # host memory: the fancy index copies the rows out
+                    # before they are zeroed in place
+                    sub_np = self.state.counts.numpy()[rows]
+                    wids, self.state = wc.flush_rows_zero(
+                        self.state, rows_t, **kw)
+                    self._park(("rows_host", rows, sub_np, wids))
+                return
+            # touched set overflowed the cap: fall through to the full-
+            # space drains
+        if self._use_compact_drain():
+            idx, vals, nnz, dense, wids, self.state = \
+                wc.flush_deltas_compact(
+                    self.state, cap=self.COMPACT_DRAIN_CAP, **kw)
+            self._park(("compact", idx, vals, nnz, dense, wids))
+        else:
+            deltas, wids, self.state = wc.flush_deltas(self.state, **kw)
+            self._park(("dense", deltas, wids))
 
-    def _park(self, deltas: torch.Tensor, wids: torch.Tensor) -> None:
-        """Park one dense drain.  On CUDA the device->host copies start
-        NOW (non_blocking into pinned buffers, on the stream that ran the
-        steps, so they see every step before the drain), and a CUDA event
-        marks their completion; the buffers live in the parked tuple
-        until it is materialized."""
+    # The dense fallback handle of each compact tuple, read only when the
+    # nonzero cells overflow the cap: never copied at park time.
+    _FALLBACK = {"compact": 4, "rows_compact": 5}
+
+    def _park(self, parked: tuple) -> None:
+        """Park one drain ``(tag, *handles)``.  On CUDA the device->host
+        copies of its handles start NOW (non_blocking into pinned
+        buffers, on the stream that ran the steps, so they see every step
+        before the drain) behind one CUDA event; the dense fallback of a
+        compact drain stays on the card."""
+        self.drain_stats[parked[0]] += 1
         done = None
-        if self._defer_pull:
-            host_d = torch.empty(deltas.shape, dtype=deltas.dtype,
-                                 pin_memory=True)
-            host_w = torch.empty(wids.shape, dtype=wids.dtype,
-                                 pin_memory=True)
-            host_d.copy_(deltas, non_blocking=True)
-            host_w.copy_(wids, non_blocking=True)
+        if self.device.type == "cuda":
+            skip = self._FALLBACK.get(parked[0])
+            items = [parked[0]]
+            for i, x in enumerate(parked[1:], 1):
+                if isinstance(x, torch.Tensor) and x.is_cuda and i != skip:
+                    host = torch.empty(x.shape, dtype=x.dtype,
+                                       pin_memory=True)
+                    host.copy_(x, non_blocking=True)
+                    x = host
+                items.append(x)
             done = torch.cuda.Event()
             done.record()
-            deltas, wids = host_d, host_w
-        self._undrained.append(("dense", deltas, wids, done))
+            parked = tuple(items)
+        self._undrained.append((parked, done))
 
     def _materialize_drains(self, ready_only: bool = False) -> None:
         """Merge parked drain results into ``_pending_np`` as numpy
@@ -577,18 +827,35 @@ class AdAnalyticsEngine:
         if not parked_list:
             return
         base = self.encoder.base_time_ms or 0
-        for tag, deltas_t, wids_t, done in parked_list:
-            if tag != "dense":
-                raise ValueError(f"unknown parked drain tag {tag!r}")
+        for parked, done in parked_list:
             if done is not None:
                 done.synchronize()
-            deltas = deltas_t.numpy()
-            wids = wids_t.numpy()
-            ci, si = np.nonzero(deltas)
+            tag = parked[0]
+            if tag == "rows_host":
+                _, rows_np, sub, wids_t = parked
+                ci_l, si = np.nonzero(sub)
+                vals = sub[ci_l, si]
+                ci = rows_np[ci_l]
+            elif tag == "compact":
+                _, idx, vals_t, nnz, dense, wids_t = parked
+                ci, si, vals = self._decode_compact(
+                    idx, vals_t, nnz, lambda: _to_numpy(dense))
+            elif tag == "rows_compact":
+                _, rows_np, idx, vals_t, nnz, sub, wids_t = parked
+                ci_l, si, vals = self._decode_compact(
+                    idx, vals_t, nnz,
+                    lambda: _to_numpy(sub)[:rows_np.size])
+                ci = rows_np[ci_l]
+            elif tag == "dense":
+                _, deltas_t, wids_t = parked
+                deltas = _to_numpy(deltas_t)
+                ci, si = np.nonzero(deltas)
+                vals = deltas[ci, si]
+            else:
+                raise ValueError(f"unknown parked drain tag {tag!r}")
             if ci.size == 0:
                 continue
-            vals = deltas[ci, si]
-            wid = wids[si]
+            wid = _to_numpy(wids_t)[si]
             keep = wid >= 0
             if not keep.all():
                 ci, wid, vals = ci[keep], wid[keep], vals[keep]
@@ -597,6 +864,37 @@ class AdAnalyticsEngine:
                     (ci.astype(np.int64),
                      base + wid.astype(np.int64) * self.divisor,
                      vals.astype(np.int64)))
+
+    def _decode_compact(self, idx_t, vals_t, nnz_t, fallback):
+        """Decode one cap-compacted drain: ``(row_idx, slot, vals)`` from
+        the (idx, vals) pairs, or, when ``nnz`` overflowed the cap and the
+        pairs are incomplete, from the pre-drain block ``fallback()``
+        materializes (a blocking copy off the card)."""
+        nnz = int(nnz_t)
+        if nnz <= self.COMPACT_DRAIN_CAP:
+            idx = _to_numpy(idx_t)[:nnz].astype(np.int64)
+            vals = _to_numpy(vals_t)[:nnz]
+            ci, si = np.divmod(idx, self.W)
+            return ci, si, vals
+        self.drain_stats["overflow"] += 1
+        dense = fallback()
+        ci, si = np.nonzero(dense)
+        return ci, si, dense[ci, si]
+
+    def _fold_pending_arrays(self) -> None:
+        """Merge ``_pending_np`` array triples into the ``_pending`` dict
+        (snapshots and the exactly-once ledger need the dict view)."""
+        for ci, ts, cnt in self._pending_np:
+            for c, t, n in zip(ci.tolist(), ts.tolist(), cnt.tolist()):
+                self._pending[(c, t)] += n
+        self._pending_np.clear()
+
+    def pending_counts(self) -> dict[tuple[int, int], int]:
+        """Materialized-but-unflushed deltas as one dict view --
+        ``(campaign_idx, abs_window_ts) -> count`` -- folding the numpy
+        drain triples in."""
+        self._fold_pending_arrays()
+        return dict(self._pending)
 
     def flush(self, time_updated: int | None = None, *,
               final: bool = False) -> int:
@@ -615,6 +913,8 @@ class AdAnalyticsEngine:
             else:
                 self._materialize_drains()
         self._reclaim_failed_writes()
+        if self._xo:
+            return self._flush_exactly_once(time_updated)
         if not self._pending and not self._pending_np:
             return 0
         campaigns = self.encoder.campaigns
@@ -651,19 +951,123 @@ class AdAnalyticsEngine:
         return total
 
     def _ensure_writer(self) -> _RedisWriter:
-        """Get-or-start the background writeback thread."""
+        """Get-or-start the background writeback thread; in exactly-once
+        mode it takes the epoch and seq the sink attach claimed."""
         if self._writer is None:
             self._writer = _RedisWriter(
                 self.redis, self.tracer,
                 self._note_written, faults=self.faults,
                 retry_base_ms=self.cfg.jax_sink_retry_base_ms,
                 retry_cap_ms=self.cfg.jax_sink_retry_cap_ms,
-                dirty_cap_rows=self.cfg.jax_sink_dirty_cap_rows)
+                dirty_cap_rows=self.cfg.jax_sink_dirty_cap_rows,
+                exactly_once=self._xo, fence_key=self._fence_key,
+                epoch=self._sink_epoch, start_seq=self._sink_seq0)
         return self._writer
+
+    # ------------------------------------------------------------------
+    # exactly-once writeback (jax.sink.exactly_once)
+    def _xo_attach_sink(self) -> None:
+        """First fenced flush of an attempt: read the sink fence, detect
+        unfenced flushes of a previous lineage, claim the next epoch.
+
+        ``sink_seq > snapshot_seq`` means whole flushes landed after the
+        snapshot this attempt restored; ``intent > seq`` on top catches a
+        partly applied pipeline (intent is its first command, the commit
+        seq its last).  Either way replayed increments would count twice,
+        so the attempt writes every window it flushes absolute from the
+        ledger.  A failed read cannot prove the sink clean: reconcile and
+        retry the attach at the next flush."""
+        if self._xo_attached or self.redis is None:
+            return
+        base_e, base_s = self._xo_baseline
+        try:
+            e, s, i = read_fence(self.redis, self._fence_key)
+        except Exception:
+            self.faults.inc("fence_read_errors")
+            self._reconcile_all = True
+            return   # _xo_attached stays False: retry next flush
+        if max(s, i) > base_s:
+            if not self._reconcile_all:
+                self.faults.inc("sink_unfenced_resumes")
+            self._reconcile_all = True
+        epoch = max(e, base_e) + 1
+        try:
+            claim_epoch(self.redis, self._fence_key, epoch)
+        except Exception:
+            # nothing is submitted without a claimed epoch: retry the
+            # whole attach next flush (a claim that landed despite the
+            # error is simply superseded by the next one)
+            self.faults.inc("fence_read_errors")
+            return
+        self._sink_epoch = epoch
+        self._sink_seq0 = max(s, i, base_s)
+        self._xo_attached = True
+
+    def _fence_state(self) -> tuple[int, int]:
+        """The (epoch, committed seq) a snapshot records; stable after
+        ``drain_writes`` (``_snapshot_sync`` makes sure of it)."""
+        if self._writer is not None and self._xo:
+            return self._writer.fence_state()
+        if self._sink_epoch is not None:
+            return (self._sink_epoch, self._sink_seq0)
+        return self._xo_baseline
+
+    def _flush_exactly_once(self, time_updated: int | None) -> int:
+        """The fenced flush.  Deltas fold into the cumulative per-window
+        ledger first; tainted windows and, in reconcile mode, every
+        window are written ABSOLUTE from the ledger (idempotent); the
+        rest go as HINCRBY deltas.  Each submitted batch carries its
+        (epoch, seq) fence inside the same pipeline."""
+        self._xo_attach_sink()
+        self._fold_pending_arrays()
+        if not self._pending and not self._taint:
+            return 0
+        if self.redis is not None and self._sink_epoch is None:
+            # no claimed epoch (sink unreachable at attach): hold every
+            # delta in _pending and retry the attach next flush
+            return 0
+        totals = self._sink_totals
+        for key, n in self._pending.items():
+            totals[key] = totals.get(key, 0) + n
+        if self._reconcile_all:
+            abs_keys = self._taint | set(self._pending)
+            delta_keys: list = []
+        else:
+            abs_keys = set(self._taint)
+            delta_keys = [k for k in self._pending if k not in abs_keys]
+        campaigns = self.encoder.campaigns
+        rows_abs = [(campaigns[c], ts, totals[(c, ts)])
+                    for (c, ts) in sorted(abs_keys)]
+        rows_delta = [(campaigns[c], ts, self._pending[(c, ts)])
+                      for (c, ts) in delta_keys]
+        self._pending.clear()
+        self._taint.clear()
+        if rows_abs:
+            self.faults.inc("reconciled_windows", len(rows_abs))
+        total = len(rows_abs) + len(rows_delta)
+        if self.redis is not None:
+            writer = self._ensure_writer()
+            # ledger rewrites first: FIFO order keeps an absolute write of
+            # a window ahead of any later delta to it
+            if rows_abs:
+                writer.submit(rows_abs, time_updated, absolute=True)
+            if rows_delta:
+                writer.submit(rows_delta, time_updated)
+        else:
+            stamp = now_ms() if time_updated is None else time_updated
+            if rows_abs:
+                self._note_written(rows_abs, stamp)
+            if rows_delta:
+                self._note_written(rows_delta, stamp)
+        return total
 
     def _native_table(self):
         """(names_blob, names_off, native_store) when the sink is the
-        in-process native store, else None; built once."""
+        in-process native store, else None; built once.  Exactly-once
+        mode always returns None: the array writeback has no fence hook,
+        and the fence must ride the same pipeline as its rows."""
+        if self._xo:
+            return None
         if self._camp_table is False:
             tbl = None
             store = getattr(self.redis, "_store", None)
@@ -692,24 +1096,176 @@ class AdAnalyticsEngine:
 
     def _reclaim_failed_writes(self) -> None:
         """Fold failed writeback batches back into ``_pending`` so the
-        next flush retries them."""
+        next flush retries them (and snapshots never lose them)."""
         if self._writer is None:
             return
         idx = self.encoder.campaign_index
         for batch in self._writer.take_failed():
             self.faults.inc("sink_retries", len(batch))
+            if self._xo:
+                # the ledger already counted these deltas, and a failed
+                # pipeline may have landed a prefix of them: re-merging
+                # would count twice, dropping would count short.  Taint
+                # the windows: the next flush rewrites them absolute.
+                self._taint.update((idx[camp], int(ts))
+                                   for camp, ts, _ in batch)
+                continue
             for camp, ts, n in batch:
                 self._pending[(idx[camp], ts)] += n
 
     def drain_writes(self) -> None:
-        """Block until every queued Redis writeback has landed."""
+        """Block until every queued Redis writeback has landed: the sync
+        point before a checkpoint commits."""
         if self._writer is not None:
             self._writer.drain()
+
+    # ------------------------------------------------------------------
+    # checkpoint/resume: the state is four fixed-shape tensors plus host
+    # dicts, so a snapshot is one npz (``checkpoint.py``)
+    def _snapshot_sync(self) -> None:
+        """Make host bookkeeping snapshot-complete: parked drain deltas
+        live in neither the counts (zeroed) nor _pending, so fold them
+        in; queued writebacks must land before the snapshot commits;
+        batches whose write failed are reclaimed into _pending."""
+        self._materialize_drains()
+        self._fold_pending_arrays()
+        self.drain_writes()
+        self._reclaim_failed_writes()
+
+    def _snapshot_meta(self) -> dict:
+        """Host-side snapshot meta, as the JAX engine writes it."""
+        return dict(
+            engine_family=self.ENGINE_FAMILY,
+            base_time_ms=self.encoder.base_time_ms,
+            divisor_ms=self.divisor,
+            lateness_ms=self.lateness,
+            window_slots=self.W,
+            span_start=self._span_start,
+            events_processed=self.events_processed,
+            windows_written=self.windows_written,
+            started_ms=self.started_ms,
+            last_event_ms=self.last_event_ms,
+            num_campaigns=self.encoder.num_campaigns,
+        )
+
+    def snapshot(self, offset) -> Snapshot:
+        """Capture exact engine state as of journal byte ``offset`` (or a
+        per-partition offset vector)."""
+        self._snapshot_sync()
+        state = wc.state_to_numpy(self.state)
+        return self._xo_decorate(Snapshot(
+            offset=offset,
+            meta=self._snapshot_meta(),
+            counts=state.counts,
+            window_ids=state.window_ids,
+            watermark=int(state.watermark),
+            dropped=int(state.dropped),
+            pending=[(c, ts, n) for (c, ts), n in self._pending.items()],
+            latency=sorted(self.window_latency.items()),
+        ))
+
+    def _xo_decorate(self, snap: Snapshot) -> Snapshot:
+        """Attach the exactly-once ledger, taint and fence to a snapshot
+        (a no-op with the flag off).  Call after ``_snapshot_sync``."""
+        if not self._xo:
+            return snap
+        e, s = self._fence_state()
+        snap.meta["sink_epoch"] = int(e)
+        snap.meta["sink_seq"] = int(s)
+        snap.extra["xo_totals"] = np.asarray(
+            [(c, ts, n)
+             for (c, ts), n in sorted(self._sink_totals.items())],
+            np.int64).reshape(-1, 3)
+        snap.extra["xo_taint"] = np.asarray(
+            sorted(self._taint), np.int64).reshape(-1, 2)
+        return snap
+
+    def _check_geometry(self, snap: Snapshot) -> None:
+        """Family + ring-geometry validation: window ids are relative to
+        divisor and base, slots to W, so a mismatch is a hard error."""
+        fam = snap.meta.get("engine_family", "exact")
+        if fam != self.ENGINE_FAMILY:
+            raise ValueError(
+                f"checkpoint was written by engine family {fam!r}; this "
+                f"engine is {self.ENGINE_FAMILY!r} -- device state is not "
+                "interchangeable across families")
+        checks = dict(num_campaigns=self.encoder.num_campaigns,
+                      divisor_ms=self.divisor,
+                      lateness_ms=self.lateness,
+                      window_slots=self.W)
+        for key, mine in checks.items():
+            if int(snap.meta[key]) != mine:
+                raise ValueError(
+                    f"checkpoint {key}={snap.meta[key]} != engine {mine}; "
+                    "restart with the original config or discard the "
+                    "checkpoint")
+
+    def _restore_host(self, snap: Snapshot) -> None:
+        """Re-establish every host-side field from the snapshot."""
+        self.drain_writes()
+        self._undrained.clear()
+        self._undrained_ready.clear()
+        self._dirty_rows = []
+        if self._track_dirty_rows() and snap.counts.size:
+            # restored counts may hold undrained cells the tracker never
+            # saw: mark their rows dirty so the next drain finds them
+            live = np.nonzero(np.asarray(snap.counts).any(axis=1))[0]
+            if live.size:
+                self._dirty_rows.append(live)
+        self.encoder.set_base_time(snap.meta["base_time_ms"])
+        self._span_start = snap.meta["span_start"]
+        self.events_processed = int(snap.meta["events_processed"])
+        self.windows_written = int(snap.meta["windows_written"])
+        self.started_ms = int(snap.meta["started_ms"])
+        self.last_event_ms = int(snap.meta["last_event_ms"])
+        self._pending = defaultdict(int)
+        self._pending_np = []
+        for c, ts, n in snap.pending:
+            self._pending[(int(c), int(ts))] = int(n)
+        self.window_latency = {int(ts): int(v) for ts, v in snap.latency}
+        # exactly-once bookkeeping (flag off: the arrays are absent and
+        # everything resets to its dormant state); the sink fence is read
+        # at the first flush and judged against the baseline set here
+        self._sink_totals = {
+            (int(c), int(ts)): int(n)
+            for c, ts, n in snap.extra.get(
+                "xo_totals", np.empty((0, 3), np.int64))}
+        self._taint = {(int(c), int(ts))
+                       for c, ts in snap.extra.get(
+                           "xo_taint", np.empty((0, 2), np.int64))}
+        self._xo_baseline = (int(snap.meta.get("sink_epoch", 0)),
+                             int(snap.meta.get("sink_seq", 0)))
+        self._reconcile_all = False
+        self._xo_attached = not self._xo
+        self._sink_epoch = None
+        self._sink_seq0 = 0
+
+    def restore(self, snap: Snapshot) -> None:
+        """Reset this engine to a snapshot; the caller re-tails the
+        journal at ``snap.offset``."""
+        self._check_geometry(snap)
+        self.state = self._put_state(
+            snap.counts, snap.window_ids, snap.watermark, snap.dropped)
+        self._restore_host(snap)
+
+    def _put_state(self, counts, window_ids, watermark, dropped):
+        """Place restored host arrays on the engine's device."""
+        return wc.state_from_numpy((counts, window_ids, watermark, dropped),
+                                   self.device)
 
     # ------------------------------------------------------------------
     # Bounded shutdown retry: a transient sink outage at close must not
     # abandon the last flush's rows.
     CLOSE_RETRY_LIMIT = 8
+
+    def _close_unwritten(self) -> int:
+        """Window rows still unflushed at close: writer-retained failed
+        batches, plus (exactly-once) pending and tainted windows that a
+        sink-unreachable attach kept from ever being submitted."""
+        n = self._writer.dirty_rows() if self._writer is not None else 0
+        if self._xo:
+            n += len(self._pending) + len(self._taint)
+        return n
 
     def close(self) -> None:
         """Final flush + fork-style latency dump
@@ -719,11 +1275,21 @@ class AdAnalyticsEngine:
         self.flush(final=True)
         if self._writer is not None:
             self._writer.drain()
-            for _ in range(self.CLOSE_RETRY_LIMIT):
-                if not self._writer.dirty_rows():
-                    break
-                self.flush(final=True)  # reclaims failed rows, resubmits
+        for _ in range(self.CLOSE_RETRY_LIMIT):
+            if not self._close_unwritten():
+                break
+            self.flush(final=True)  # reclaims failed rows, resubmits
+            if self._writer is not None:
                 self._writer.drain()
+        if self._writer is None and self._close_unwritten():
+            # exactly-once with the sink down since before the first
+            # flush: no writer ever started, so account and raise here
+            lost = self._close_unwritten()
+            self.faults.inc("rows_lost", lost)
+            raise RuntimeError(
+                f"exactly-once close with {lost} windows never flushed "
+                "(sink unreachable: no writer epoch was ever claimed)")
+        if self._writer is not None:
             self._writer.close()
             self._writer = None
         if self.redis is not None and self.cfg.redis_hashtable:

@@ -2,7 +2,8 @@
 
 The port of ``streambench_tpu/engine/runner.py``: the serial loops only
 (``run`` and ``run_catchup``), in block mode where the engine and reader
-support it.  The operating policies are the reference engines':
+support it, with the checkpoint cadence and ``resume``.  The operating
+policies are the reference engines':
 
 - **buffer timeout** — a partial batch is dispatched once it is
   ``buffer_timeout_ms`` old (Flink's ``setBufferTimeout(100)``,
@@ -11,9 +12,13 @@ support it.  The operating policies are the reference engines':
   ``flush_interval_ms`` (``CampaignProcessorCommon.java:41-54``).
 - **pipelining** — CUDA launches are asynchronous: while the card folds
   batch N, the host is already tailing and encoding batch N+1.
+- **checkpoints** — with a ``Checkpointer``, a snapshot of the engine at
+  the reader's offset is saved after a flush once
+  ``checkpoint_interval_ms`` has passed (0 = after every flush), and once
+  more at the end of a run; ``resume()`` restores the newest one.
 
-Not ported yet: the staged ingest pipeline, checkpoints, chaos points and
-the flight recorder.
+Not ported yet: the staged ingest pipeline, chaos points and the flight
+recorder.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+from streambench_tpu_torch.checkpoint import Checkpointer
 from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.io.journal import JournalReader
 from streambench_tpu_torch.metrics import StallDetector
@@ -58,7 +64,9 @@ class StreamRunner:
     def __init__(self, engine: AdAnalyticsEngine, reader: JournalReader,
                  batch_size: int | None = None,
                  buffer_timeout_ms: int | None = None,
-                 flush_interval_ms: int | None = None):
+                 flush_interval_ms: int | None = None,
+                 checkpointer: Checkpointer | None = None,
+                 checkpoint_interval_ms: int | None = None):
         cfg = engine.cfg
         self.engine = engine
         self.reader = reader
@@ -69,6 +77,11 @@ class StreamRunner:
         self.flush_interval_ms = (flush_interval_ms
                                   if flush_interval_ms is not None
                                   else cfg.jax_flush_interval_ms)
+        self.checkpointer = checkpointer
+        self.checkpoint_interval_ms = (
+            checkpoint_interval_ms if checkpoint_interval_ms is not None
+            else cfg.jax_checkpoint_interval_ms)
+        self._last_ckpt = time.monotonic()
         # Backpressure canary: warn when the flush cadence slips to >2x its
         # period (the Apex stall warning, ProcessTimeAwareStore.java:84-87).
         self.stall_detector = StallDetector(
@@ -101,12 +114,53 @@ class StreamRunner:
             int(getattr(self.reader, "corrupt_records", 0)))
         self.stats.faults = f
 
-    def _flush(self, final: bool = False) -> None:
+    def _reader_position(self) -> int | list[int]:
+        """Single-partition byte offset, or the per-partition offsets
+        vector of a ``MultiReader`` (whose scalar ``.offset`` raises)."""
+        try:
+            return self.reader.offset
+        except AttributeError:
+            return list(self.reader.offsets)
+
+    def resume(self) -> bool:
+        """Restore engine + reader from the newest checkpoint, if any.
+        Call before ``run``; returns True when a snapshot was applied."""
+        if self.checkpointer is None:
+            return False
+        snap = self.checkpointer.load()
+        if snap is None:
+            return False
+        self.engine.restore(snap)
+        if isinstance(snap.offset, list):
+            self.reader.seek_offsets(snap.offset)
+        else:
+            self.reader.seek(snap.offset)
+        return True
+
+    def _checkpoint_now(self, now: float) -> None:
+        self.checkpointer.save(self.engine.snapshot(self._reader_position()))
+        self._last_ckpt = now
+
+    def _checkpoint_due(self, now: float) -> bool:
+        return (self.checkpointer is not None and
+                (now - self._last_ckpt) * 1000 >= self.checkpoint_interval_ms)
+
+    def _flush(self, now: float) -> None:
+        """The periodic flush, its stall tick and the checkpoint cadence."""
         st = self.stats
-        st.windows_written += self.engine.flush(final=final)
+        st.windows_written += self.engine.flush()
         st.flushes += 1
-        if not final:
-            self.stall_detector.tick(int(time.monotonic() * 1000))
+        self.stall_detector.tick(int(time.monotonic() * 1000))
+        if self._checkpoint_due(now):
+            self._checkpoint_now(now)
+
+    def _finish_run(self) -> None:
+        """Final flush + checkpoint shared by both loops' exit paths."""
+        st = self.stats
+        st.windows_written += self.engine.flush(final=True)
+        st.flushes += 1
+        if self.checkpointer is not None:
+            self._checkpoint_now(time.monotonic())
 
     def run(self, duration_s: float | None = None,
             idle_timeout_s: float | None = None,
@@ -193,12 +247,17 @@ class StreamRunner:
                 time.sleep(0.001)
 
             if (now - last_flush) * 1000 >= self.flush_interval_ms:
-                self._flush()
+                if self._checkpoint_due(now) and pending:
+                    # the reader offset already covers polled but
+                    # unprocessed lines: fold them first so a snapshot at
+                    # that offset cannot skip them on resume
+                    dispatch()
+                self._flush(now)
                 last_flush = now
 
         if pending:
             dispatch()
-        self._flush(final=True)
+        self._finish_run()
         st.finished_ms = now_ms()
         self._collect_faults()
         return st
@@ -231,9 +290,9 @@ class StreamRunner:
                 break
             now = time.monotonic()
             if (now - last_flush) * 1000 >= self.flush_interval_ms:
-                self._flush()
+                self._flush(now)
                 last_flush = now
-        self._flush(final=True)
+        self._finish_run()
         st.finished_ms = now_ms()
         self._collect_faults()
         return st

@@ -274,7 +274,10 @@ class NativeRedisStore(FakeRedisStore):
                 # not a single retry — another thread's write can grow
                 # the same structure between the two calls.
                 self._buf = ctypes.create_string_buffer(-n + 256)
-            reply = self._buf.raw[:n]
+            # string_at copies the n reply bytes; ``.raw[:n]`` would copy
+            # the whole buffer, which one large reply (SMEMBERS of 1e6
+            # campaigns) grows to tens of MB for every later command
+            reply = ctypes.string_at(self._buf, n)
         val, _ = _parse_resp(reply)
         if isinstance(val, RespError):
             raise val

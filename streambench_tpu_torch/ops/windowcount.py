@@ -1,7 +1,8 @@
 """The exact-count fold on device: per-(campaign, window) view counting.
 
-The port of ``streambench_tpu/ops/windowcount.py`` for the functions the
-dense main path runs.  Per micro-batch, in tensor terms::
+The port of ``streambench_tpu/ops/windowcount.py``: the fold, the dense
+drain, and the large-key-space drains (touched rows and on-device
+compaction of the nonzero cells).  Per micro-batch, in tensor terms::
 
     campaign = join_table[ad_idx]            # the Redis-join, as a gather
     wid      = event_time // divisor         # 10 s tumbling window id
@@ -174,6 +175,115 @@ def flush_deltas(state: WindowState, *, divisor_ms: int = 10_000,
         dropped=state.dropped,
     )
     return state.counts, state.window_ids, new_state
+
+
+# ----------------------------------------------------------------------
+# Large-key-space drains.  At C = 1e6, W = 64 the [C, W] block is 256 MB
+# and almost all zeros, so these drains hand the host only the nonzero
+# cells as (flat_idx, count) pairs, at most ``cap`` of them.  Every op
+# below is dispatched without a host synchronisation: shapes are fixed by
+# the inputs and ``cap``, and ``nnz`` stays a device tensor.
+
+def _nonzero_capped(flat: torch.Tensor, cap: int):
+    """``(idx [cap] int32, vals [cap], nnz int32 [])``: the first ``cap``
+    indices of ``flat > 0`` in ascending order, zero-padded, their values,
+    and how many there are in all: ``jnp.nonzero(flat > 0, size=cap,
+    fill_value=0)`` and ``jnp.count_nonzero(flat)`` for counts, which are
+    never negative.
+
+    Never ``torch.nonzero``, whose output shape makes it wait for the
+    device.  Each counted cell writes its flat index to its rank among
+    the counted cells; cells ranked past ``cap`` and uncounted cells all
+    write to one extra slot that is thrown away."""
+    n = flat.shape[0]
+    mask = flat > 0
+    counted = torch.cumsum(mask, 0, dtype=torch.int32) - mask.int()
+    dest = torch.where(mask & (counted < cap), counted, cap)
+    slots = torch.zeros(cap + 1, dtype=torch.int32, device=flat.device)
+    slots.index_put_((dest,), torch.arange(n, dtype=torch.int32,
+                                           device=flat.device))
+    idx = slots[:cap]
+    # the cells at idx (padding reads cell 0, as the JAX op's does)
+    vals = flat[idx] if n else flat.new_zeros(cap)
+    return idx, vals, mask.sum(dtype=torch.int32)
+
+
+def flush_deltas_compact(state: WindowState, *, cap: int,
+                         divisor_ms: int = 10_000,
+                         lateness_ms: int = 60_000):
+    """``flush_deltas`` with the nonzero cells compacted on the device.
+
+    Returns ``(flat_idx [cap], counts [cap], nnz, dense, window_ids,
+    new_state)`` with ``flat_idx = campaign * W + slot``; entries past
+    ``nnz`` are padding.  When ``nnz > cap`` the pairs are incomplete and
+    the caller reads ``dense``: the counts tensor as it was before the
+    drain (the new state holds a fresh zeroed one, as in
+    ``flush_deltas``)."""
+    flat = state.counts.reshape(-1)
+    idx, vals, nnz = _nonzero_capped(flat, cap)
+    dense, wids, new_state = flush_deltas(
+        state, divisor_ms=divisor_ms, lateness_ms=lateness_ms)
+    return idx, vals, nnz, dense, wids, new_state
+
+
+def flush_deltas_rows_compact(state: WindowState, rows: torch.Tensor,
+                              nrow, *, cap: int, divisor_ms: int = 10_000,
+                              lateness_ms: int = 60_000):
+    """Touched-rows drain with the nonzero cells compacted on the device.
+
+    Gathers ``sub = counts[rows]`` (a copy), compacts its cells and zeroes
+    the touched rows of the live counts in place; the drain reads only
+    ``sub``, so no parked drain ever sees the zeroing.  ``flat_idx``
+    indexes the gathered block: ``campaign = rows[flat_idx // W]``,
+    ``slot = flat_idx % W``.  Rows at or past ``nrow`` (a host int) are
+    padding (the JAX op pads ``rows`` with zeros to one fixed size);
+    their cells are masked out so they do not count campaign 0 again.
+    The engine passes exactly ``nrow`` rows, so it skips the mask.
+    ``nnz > cap`` means
+    the pairs are incomplete and the caller reads ``sub``.  Returns
+    ``(idx [cap], vals [cap], nnz, sub [R, W], window_ids, new_state)``."""
+    sub = state.counts[rows]
+    flat = sub.reshape(-1)
+    if nrow < rows.shape[0]:
+        keep = (torch.arange(rows.shape[0], device=rows.device)
+                < nrow)[:, None]
+        flat = torch.where(keep, sub, 0).reshape(-1)
+    idx, vals, nnz = _nonzero_capped(flat, cap)
+    _, wids, new_state = _zero_rows(state, rows, divisor_ms, lateness_ms)
+    return idx, vals, nnz, sub, wids, new_state
+
+
+def _zero_rows(state: WindowState, rows: torch.Tensor,
+               divisor_ms: int, lateness_ms: int):
+    """Zero ``rows`` of the counts in place and free closed slots."""
+    new_state = WindowState(
+        counts=state.counts.index_fill_(0, rows, 0),
+        window_ids=_still_open(state.window_ids, state.watermark,
+                               divisor_ms, lateness_ms),
+        watermark=state.watermark,
+        dropped=state.dropped,
+    )
+    return None, state.window_ids, new_state
+
+
+def flush_free_slots(state: WindowState, *, divisor_ms: int = 10_000,
+                     lateness_ms: int = 60_000) -> WindowState:
+    """Slot-free-only drain: nothing was counted since the last drain, so
+    the counts pass through untouched and only closed ring slots are
+    freed."""
+    return WindowState(state.counts,
+                       _still_open(state.window_ids, state.watermark,
+                                   divisor_ms, lateness_ms),
+                       state.watermark, state.dropped)
+
+
+def flush_rows_zero(state: WindowState, rows: torch.Tensor, *,
+                    divisor_ms: int = 10_000, lateness_ms: int = 60_000):
+    """The zero-and-free half of a touched-rows drain, for callers that
+    already copied the touched rows out (the CPU engine reads them
+    through a numpy view).  Returns ``(window_ids, new_state)``."""
+    _, wids, new_state = _zero_rows(state, rows, divisor_ms, lateness_ms)
+    return wids, new_state
 
 
 # ----------------------------------------------------------------------

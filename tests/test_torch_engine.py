@@ -240,10 +240,10 @@ def test_cli_catchup_on_cpu(tmp_path):
 @pytest.mark.parametrize("extra,conf_line,word", [
     (["--sharded"], "", "--sharded"),
     (["--engine", "hll"], "", "--engine hll"),
-    (["--checkpointDir", "ck"], "", "--checkpointDir"),
-    ([], "jax.sink.exactly_once: true", "jax.sink.exactly_once"),
+    (["--traceDir", "tr"], "", "--traceDir"),
+    ([], 'jax.decode.device: "on"', "jax.decode.device"),
     ([], 'jax.ingest.pipeline: "on"', "jax.ingest.pipeline"),
-], ids=["sharded", "engine", "checkpoints", "exactly_once", "ingest"])
+], ids=["sharded", "engine", "trace", "device_decode", "ingest"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, extra, conf_line,
                                        word):
     conf = tmp_path / "conf.yaml"
@@ -280,8 +280,7 @@ def test_resolve_device_and_method_choice():
                           method="matmul")
 
 
-@pytest.mark.parametrize("key,value", [
-    ("jax_sink_exactly_once", True), ("jax_decode_device", "on")])
+@pytest.mark.parametrize("key,value", [("jax_decode_device", "on")])
 def test_engine_refuses_config_it_cannot_honor(key, value):
     with pytest.raises(ValueError, match="not ported"):
         AdAnalyticsEngine(default_config(**{key: value}), {"ad": "camp"},
@@ -296,3 +295,17 @@ def test_warmup_leaves_state_and_output_unchanged():
     assert not counts.any() and (window_ids == -1).all()
     assert int(watermark) == 0 and int(dropped) == 0
     assert engine.flush(final=True) == 0 and engine.dropped == 0
+
+
+def test_native_store_replies_after_one_large_reply():
+    """A reply of tens of MB (SMEMBERS over many campaigns) grows the
+    native store's reply buffer; every later reply is still exactly its
+    own bytes."""
+    r = as_redis(make_store())
+    campaigns = [f"campaign-{i:07d}" for i in range(60_000)]
+    seed_campaigns(r, campaigns)
+    assert sorted(r.execute("SMEMBERS", "campaigns")) == campaigns
+    r.execute("HSET", "h", "f", "v")
+    assert r.execute("HGET", "h", "f") == "v"
+    assert r.execute("HGET", "h", "missing") is None
+    assert r.execute("LLEN", "no-list") == 0
