@@ -48,10 +48,28 @@ result line) when any phase fails:
    same journal then runs once with the flag off, for the writer's cost
    per row without the fence.
 
-K1's launches are counted over each of phases 4, 6 and 7, from 0 just
-before the phase's run to just after it.  The line before the nvidia-smi
-line is ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
-{...}}``.
+8. Pipelined catchup: phase 4's journal again, with
+   ``jax.ingest.pipeline: on`` and ``jax.encode.workers: 4``, through
+   ``StreamRunner.run_catchup`` (read, encode and fold on three threads,
+   the encode on a pool of four native encoders); every window must equal
+   phase 4's oracle-checked rows, compared in full.  Its ev/s beside phase
+   4's, the stage spans, the pipeline's telemetry and the host's cores.
+9. Paced YSB through the port's harness, as users run it: ``python -m
+   streambench_tpu_torch.harness TORCH_TEST`` in a fresh workdir (a RESP
+   server process, the engine process on ``cuda`` with the pipeline on
+   and four encode workers, the generator at 100,000 ev/s for 60 s over
+   the file journal, ``-g`` stats, ``VERIFY=1``).  The engine must exit
+   0 having folded exactly the events the generator emitted, none
+   dropped, with every window in Redis equal to the oracle over the
+   journal; the window latency (``updated.txt``) as p50/p90/p99/max.
+10. Fake Kafka: the same composite with ``KAFKA_FAKE=1`` (the broker its
+   own process, one partition), 10,000 ev/s for 30 s.
+
+K1's launches are counted over each of phases 4 and 6-10, from 0 just
+before the phase's run to just after it (phases 9 and 10 run the engine
+in its own process, which reports them in its stats line).  The line
+before the nvidia-smi line is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--events N] [--out FILE]
 """
@@ -63,6 +81,7 @@ import json
 import os
 import random
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -77,6 +96,9 @@ LARGE_EVENTS = 1_000_000           # config #5's dataset, bench.py:1227-1230
 CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
            "jax.batch.size": 8192, "jax.num.campaigns": 1_000_000,
            "jax.ads.per.campaign": 1}
+# phases 9 and 10: (rate ev/s, seconds) of the paced load
+PACED_LOAD = (100_000, 60)
+KAFKA_LOAD = (10_000, 30)
 REPO = os.path.dirname(os.path.abspath(__file__))
 CASES = (
     # (label, B, C, W, inputs): "zipf" = Zipf(1.2) campaigns, uniform
@@ -576,8 +598,193 @@ def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
         print(f"[profile] {json.dumps(result['profile'])}", flush=True)
         plane, steps = _capture_steps(cfg, mapping, campaigns, broker,
                                       min(events, PROFILE_EVENTS))
-        return result, plane, steps
+        pipelined = phase_pipelined_catchup(workdir, broker, mapping,
+                                            campaigns, r, result)
+        return result, plane, steps, pipelined
     finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _store_windows(r) -> dict:
+    """``(campaign, window_ts) -> seen_count`` of every window in a store:
+    one HGETALL per campaign, one HGET per window."""
+    out = {}
+    for campaign in r.execute("SMEMBERS", "campaigns"):
+        fields = r.execute("HGETALL", campaign) or []
+        for ts, key in zip(fields[::2], fields[1::2]):
+            if ts != "windows":
+                out[(campaign, int(ts))] = int(
+                    r.execute("HGET", key, "seen_count"))
+    return out
+
+
+def phase_pipelined_catchup(workdir: str, broker, mapping, campaigns,
+                            serial_store, serial: dict) -> dict:
+    """Phase 8: phase 4's journal through the staged ingest pipeline and
+    the encode pool (see the module doc)."""
+    import torch
+
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis, seed_campaigns
+    from streambench_tpu_torch.ops.count import count_cells
+
+    cfg = _config(workdir, {"jax.ingest.pipeline": "on",
+                            "jax.encode.workers": 4})
+    r = as_redis(make_store())
+    seed_campaigns(r, campaigns)
+    engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns, redis=r,
+                               device="cuda")
+    if engine._encode_pool is None:
+        raise AssertionError("the encode pool was not built")
+    reader = broker.reader(cfg.kafka_topic)
+    runner = StreamRunner(engine, reader)
+    if not runner._pipeline_on():
+        raise AssertionError("the ingest pipeline is not on")
+
+    count_cells.launches = 0              # this path starts here
+    t0 = time.perf_counter()
+    stats = runner.run_catchup()
+    run_s = time.perf_counter() - t0
+    engine.close()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = count_cells.launches       # this path ends here
+    reader.close()
+    result = {
+        "events": stats.events, "batches": stats.batches,
+        "flushes": stats.flushes, "windows_written": stats.windows_written,
+        "dropped": engine.dropped, "run_catchup_s": run_s,
+        "catchup_with_close_s": total_s,
+        "events_per_s": stats.events / run_s,
+        "events_per_s_with_close": stats.events / total_s,
+        "serial_events_per_s": serial["events_per_s"],
+        "serial_events_per_s_with_close": serial["events_per_s_with_close"],
+        "count_cells_launches": launches,
+        "serial_count_cells_launches": serial["count_cells_launches"],
+        "pipeline": runner._pipeline.telemetry(),
+        "cpu_count": os.cpu_count(),
+        "sched_affinity": len(os.sched_getaffinity(0)),
+        "stages": engine.tracer.as_dict(),
+    }
+    print(f"[pipeline] {json.dumps(result)}", flush=True)
+    t0 = time.perf_counter()
+    got, want = _store_windows(r), _store_windows(serial_store)
+    result["windows_compared"] = len(want)
+    result["compare_s"] = time.perf_counter() - t0
+    if got != want or not want:
+        diff = [k for k in set(got) | set(want) if got.get(k) != want.get(k)]
+        raise AssertionError(f"pipelined windows differ from phase 4's at "
+                             f"{len(diff)} of {len(want)}: {diff[:5]}")
+    print(f"[pipeline] {len(want)} windows equal phase 4's oracle-checked "
+          f"rows ({result['compare_s']:.2f} s)", flush=True)
+    if stats.events != serial["events"] or engine.dropped:
+        raise AssertionError(f"folded {stats.events} of {serial['events']}, "
+                             f"dropped {engine.dropped}")
+    if launches <= 0:
+        raise AssertionError("the count kernel never launched on the "
+                             "pipelined path")
+    return result
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _percentiles(values) -> dict:
+    import numpy as np
+
+    a = np.asarray(values, dtype=np.float64)
+    return {"rows": int(a.size), "p50_ms": float(np.percentile(a, 50)),
+            "p90_ms": float(np.percentile(a, 90)),
+            "p99_ms": float(np.percentile(a, 99)), "max_ms": float(a.max())}
+
+
+def phase_paced(tag: str, load: tuple[int, int], **env_extra) -> dict:
+    """Phases 9 and 10: the harness composite ``TORCH_TEST`` in a fresh
+    workdir (see the module doc); every process it starts is stopped."""
+    rate, seconds = load
+    workdir = _workdir(f"smoke_{tag}")
+    harness = [sys.executable, "-m", "streambench_tpu_torch.harness"]
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1",
+               WORKDIR=workdir, REDIS_PORT=str(_free_port()),
+               TOPIC="ad-events", LOAD=str(rate), TEST_TIME=str(seconds),
+               DEVICE="cuda", INGEST_PIPELINE="on", ENCODE_WORKERS="4",
+               STOP_STATS_GRACE="5", VERIFY="1")
+    env.update(env_extra)
+
+    def log(name: str) -> str:
+        try:
+            with open(os.path.join(workdir, "logs", f"{name}.log")) as f:
+                return f.read()
+        except OSError:
+            return ""
+
+    try:
+        t0 = time.perf_counter()
+        p = subprocess.run([*harness, "TORCH_TEST"], cwd=REPO, env=env,
+                           capture_output=True, text=True,
+                           timeout=seconds + 420)
+        wall_s = time.perf_counter() - t0
+        engine_log, load_log = log("engine"), log("load")
+        if p.returncode:
+            raise AssertionError(
+                f"TORCH_TEST exited {p.returncode}: {p.stdout[-1500:]} "
+                f"{p.stderr[-1500:]} engine.log: {engine_log[-2500:]}")
+        lines = engine_log.splitlines()
+        stats = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+        emitted = int(load_log.split("emitted ")[-1].split()[0])
+        behind = [float(ln.split(":")[1].strip()[:-2])
+                  for ln in load_log.splitlines()
+                  if ln.startswith("Falling behind by:")]
+        with open(os.path.join(workdir, "verify.json")) as f:
+            verify = json.load(f)
+        with open(os.path.join(workdir, "updated.txt")) as f:
+            updated = [int(v) for v in f.read().split()]
+        with open(os.path.join(workdir, "seen.txt")) as f:
+            seen_rows = len(f.read().split())
+        result = {
+            "load_ev_per_s": rate, "test_time_s": seconds,
+            "harness_wall_s": wall_s, "engine_stats": stats,
+            "emitted": emitted, "emitted_per_s": emitted / seconds,
+            "falling_behind_lines": len(behind),
+            "falling_behind_max_ms": max(behind, default=0.0),
+            "falling_behind_first_ms": behind[:5],
+            "pacing": [ln for ln in load_log.splitlines()
+                       if ln.startswith(("pacing:", "formatter:"))],
+            "engine_up": [ln for ln in lines if "engine up:" in ln],
+            "flush_stalls": [ln for ln in lines
+                             if ln.startswith("flush stalls:")],
+            "ingest_pipeline": [json.loads(ln.split(":", 1)[1]) for ln in lines
+                                if ln.startswith("ingest pipeline:")],
+            "verify": verify, "seen_rows": seen_rows,
+            "window_latency": _percentiles(updated) if updated else None,
+            "count_cells_launches": stats["kernel_launches"]["count_cells"],
+            # the engine's stage spans and latency deciles (its stderr)
+            "engine_report": [ln for ln in lines if ln.startswith(
+                ("  ", "trace", "latency report"))][:40],
+        }
+        print(f"[{tag}] {json.dumps(result)}", flush=True)
+        if stats["events"] != emitted or stats["dropped"]:
+            raise AssertionError(f"engine folded {stats['events']} of "
+                                 f"{emitted} emitted, dropped "
+                                 f"{stats['dropped']}")
+        if not seen_rows or not updated:
+            raise AssertionError("seen.txt is empty")
+        if (verify["windows_differ"] or verify["windows_missing"]
+                or verify["windows_extra"] or not verify["windows_correct"]
+                or verify["journal_events"] != emitted):
+            raise AssertionError(f"windows do not match the journal: "
+                                 f"{verify}")
+        if result["count_cells_launches"] <= 0:
+            raise AssertionError("the count kernel never launched in the "
+                                 "engine process")
+        return result
+    finally:
+        subprocess.run([*harness, "STOP_ALL"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=180)
         shutil.rmtree(workdir, ignore_errors=True)
 
 
@@ -806,9 +1013,12 @@ def main(argv: list[str] | None = None) -> int:
     smi = phase_device()
     ptxas = phase_build()
     cases, floor = phase_kernels()
-    e2e, (C, W), steps = phase_end_to_end(args.events)
+    e2e, (C, W), steps, pipelined = phase_end_to_end(args.events)
     large = phase_large_key_space(LARGE_EVENTS)
     xo = phase_exactly_once_resume(LARGE_EVENTS)
+    paced = phase_paced("paced", PACED_LOAD)
+    kafka = phase_paced("kafka", KAFKA_LOAD, KAFKA_FAKE="1",
+                        KAFKA_BROKERS=f"127.0.0.1:{_free_port()}")
     cases.append(_kernel_case(
         f"the main path's own rows: every launch of the catchup's first "
         f"{min(args.events, PROFILE_EVENTS)} events", C, W, "catchup",
@@ -824,7 +1034,10 @@ def main(argv: list[str] | None = None) -> int:
         "launches_by_path": {
             "stock_catchup": e2e["count_cells_launches"],
             "config5_catchup": large["count_cells_launches"],
-            "exactly_once_resume": xo["count_cells_launches"]},
+            "exactly_once_resume": xo["count_cells_launches"],
+            "pipelined_catchup": pipelined["count_cells_launches"],
+            "paced_ysb": paced["count_cells_launches"],
+            "fake_kafka": kafka["count_cells_launches"]},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -841,7 +1054,9 @@ def main(argv: list[str] | None = None) -> int:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels,
                        "end_to_end": e2e, "large_key_space": large,
-                       "exactly_once_resume": xo, "nvidia_smi": smi,
+                       "exactly_once_resume": xo,
+                       "pipelined_catchup": pipelined, "paced_ysb": paced,
+                       "fake_kafka": kafka, "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

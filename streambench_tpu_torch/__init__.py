@@ -12,6 +12,9 @@ io, encode, native, datagen, metrics, trace).  Entry points run on
 initialises no CUDA context and builds nothing: the native host library
 and the CUDA kernel are compiled at first use into ``build/``.
 
-Ported so far: the exact-count catchup (``engine.AdAnalyticsEngine``,
-``engine.StreamRunner``, ``python -m streambench_tpu_torch.engine``).
+Ported so far: the exact-count engine (``engine.AdAnalyticsEngine``,
+``engine.StreamRunner``, ``python -m streambench_tpu_torch.engine``) with
+its staged ingest pipeline, encode pool, Kafka source and dead-letter
+queue, the generator CLI (``python -m streambench_tpu_torch.datagen``) and
+the harness (``python -m streambench_tpu_torch.harness``).
 """

@@ -377,7 +377,8 @@ def run_paced(sink: JournalWriter, throughput: int,
               rng: random.Random | None = None,
               tick_s: float = 0.01,
               num_users: int = 100,
-              on_behind: Callable[[float], None] | None = None) -> int:
+              on_behind: Callable[[float], None] | None = None,
+              stop: Callable[[], bool] | None = None) -> int:
     """``-r -t N``: paced emission at ``throughput`` events/s (``run``,
     ``core.clj:183-204``).
 
@@ -386,7 +387,11 @@ def run_paced(sink: JournalWriter, throughput: int,
     contract (``times`` lazy seq, ``core.clj:190-191``).  Events due in the
     same ~10 ms tick are emitted as one batch, which is what lets a single
     Python process sustain rates the per-event-sleep Clojure loop cannot.
-    Returns events emitted.  Stops after ``duration_s`` or ``max_events``.
+    Returns events emitted.  Stops after ``duration_s`` or ``max_events``,
+    or once ``stop()`` is true.  ``stop`` is checked between batches only,
+    so the count returned is exactly what reached the sink: a signal that
+    raised ``SystemExit`` inside a batch would leave records written but
+    not counted.
     """
     ids = load_ids(workdir)
     if ids is None:
@@ -417,6 +422,8 @@ def run_paced(sink: JournalWriter, throughput: int,
     try:
         while True:
             if max_events is not None and sent >= max_events:
+                break
+            if stop is not None and stop():
                 break
             now_ns = time.time_ns()
             if not slept:

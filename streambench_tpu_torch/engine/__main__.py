@@ -1,7 +1,7 @@
 """Engine process CLI for the PyTorch port — exact count only.
 
 Loads the config, builds the ``AdAnalyticsEngine`` on the requested device
-(``--device``, default ``cuda``), tails the file-journal topic, flushes the
+(``--device``, default ``cuda``), tails the broker topic, flushes the
 canonical Redis window schema, and at the end (catchup drained, duration,
 idle timeout, or SIGTERM) closes the engine and prints the same JSON stats
 line as ``python -m streambench_tpu.engine``.  Any key space the config
@@ -10,13 +10,21 @@ drains); ``--checkpointDir`` saves (offset, state) snapshots there and
 resumes from the newest one at start; ``jax.sink.exactly_once: true``
 turns on the fenced exactly-once writeback.
 
+The source side: the broker is the file journal, the fake Kafka broker
+(``kafka.fake: true``; in process, or the ``START_KAFKA`` server named by
+``kafka.bootstrap``) or a real cluster (``kafka.bootstrap`` with
+confluent-kafka installed; without it the CLI fails, never falls back).
+``jax.ingest.pipeline`` (off/on/auto) overlaps read, encode and fold on
+their own threads; ``jax.encode.workers > 1`` encodes on a pool of native
+encoders; ``jax.deadletter.enabled`` journals malformed events to
+``<topic>-deadletter``.
+
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
         --workdir RUN_DIR --catchup [--device cuda|cpu] [--checkpointDir D]
 
 Options and config keys that need parts of the JAX engine not ported yet
 (other engines, sharding, device traces, the fork's micro-batch mode,
-tenants, the staged ingest pipeline, device decode, the encode pool, the
-dead-letter queue, Kafka, observability, SLOs) are refused with exit 2.
+tenants, device decode, observability, SLOs) are refused with exit 2.
 """
 
 from __future__ import annotations
@@ -33,9 +41,10 @@ from streambench_tpu_torch.datagen import gen
 from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.engine.runner import StreamRunner
 from streambench_tpu_torch.io.fakeredis import make_store
-from streambench_tpu_torch.io.journal import FileBroker
+from streambench_tpu_torch.io.kafka import make_broker
 from streambench_tpu_torch.io.redis_schema import as_redis
 from streambench_tpu_torch.io.resp import RespClient
+from streambench_tpu_torch.ops.count import count_cells
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,8 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unsupported(args, cfg) -> list[str]:
     """What this run asks for beyond what the port runs: the exact-count
-    engine on one device, at any key space, with checkpoint/resume and
-    the exactly-once sink."""
+    engine on one device, at any key space, with checkpoint/resume, the
+    exactly-once sink, the staged ingest pipeline, the encode pool, the
+    dead-letter queue and the Kafka source."""
     out = []
     for flag, on in (("--sharded", args.sharded),
                      ("--engine " + str(args.engine), args.engine != "exact"),
@@ -81,12 +91,7 @@ def unsupported(args, cfg) -> list[str]:
             out.append(flag)
     for key, on in (
             ("jax.tenants", cfg.jax_tenants),
-            ("jax.ingest.pipeline", cfg.jax_ingest_pipeline != "off"),
             ("jax.decode.device", cfg.jax_decode_device != "off"),
-            ("jax.encode.workers", cfg.jax_encode_workers > 1),
-            ("jax.deadletter.enabled", cfg.jax_deadletter_enabled),
-            ("kafka.bootstrap", cfg.kafka_bootstrap),
-            ("kafka.fake", cfg.kafka_fake),
             ("jax.metrics.interval.ms", cfg.jax_metrics_interval_ms > 0),
             ("jax.metrics.port", cfg.jax_metrics_port >= 0),
             ("jax.obs.*", any((cfg.jax_obs_lifecycle, cfg.jax_obs_flightrec,
@@ -126,8 +131,9 @@ def main(argv: list[str] | None = None) -> int:
     missing = unsupported(args, cfg)
     if missing:
         print("error: not ported to the PyTorch engine yet (it runs the "
-              "exact count with checkpoints and the exactly-once sink): "
-              + ", ".join(missing), file=sys.stderr)
+              "exact count with checkpoints, the exactly-once sink, the "
+              "ingest pipeline, the encode pool, the dead-letter queue and "
+              "the Kafka source): " + ", ".join(missing), file=sys.stderr)
         return 2
 
     mapping, campaigns = load_mapping(cfg, args.workdir)
@@ -138,16 +144,27 @@ def main(argv: list[str] | None = None) -> int:
     engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
                                redis=redis, device=args.device)
 
-    broker = FileBroker(args.brokerDir
-                        or os.path.join(args.workdir, "broker"))
+    broker = make_broker(cfg.kafka_bootstrap_servers,
+                         args.brokerDir
+                         or os.path.join(args.workdir, "broker"),
+                         fake=cfg.kafka_fake)
     broker.create_topic(cfg.kafka_topic)
+    # Dead-letter queue (off by default): malformed events are journaled
+    # to <topic>-deadletter instead of only bumping bad_lines.  Wired to
+    # the primary encoder; encode pool workers still count rejects but
+    # journal only from the primary.
+    deadletter = None
+    if cfg.jax_deadletter_enabled:
+        deadletter = broker.writer(f"{cfg.kafka_topic}-deadletter")
+        engine.encoder.set_deadletter(deadletter)
     n_parts = len(broker.partitions(cfg.kafka_topic))
     # one consumer over the whole topic, every partition
     reader = (broker.multi_reader(cfg.kafka_topic) if n_parts > 1
               else broker.reader(cfg.kafka_topic))
     checkpointer = (Checkpointer(args.checkpointDir) if args.checkpointDir
                     else None)
-    runner = StreamRunner(engine, reader, checkpointer=checkpointer)
+    runner = StreamRunner(engine, reader, checkpointer=checkpointer,
+                          ingest_pipeline=cfg.jax_ingest_pipeline)
     if runner.resume():
         print(f"resumed from checkpoint: offset={runner._reader_position()} "
               f"events={engine.events_processed}", flush=True)
@@ -162,10 +179,15 @@ def main(argv: list[str] | None = None) -> int:
     warm.warmup()
     warm.close()
     del warm
+    # the count kernel's launches over the run itself (warmup's excluded);
+    # CPU folds take the plain version and launch nothing
+    count_cells.launches = 0
 
     print(f"engine up: topic={cfg.kafka_topic} redis={cfg.redis_host}:"
           f"{cfg.redis_port} batch={engine.batch_size} "
-          f"device={engine.device} method={engine.method}", flush=True)
+          f"device={engine.device} method={engine.method} "
+          f"pipeline={'on' if runner._pipeline_on() else 'off'} "
+          f"encode_workers={cfg.jax_encode_workers}", flush=True)
     if args.catchup:
         stats = runner.run_catchup(max_events=args.maxEvents)
     else:
@@ -181,11 +203,16 @@ def main(argv: list[str] | None = None) -> int:
         close_err = e
         print(f"error: {e}", file=sys.stderr, flush=True)
     reader.close()
+    if deadletter is not None:
+        deadletter.close()
     rows_lost = engine.faults.get("rows_lost")
     if rows_lost:
         stats.faults = dict(stats.faults, rows_lost=rows_lost)
     print(engine.tracer.report(), file=sys.stderr, flush=True)
     print(engine.latency_tracker.report(), file=sys.stderr, flush=True)
+    if runner._pipeline is not None:
+        print(f"ingest pipeline: {json.dumps(runner._pipeline.telemetry())}",
+              file=sys.stderr, flush=True)
     if runner.stall_detector.stalls:
         print(f"flush stalls: {runner.stall_detector.stalls}",
               file=sys.stderr, flush=True)
@@ -195,6 +222,7 @@ def main(argv: list[str] | None = None) -> int:
         "events_per_s": round(stats.events_per_s, 1),
         "dropped": engine.dropped, "wall_s": round(stats.wall_s, 2),
         "faults": stats.faults,
+        "kernel_launches": {"count_cells": count_cells.launches},
     }), flush=True)
     return 1 if close_err is not None else 0
 

@@ -15,8 +15,12 @@ event times on the host (no device sync) and drains the device deltas
 into a host-side pending buffer when the span guard trips; the wall-clock
 flush cadence to Redis stays the reference's 1 Hz.
 
-Not ported yet (later slices): observability hooks, device decode and the
-parallel encode pool.
+With ``jax.encode.workers > 1`` the host encode runs on a pool of
+per-thread native encoders (``encode.parallel``); the ingest pipeline
+(``engine.ingest``) calls the encode halves from its own thread, and only
+the host loop's thread folds.
+
+Not ported yet (later slices): observability hooks and device decode.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from streambench_tpu_torch.checkpoint import Snapshot
 from streambench_tpu_torch.config import BenchmarkConfig
 from streambench_tpu_torch.encode.native_encoder import make_encoder
+from streambench_tpu_torch.encode.parallel import ParallelEncodePool
 from streambench_tpu_torch.io.redis_schema import (
     RedisLike,
     claim_epoch,
@@ -385,12 +390,19 @@ class AdAnalyticsEngine:
         self.redis = redis
         self.divisor = cfg.jax_time_divisor_ms
         self.lateness = cfg.jax_allowed_lateness_ms
-        self.encoder = make_encoder(ad_to_campaign, campaigns,
-                                    divisor_ms=self.divisor,
-                                    lateness_ms=self.lateness,
-                                    use_native=cfg.jax_use_native_encoder)
-        # the exact count never reads the user/page columns
-        self.encoder.set_intern_ids(False)
+
+        def _new_encoder():
+            """ONE construction+configuration site: the primary encoder
+            and every pool worker must be configured identically."""
+            e = make_encoder(ad_to_campaign, campaigns,
+                             divisor_ms=self.divisor,
+                             lateness_ms=self.lateness,
+                             use_native=cfg.jax_use_native_encoder)
+            # the exact count never reads the user/page columns
+            e.set_intern_ids(False)
+            return e
+
+        self.encoder = _new_encoder()
         self.join_table = torch.from_numpy(
             self.encoder.join_table).to(self.device)
         self.W = cfg.jax_window_slots
@@ -476,6 +488,21 @@ class AdAnalyticsEngine:
         self._sink_epoch: int | None = None
         self._sink_seq0 = 0
         self._writer: _RedisWriter | None = None
+        # Parallel encode pool (multi-core hosts): per-thread encoders,
+        # sound only for engines whose fold never reads the interned
+        # user/page columns (see encode.parallel).  GIL-bound (pure
+        # Python) encoders gain nothing from threads; only the native
+        # encoder's ctypes scan parallelizes.
+        self._encode_pool: ParallelEncodePool | None = None
+        if (cfg.jax_encode_workers > 1 and self.PARALLEL_ENCODE_OK
+                and getattr(self.encoder, "RELEASES_GIL", False)):
+            self._encode_pool = ParallelEncodePool(
+                self.encoder, _new_encoder,
+                workers=cfg.jax_encode_workers)
+
+    # Engines whose device state is keyed by interned ids must keep one
+    # consistent intern table and clear this (encode.parallel).
+    PARALLEL_ENCODE_OK = True
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
@@ -501,8 +528,16 @@ class AdAnalyticsEngine:
 
     def encode_chunk_lines(self, lines: list[bytes]) -> list:
         """Encode-only half of ``process_chunk``: batch-sized slices
-        through the encoder, empty batches dropped."""
+        through the encode pool (or the primary encoder), empty batches
+        dropped.  The ingest pipeline's encode stage calls this from its
+        own thread, so it is host-only: no torch, no device."""
         B = self.batch_size
+        if self._encode_pool is not None:
+            with self.tracer.span("encode"):
+                encoded = self._encode_pool.encode_chunks(
+                    [lines[off:off + B] for off in range(0, len(lines), B)],
+                    B)
+            return [b for b in encoded if b.n]
         batches = []
         for off in range(0, len(lines), B):
             with self.tracer.span("encode"):
@@ -605,7 +640,9 @@ class AdAnalyticsEngine:
 
     def encode_raw_block(self, data: bytes) -> list:
         """Encode-only half of ``process_block``: carve + parse one raw
-        journal block into ``EncodedBatch`` groups without folding."""
+        journal block into ``EncodedBatch`` groups without folding (the
+        ingest pipeline's encode stage; host-only, like
+        ``encode_chunk_lines``)."""
         if not data:
             return []
         if not self.supports_block_ingest:
@@ -615,7 +652,11 @@ class AdAnalyticsEngine:
             return self.encode_chunk_lines(lines)
         B = self.batch_size
         with self.tracer.span("encode"):
-            batches, start = self.encoder.carve_block(data, B)
+            if self._encode_pool is not None:
+                batches, start = self._encode_pool.carve_block_parallel(
+                    data, B)
+            else:
+                batches, start = self.encoder.carve_block(data, B)
             if start < len(data):
                 # unterminated trailing record: parse it as one line so
                 # both process_block branches see identical events
@@ -1289,6 +1330,9 @@ class AdAnalyticsEngine:
             raise RuntimeError(
                 f"exactly-once close with {lost} windows never flushed "
                 "(sink unreachable: no writer epoch was ever claimed)")
+        if self._encode_pool is not None:
+            self._encode_pool.close()
+            self._encode_pool = None
         if self._writer is not None:
             self._writer.close()
             self._writer = None

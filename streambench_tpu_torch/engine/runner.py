@@ -1,9 +1,10 @@
 """Streaming host loop: journal tail -> engine -> 1 Hz Redis flush.
 
-The port of ``streambench_tpu/engine/runner.py``: the serial loops only
-(``run`` and ``run_catchup``), in block mode where the engine and reader
-support it, with the checkpoint cadence and ``resume``.  The operating
-policies are the reference engines':
+The port of ``streambench_tpu/engine/runner.py``: the serial loops
+(``run`` and ``run_catchup``, in block mode where the engine and reader
+support it) and their pipelined twins over the staged ingest pipeline
+(``engine.ingest``), with the checkpoint cadence and ``resume``.  The
+operating policies are the reference engines':
 
 - **buffer timeout** — a partial batch is dispatched once it is
   ``buffer_timeout_ms`` old (Flink's ``setBufferTimeout(100)``,
@@ -11,22 +12,28 @@ policies are the reference engines':
 - **1 Hz flusher** — dirty windows are written to Redis every
   ``flush_interval_ms`` (``CampaignProcessorCommon.java:41-54``).
 - **pipelining** — CUDA launches are asynchronous: while the card folds
-  batch N, the host is already tailing and encoding batch N+1.
+  batch N, the host is already tailing and encoding batch N+1.  With
+  ``jax.ingest.pipeline`` "on" (or "auto" where it pays) the journal read
+  and the encode also run on their own threads, so the host loop only
+  dispatches folds and flushes.
 - **checkpoints** — with a ``Checkpointer``, a snapshot of the engine at
   the reader's offset is saved after a flush once
   ``checkpoint_interval_ms`` has passed (0 = after every flush), and once
-  more at the end of a run; ``resume()`` restores the newest one.
+  more at the end of a run; ``resume()`` restores the newest one.  Under
+  the ingest pipeline the stages are quiesced around the snapshot, whose
+  offset is the folded position, never the read-ahead.
 
-Not ported yet: the staged ingest pipeline, chaos points and the flight
-recorder.
+Not ported yet: chaos points, the flight recorder and span hooks.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
 from streambench_tpu_torch.checkpoint import Checkpointer
+from streambench_tpu_torch.engine import ingest
 from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.io.journal import JournalReader
 from streambench_tpu_torch.metrics import StallDetector
@@ -66,7 +73,8 @@ class StreamRunner:
                  buffer_timeout_ms: int | None = None,
                  flush_interval_ms: int | None = None,
                  checkpointer: Checkpointer | None = None,
-                 checkpoint_interval_ms: int | None = None):
+                 checkpoint_interval_ms: int | None = None,
+                 ingest_pipeline: str | None = None):
         cfg = engine.cfg
         self.engine = engine
         self.reader = reader
@@ -89,6 +97,13 @@ class StreamRunner:
             counters=engine.faults)
         self.stats = RunStats()
         self._stop = False
+        # Staged ingest pipeline (engine.ingest): "off" keeps the serial
+        # loops byte-identical, "on" forces the overlapped stages, "auto"
+        # enables them where block-mode ingest makes the overlap pay.
+        mode = (ingest_pipeline if ingest_pipeline is not None
+                else cfg.jax_ingest_pipeline)
+        self.ingest_mode = (mode or "off").strip().lower()
+        self._pipeline: ingest.IngestPipeline | None = None
 
     def stop(self) -> None:
         self._stop = True
@@ -116,7 +131,12 @@ class StreamRunner:
 
     def _reader_position(self) -> int | list[int]:
         """Single-partition byte offset, or the per-partition offsets
-        vector of a ``MultiReader`` (whose scalar ``.offset`` raises)."""
+        vector of a ``MultiReader`` (whose scalar ``.offset`` raises).
+        With the ingest pipeline active this is the FOLDED position —
+        the offset covering exactly the dispatched blocks, never the
+        reader thread's read-ahead — so checkpoints stay consistent."""
+        if self._pipeline is not None:
+            return self._pipeline.position()
         try:
             return self.reader.offset
         except AttributeError:
@@ -138,7 +158,21 @@ class StreamRunner:
         return True
 
     def _checkpoint_now(self, now: float) -> None:
-        self.checkpointer.save(self.engine.snapshot(self._reader_position()))
+        pipe = self._pipeline
+        if pipe is not None and not pipe.closed:
+            # Quiesce the stages at a work-item boundary so the snapshot
+            # can serialize encoder state (the base time) without racing
+            # the encode thread; the returned offset covers exactly the
+            # folded blocks (in-flight prefetched blocks stay replayable,
+            # never skippable).
+            off = pipe.quiesce()
+            try:
+                self.checkpointer.save(self.engine.snapshot(off))
+            finally:
+                pipe.resume()
+        else:
+            self.checkpointer.save(
+                self.engine.snapshot(self._reader_position()))
         self._last_ckpt = now
 
     def _checkpoint_due(self, now: float) -> bool:
@@ -155,17 +189,141 @@ class StreamRunner:
             self._checkpoint_now(now)
 
     def _finish_run(self) -> None:
-        """Final flush + checkpoint shared by both loops' exit paths."""
+        """Final flush + checkpoint shared by every loop's exit path."""
         st = self.stats
         st.windows_written += self.engine.flush(final=True)
         st.flushes += 1
         if self.checkpointer is not None:
             self._checkpoint_now(time.monotonic())
 
+    # ------------------------------------------------------------------
+    # staged ingest pipeline (engine.ingest)
+    def _pipeline_on(self) -> bool:
+        """Resolve the ingest mode: "on" always pipelines, "auto" only
+        where the overlap can pay — block-mode ingest (native encoder +
+        a ``poll_block`` reader) AND more than one host core (on one
+        core the stages just timeslice it), "off" (default) never — the
+        serial loops below stay byte-identical."""
+        if self.ingest_mode == "on":
+            return True
+        if self.ingest_mode == "auto":
+            return (os.cpu_count() or 1) > 1 and self._block_mode()
+        return False
+
+    def _make_pipeline(self, catchup: bool) -> ingest.IngestPipeline:
+        cfg = self.engine.cfg
+        pipe = ingest.IngestPipeline(
+            self.engine, self.reader,
+            batch_size=self.batch_size,
+            chunk_records=self.batch_size * self.engine.scan_batches,
+            buffer_timeout_ms=self.buffer_timeout_ms,
+            catchup=catchup,
+            est_event_bytes=self.EST_EVENT_BYTES,
+            block_queue=cfg.jax_ingest_block_queue,
+            batch_queue=cfg.jax_ingest_batch_queue)
+        self._pipeline = pipe
+        return pipe
+
+    def _fold_item(self, item: ingest.IngestItem) -> None:
+        """Dispatch one ready group: fold in journal order, then publish
+        its offset as folded (strictly after — a crash between the two
+        replays the block instead of skipping it)."""
+        st = self.stats
+        st.events += self.engine.fold_batches(item.batches)
+        st.batches += 1
+        self._pipeline.commit(item)
+
+    def _flush_cycle(self, now: float, last_flush: float) -> float:
+        """The 1 Hz flush + stall tick + checkpoint cadence of the
+        pipelined loops.  Returns the new ``last_flush``."""
+        if (now - last_flush) * 1000 >= self.flush_interval_ms:
+            self._flush(now)
+            last_flush = now
+        return last_flush
+
+    def _run_pipelined(self, duration_s: float | None,
+                       idle_timeout_s: float | None,
+                       max_events: int | None) -> RunStats:
+        """Streaming loop over the staged pipeline: the reader thread
+        owns polling + batching (buffer_timeout semantics included), the
+        encode thread owns encoding, and this loop does only device
+        dispatch + flush — the stages overlap instead of taking turns."""
+        st = self.stats
+        st.started_ms = now_ms()
+        deadline = (time.monotonic() + duration_s) if duration_s else None
+        last_flush = time.monotonic()
+        pipe = self._make_pipeline(catchup=False)
+        try:
+            while not self._stop:
+                now = time.monotonic()
+                if deadline and now >= deadline:
+                    break
+                if max_events and st.events >= max_events:
+                    break
+                item = pipe.get(timeout_s=0.02)
+                if item is not None and item is not ingest.EOF:
+                    self._fold_item(item)
+                elif (idle_timeout_s and pipe.drained()
+                        and pipe.idle_for() >= idle_timeout_s):
+                    # idle means the READER polled and found nothing for
+                    # a while AND everything it did read was folded
+                    break
+                last_flush = self._flush_cycle(time.monotonic(),
+                                               last_flush)
+            # Drain what the stages already read (the serial loop's
+            # trailing ``if pending: dispatch()``) — unless the cutoff
+            # was max_events, where uncommitted blocks stay replayable.
+            pipe.finish()
+            drain_deadline = time.monotonic() + 10.0
+            while time.monotonic() < drain_deadline:
+                if max_events and st.events >= max_events:
+                    break
+                item = pipe.get(timeout_s=0.1)
+                if item is ingest.EOF:
+                    break
+                if item is not None:
+                    self._fold_item(item)
+            self._finish_run()
+        finally:
+            pipe.close()
+        st.finished_ms = now_ms()
+        self._collect_faults()
+        return st
+
+    def _run_catchup_pipelined(self, max_events: int | None) -> RunStats:
+        """Catchup over the staged pipeline: chunk-sized reads + encode
+        run ahead on their threads; this loop pays only device dispatch
+        and flush."""
+        st = self.stats
+        st.started_ms = now_ms()
+        last_flush = time.monotonic()
+        pipe = self._make_pipeline(catchup=True)
+        try:
+            while not self._stop:
+                item = pipe.get(timeout_s=0.05)
+                if item is ingest.EOF:
+                    break
+                if item is not None:
+                    self._fold_item(item)
+                    if max_events and st.events >= max_events:
+                        break
+                last_flush = self._flush_cycle(time.monotonic(),
+                                               last_flush)
+            self._finish_run()
+        finally:
+            pipe.close()
+        st.finished_ms = now_ms()
+        self._collect_faults()
+        return st
+
+    # ------------------------------------------------------------------
     def run(self, duration_s: float | None = None,
             idle_timeout_s: float | None = None,
             max_events: int | None = None) -> RunStats:
         """Consume until stopped / duration / idle-timeout / max_events."""
+        if self._pipeline_on():
+            return self._run_pipelined(duration_s, idle_timeout_s,
+                                       max_events)
         st = self.stats
         st.started_ms = now_ms()
         deadline = (time.monotonic() + duration_s) if duration_s else None
@@ -266,6 +424,8 @@ class StreamRunner:
         """Drain the journal as fast as possible (catchup/throughput mode):
         scan-chunked batches, no buffer timeout, flush only on ring-span
         guard + once per second of wall clock."""
+        if self._pipeline_on():
+            return self._run_catchup_pipelined(max_events)
         st = self.stats
         st.started_ms = now_ms()
         last_flush = time.monotonic()

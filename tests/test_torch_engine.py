@@ -242,8 +242,10 @@ def test_cli_catchup_on_cpu(tmp_path):
     (["--engine", "hll"], "", "--engine hll"),
     (["--traceDir", "tr"], "", "--traceDir"),
     ([], 'jax.decode.device: "on"', "jax.decode.device"),
-    ([], 'jax.ingest.pipeline: "on"', "jax.ingest.pipeline"),
-], ids=["sharded", "engine", "trace", "device_decode", "ingest"])
+    (["--microbatch"], "", "--microbatch"),
+    (["--tenants", "a:exact"], "", "--tenants"),
+], ids=["sharded", "engine", "trace", "device_decode", "microbatch",
+        "tenants"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, extra, conf_line,
                                        word):
     conf = tmp_path / "conf.yaml"
