@@ -64,10 +64,32 @@ result line) when any phase fails:
    journal; the window latency (``updated.txt``) as p50/p90/p99/max.
 10. Fake Kafka: the same composite with ``KAFKA_FAKE=1`` (the broker its
    own process, one partition), 10,000 ev/s for 30 s.
+11. Observability: phase 9's composite at 100,000 ev/s for 30 s with every
+   ported obs knob on (``METRICS_INTERVAL_MS=1000``, ``OBS_LIFECYCLE``,
+   ``FLIGHTREC``, ``OBS_SPANS``, ``OBS_OCCUPANCY``, ``OBS_XFER``,
+   ``OBS_DEVMEM``, ``OBS_CAPTURE``, ``SLO_P99_MS=15000``).  Besides phase
+   9's checks: ``metrics.jsonl`` holds at least 20 records and ``python
+   -m streambench_tpu_torch.obs attribution`` reads it; every written
+   window carries all five latency segments, whose sums less what the
+   clamping at 0 added equal the end-to-end latency's, with clamps only
+   where a fold overtook a write in flight (flush, sink) and under one
+   flush cycle a write; the lifecycle's largest end-to-end latency is
+   ``updated.txt``'s, within one flush cycle; the span trace validates
+   under ``obs trace`` and holds the encode, drain, sink, ingest-stage
+   and fold-dispatch spans; ``flight_sigterm.jsonl`` exists; the
+   ``torch.profiler`` one-shot's trace holds K1's kernel; occupancy
+   sampled one dispatch in 32 with a busy ratio in (0, 1] and no library
+   build after warmup; the packed wire shipped 8 bytes per row; the
+   close line carries the SLO verdict.  It prints the segments' p50 and
+   p99, the busy ratio beside the one-shot capture's busy share (the
+   union of its device events over its window) and phase 4's profiler
+   busy share, the peak
+   device memory, K1's launches, and the window latency beside phase
+   9's.
 
-K1's launches are counted over each of phases 4 and 6-10, from 0 just
-before the phase's run to just after it (phases 9 and 10 run the engine
-in its own process, which reports them in its stats line).  The line
+K1's launches are counted over each of phases 4 and 6-11, from 0 just
+before the phase's run to just after it (phases 9-11 run the engine in
+its own process, which reports them in its stats line).  The line
 before the nvidia-smi line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -99,6 +121,19 @@ CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
 # phases 9 and 10: (rate ev/s, seconds) of the paced load
 PACED_LOAD = (100_000, 60)
 KAFKA_LOAD = (10_000, 30)
+# phase 11: the paced load and the harness's obs knobs
+OBS_LOAD = (100_000, 30)
+OBS_ENV = {"METRICS_INTERVAL_MS": "1000", "OBS_LIFECYCLE": "1",
+           "FLIGHTREC": "1", "OBS_SPANS": "1", "OBS_OCCUPANCY": "1",
+           "OBS_XFER": "1", "OBS_DEVMEM": "1", "OBS_CAPTURE": "1",
+           "SLO_P99_MS": "15000"}
+# spans the phase 11 trace must hold; the fold's dispatch shows as
+# device_step (one batch) or device_scan (a group), whichever the
+# paced batching produced
+OBS_TRACE_SPANS = ("encode", "drain", "redis_flush", "ingest_read",
+             "ingest_encode")
+OBS_DISPATCH_SPANS = ("device_step", "device_scan")
+FLUSH_MS = 1000                    # jax.flush.interval.ms, the default the harness keeps
 REPO = os.path.dirname(os.path.abspath(__file__))
 CASES = (
     # (label, B, C, W, inputs): "zipf" = Zipf(1.2) campaigns, uniform
@@ -702,9 +737,12 @@ def _percentiles(values) -> dict:
             "p99_ms": float(np.percentile(a, 99)), "max_ms": float(a.max())}
 
 
-def phase_paced(tag: str, load: tuple[int, int], **env_extra) -> dict:
-    """Phases 9 and 10: the harness composite ``TORCH_TEST`` in a fresh
-    workdir (see the module doc); every process it starts is stopped."""
+def phase_paced(tag: str, load: tuple[int, int], check=None,
+                **env_extra) -> dict:
+    """Phases 9-11: the harness composite ``TORCH_TEST`` in a fresh
+    workdir (see the module doc); every process it starts is stopped.
+    ``check(workdir, stats)`` (phase 11) reads the run's artifacts before
+    the workdir goes; its result joins the phase's under ``"obs"``."""
     rate, seconds = load
     workdir = _workdir(f"smoke_{tag}")
     harness = [sys.executable, "-m", "streambench_tpu_torch.harness"]
@@ -781,11 +819,168 @@ def phase_paced(tag: str, load: tuple[int, int], **env_extra) -> dict:
         if result["count_cells_launches"] <= 0:
             raise AssertionError("the count kernel never launched in the "
                                  "engine process")
+        if check is not None:
+            result["obs"] = check(workdir, stats)
+            print(f"[{tag}] obs {json.dumps(result['obs'])}", flush=True)
         return result
     finally:
         subprocess.run([*harness, "STOP_ALL"], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=180)
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _obs_cli(*args: str) -> dict:
+    """``python -m streambench_tpu_torch.obs ... --json``, which must
+    exit 0; its JSON output."""
+    p = subprocess.run([sys.executable, "-m", "streambench_tpu_torch.obs",
+                        *args, "--json"], cwd=REPO, capture_output=True,
+                       text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    if p.returncode:
+        raise AssertionError(f"obs {args[0]} exited {p.returncode}: "
+                             f"{p.stderr[-1500:]}")
+    return json.loads(p.stdout)
+
+
+def _trace_busy_share(doc: dict) -> dict:
+    """The share of a Chrome trace's window in which the card ran
+    anything: the union of its kernel, memcpy and memset events over the
+    span from the first event of the trace to the end of its last."""
+    spans, device = [], []
+    for e in doc.get("traceEvents", []):
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        spans.append((t0, t1))
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((t0, t1))
+    if not spans:
+        return {"window_us": 0.0, "device_us": 0.0, "busy_share": None}
+    window = max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans)
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(device):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return {"window_us": window, "device_us": busy,
+            "device_events": len(device),
+            "busy_share": busy / window if window > 0 else None}
+
+
+def check_obs(workdir: str, stats: dict) -> dict:
+    """Phase 11's checks on the artifacts of the obs-on paced run (see
+    the module doc); returns what it read."""
+    import glob
+
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        records = [json.loads(ln) for ln in f if ln.strip()]
+    if len(records) < 20:
+        raise AssertionError(f"metrics.jsonl holds {len(records)} records")
+    att = _obs_cli("attribution", os.path.join(workdir, "metrics.jsonl"))
+    a = att["attribution"]
+    if not a or not a.get("writes_observed"):
+        raise AssertionError(f"no attributed window writes: {att}")
+    segs, e2e = a["segments"], a["e2e_ms"]
+    n = a["writes_observed"]
+    counts = {k: v.get("count") for k, v in segs.items()}
+    if (a["writes_untracked"] or e2e["count"] != n
+            or set(counts) != {"ingest", "encode", "fold", "flush", "sink"}
+            or any(c != n for c in counts.values())):
+        raise AssertionError(f"window writes without all five segments: "
+                             f"{n} observed, {a['writes_untracked']} "
+                             f"untracked, counts {counts}, e2e "
+                             f"{e2e['count']}")
+    seg_sum = sum(v["sum"] for v in segs.values())
+    # Each sample is clamped at 0, so the sums differ by exactly what the
+    # clamping added (the close line's attribution_clamps); unclamped,
+    # each write's segments telescope to its time_updated - window_ts.
+    # Only a fold that lands while the window's write is in flight may
+    # push a segment below 0 (flush, or sink for a second payload), by
+    # at most that write's submit-to-landing time: under one flush cycle
+    # in a run without a flush stall.
+    clamps = stats["attribution_clamps"]
+    seg_clamp = sum(clamps["segments_ms"].values())
+    if abs((seg_sum - seg_clamp) - (e2e["sum"] - clamps["e2e_ms"])) > 0.01:
+        raise AssertionError(
+            f"segments sum to {seg_sum} ms less {seg_clamp} clamped, the "
+            f"e2e to {e2e['sum']} less {clamps['e2e_ms']}: {clamps}")
+    stray = {k: v for k, v in clamps["segments_ms"].items()
+             if v and k not in ("flush", "sink")}
+    if stray or clamps["e2e_ms"] or clamps["max_write_ms"] > FLUSH_MS:
+        raise AssertionError(f"stamps out of order: {clamps}")
+    # the lifecycle's e2e covers every write of a window, updated.txt the
+    # last write of each (campaign, window): their maxima are one write
+    with open(os.path.join(workdir, "updated.txt")) as f:
+        updated_max = max(int(v) for v in f.read().split())
+    if not 0 <= e2e["max"] - updated_max <= FLUSH_MS:
+        raise AssertionError(f"lifecycle e2e max {e2e['max']} ms against "
+                             f"updated.txt's {updated_max} ms")
+    traces = glob.glob(os.path.join(workdir, "trace_*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"span traces: {traces}")
+    tr = _obs_cli("trace", traces[0])
+    names = set(tr["by_name"])
+    missing = [s for s in OBS_TRACE_SPANS if s not in names]
+    if missing or not names & set(OBS_DISPATCH_SPANS):
+        what = missing or "a fold dispatch span"
+        raise AssertionError(f"span trace lacks {what}: {sorted(names)}")
+    if not os.path.exists(os.path.join(workdir, "flight_sigterm.jsonl")):
+        raise AssertionError("no flight_sigterm.jsonl after "
+                             "STOP_TORCH_PROCESSING")
+    k1_events = 0
+    capture_busy = []
+    captures = glob.glob(os.path.join(workdir, "xprof_*", "trace.json"))
+    for path in captures:
+        with open(path) as f:
+            doc = json.load(f)
+        k1_events += sum(1 for e in doc.get("traceEvents", [])
+                         if e.get("cat") == "kernel"
+                         and "count_cells_kernel" in e.get("name", ""))
+        capture_busy.append(_trace_busy_share(doc))
+    if not k1_events:
+        raise AssertionError(f"no K1 kernel in the profiler captures "
+                             f"{captures}")
+    occ = stats["occupancy"]
+    steady = occ["compiles"]["compiles_steady"]
+    if (occ["dispatches"] <= 0
+            or occ["sampled"] != occ["dispatches"] // occ["sample_every"]
+            or not 0 < occ["device_busy_ratio"] <= 1 or steady):
+        raise AssertionError(f"occupancy: {occ}")
+    packed = stats["xfer"]["formats"]["packed"]
+    if packed["bytes_per_row"] != 8.0:
+        raise AssertionError(f"packed wire: {packed}")
+    if "pass" not in stats.get("slo", {}):
+        raise AssertionError(f"no SLO verdict in the close line: "
+                             f"{stats.get('slo')}")
+    live = stats["devmem"].get("live") or {}
+    return {
+        "metrics_records": len(records),
+        # the run's time series, for where a stall went
+        "series": [{k: r.get(k) for k in ("kind", "uptime_ms", "events",
+                                          "events_per_s", "stages",
+                                          "pending_rows")}
+                   for r in records],
+        "segments": {k: {"p50_ms": v["p50"], "p99_ms": v["p99"],
+                         "sum_ms": v["sum"]} for k, v in segs.items()},
+        "e2e_ms": {"p50_ms": e2e["p50"], "p99_ms": e2e["p99"],
+                   "sum_ms": e2e["sum"]},
+        "segments_over_e2e_ms": seg_sum - e2e["sum"],
+        "writes_observed": n,
+        "spans": tr["by_name"], "spans_dropped": tr["spans_dropped"],
+        "captures": stats["capture"], "k1_kernel_events": k1_events,
+        "attribution_clamps": clamps, "e2e_max_ms": e2e["max"],
+        "updated_max_ms": updated_max,
+        # the card's busy share over each capture's window, from its
+        # device events (the occupancy ratio samples event waits only)
+        "capture_busy": capture_busy,
+        "occupancy": occ, "xfer": stats["xfer"], "slo": stats["slo"],
+        "devmem": {"state_bytes": stats["devmem"]["state_bytes"],
+                   "peak_footprint_bytes":
+                       stats["devmem"]["peak_footprint_bytes"],
+                   "kernels": stats["devmem"]["kernels"],
+                   "peak_allocated_bytes": live.get("peak_allocated_bytes"),
+                   "reserved_bytes": live.get("reserved_bytes")},
+    }
 
 
 def phase_large_key_space(events: int) -> dict:
@@ -1019,6 +1214,26 @@ def main(argv: list[str] | None = None) -> int:
     paced = phase_paced("paced", PACED_LOAD)
     kafka = phase_paced("kafka", KAFKA_LOAD, KAFKA_FAKE="1",
                         KAFKA_BROKERS=f"127.0.0.1:{_free_port()}")
+    obs = phase_paced("obs", OBS_LOAD, check=check_obs, **OBS_ENV)
+    o = obs["obs"]
+    print(f"[obs] segments p50/p99 ms: " + ", ".join(
+        f"{k} {v['p50_ms']}/{v['p99_ms']}" for k, v in o["segments"].items())
+        + f"; clamped {o['attribution_clamps']}; e2e max "
+        f"{o['e2e_max_ms']} ms, updated.txt max {o['updated_max_ms']} ms"
+        f"; device_busy_ratio {o['occupancy']['device_busy_ratio']}, "
+        f"the capture's busy share "
+        f"{[c['busy_share'] for c in o['capture_busy']]} "
+        f"(phase 4 profiler busy share "
+        f"{e2e['profile']['busy_share_profiled']}); peak device memory "
+        f"{o['devmem']['peak_allocated_bytes']} B; K1 launches "
+        f"{obs['count_cells_launches']}; window latency p50/p99 "
+        f"{obs['window_latency']['p50_ms']}/"
+        f"{obs['window_latency']['p99_ms']} ms with obs on, "
+        f"{paced['window_latency']['p50_ms']}/"
+        f"{paced['window_latency']['p99_ms']} ms in phase 9; profiler "
+        f"warm-up {o['captures']['warm_s']} s, captures "
+        f"{[(c.get('start_s'), c.get('stop_s')) for c in o['captures']['captures']]}"
+        f" s (start, stop)", flush=True)
     cases.append(_kernel_case(
         f"the main path's own rows: every launch of the catchup's first "
         f"{min(args.events, PROFILE_EVENTS)} events", C, W, "catchup",
@@ -1037,7 +1252,8 @@ def main(argv: list[str] | None = None) -> int:
             "exactly_once_resume": xo["count_cells_launches"],
             "pipelined_catchup": pipelined["count_cells_launches"],
             "paced_ysb": paced["count_cells_launches"],
-            "fake_kafka": kafka["count_cells_launches"]},
+            "fake_kafka": kafka["count_cells_launches"],
+            "paced_ysb_obs": obs["count_cells_launches"]},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -1056,7 +1272,8 @@ def main(argv: list[str] | None = None) -> int:
                        "end_to_end": e2e, "large_key_space": large,
                        "exactly_once_resume": xo,
                        "pipelined_catchup": pipelined, "paced_ysb": paced,
-                       "fake_kafka": kafka, "nvidia_smi": smi,
+                       "fake_kafka": kafka, "paced_ysb_obs": obs,
+                       "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

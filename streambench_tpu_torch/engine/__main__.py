@@ -19,12 +19,23 @@ their own threads; ``jax.encode.workers > 1`` encodes on a pool of native
 encoders; ``jax.deadletter.enabled`` journals malformed events to
 ``<topic>-deadletter``.
 
+Observability (``obs/``, all default-off) takes the JAX CLI's keys:
+``jax.metrics.interval.ms`` / ``jax.metrics.port`` (the
+``metrics.jsonl`` sampler and the Prometheus endpoint),
+``jax.obs.lifecycle``, ``jax.obs.flightrec.enabled`` (a
+``flight_sigterm.jsonl`` dump on SIGTERM), ``jax.obs.spans``
+(``trace_<pid>.json``), ``jax.obs.occupancy``, ``jax.obs.xfer``,
+``jax.obs.devmem``, ``jax.obs.capture.*`` (``torch.profiler`` windows on
+an SLO breach, SIGUSR2 or a one-shot) and ``jax.slo.*``; ``--traceDir``
+profiles the whole run.
+
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
         --workdir RUN_DIR --catchup [--device cuda|cpu] [--checkpointDir D]
 
 Options and config keys that need parts of the JAX engine not ported yet
-(other engines, sharding, device traces, the fork's micro-batch mode,
-tenants, device decode, observability, SLOs) are refused with exit 2.
+(other engines, sharding, the fork's micro-batch mode, tenants, device
+decode, the reach query, fleet and shard observability) are refused with
+exit 2.
 """
 
 from __future__ import annotations
@@ -44,7 +55,22 @@ from streambench_tpu_torch.io.fakeredis import make_store
 from streambench_tpu_torch.io.kafka import make_broker
 from streambench_tpu_torch.io.redis_schema import as_redis
 from streambench_tpu_torch.io.resp import RespClient
+from streambench_tpu_torch.obs import (
+    CaptureManager,
+    DeviceMemoryLedger,
+    FlightRecorder,
+    MetricsRegistry,
+    MetricsSampler,
+    MetricsServer,
+    OccupancySampler,
+    SloTracker,
+    SpanTracer,
+    TransferLedger,
+    engine_collector,
+    kafka_collector,
+)
 from streambench_tpu_torch.ops.count import count_cells
+from streambench_tpu_torch.trace import device_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,11 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpointDir", default=None,
                    help="enable (offset, state) snapshots here; on start, "
                         "resume from the newest one if present")
+    p.add_argument("--traceDir", default=None,
+                   help="capture a torch.profiler trace of the whole run "
+                        "into DIR/trace.json")
     # flags of the JAX CLI whose machinery is not ported yet: accepted
     # only to refuse them with a clear message
     p.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--engine", default="exact", help=argparse.SUPPRESS)
-    p.add_argument("--traceDir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--microbatch", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--tenants", default=None, help=argparse.SUPPRESS)
@@ -80,11 +108,11 @@ def unsupported(args, cfg) -> list[str]:
     """What this run asks for beyond what the port runs: the exact-count
     engine on one device, at any key space, with checkpoint/resume, the
     exactly-once sink, the staged ingest pipeline, the encode pool, the
-    dead-letter queue and the Kafka source."""
+    dead-letter queue, the Kafka source and the single-engine
+    observability layer."""
     out = []
     for flag, on in (("--sharded", args.sharded),
                      ("--engine " + str(args.engine), args.engine != "exact"),
-                     ("--traceDir", args.traceDir),
                      ("--microbatch", args.microbatch),
                      ("--tenants", args.tenants)):
         if on:
@@ -92,14 +120,9 @@ def unsupported(args, cfg) -> list[str]:
     for key, on in (
             ("jax.tenants", cfg.jax_tenants),
             ("jax.decode.device", cfg.jax_decode_device != "off"),
-            ("jax.metrics.interval.ms", cfg.jax_metrics_interval_ms > 0),
-            ("jax.metrics.port", cfg.jax_metrics_port >= 0),
-            ("jax.obs.*", any((cfg.jax_obs_lifecycle, cfg.jax_obs_flightrec,
-                               cfg.jax_obs_spans, cfg.jax_obs_occupancy,
-                               cfg.jax_obs_xfer, cfg.jax_obs_devmem,
-                               cfg.jax_obs_shard, cfg.jax_obs_capture,
-                               cfg.jax_obs_query, cfg.jax_obs_fleet))),
-            ("jax.slo.*", cfg.jax_slo_p99_ms > 0 or cfg.jax_slo_rate_evps > 0)):
+            ("jax.obs.query", cfg.jax_obs_query),
+            ("jax.obs.fleet", cfg.jax_obs_fleet),
+            ("jax.obs.shard", cfg.jax_obs_shard)):
         if on:
             out.append(key)
     return out
@@ -132,8 +155,9 @@ def main(argv: list[str] | None = None) -> int:
     if missing:
         print("error: not ported to the PyTorch engine yet (it runs the "
               "exact count with checkpoints, the exactly-once sink, the "
-              "ingest pipeline, the encode pool, the dead-letter queue and "
-              "the Kafka source): " + ", ".join(missing), file=sys.stderr)
+              "ingest pipeline, the encode pool, the dead-letter queue, "
+              "the Kafka source and the single-engine observability "
+              "layer): " + ", ".join(missing), file=sys.stderr)
         return 2
 
     mapping, campaigns = load_mapping(cfg, args.workdir)
@@ -163,12 +187,38 @@ def main(argv: list[str] | None = None) -> int:
               else broker.reader(cfg.kafka_topic))
     checkpointer = (Checkpointer(args.checkpointDir) if args.checkpointDir
                     else None)
+    # Crash flight recorder (obs.flightrec, default-off): a bounded ring
+    # the runner and the ingest stages feed at flush cadence, dumped to
+    # <workdir>/flight_<reason>.jsonl on a crash or SIGTERM.
+    flightrec = None
+    if cfg.jax_obs_flightrec:
+        flightrec = FlightRecorder(
+            args.workdir, capacity=cfg.jax_obs_flightrec_capacity)
+    # Span tracer (obs.spans, default-off): the bounded ring of closed
+    # stage/read spans, dumped as Chrome trace JSON at exit; flight dumps
+    # embed its tail.
+    spans = None
+    if cfg.jax_obs_spans:
+        spans = SpanTracer(capacity=cfg.jax_obs_spans_capacity)
+        if flightrec is not None:
+            flightrec.span_source = spans.tail
     runner = StreamRunner(engine, reader, checkpointer=checkpointer,
-                          ingest_pipeline=cfg.jax_ingest_pipeline)
+                          ingest_pipeline=cfg.jax_ingest_pipeline,
+                          flightrec=flightrec, spans=spans)
     if runner.resume():
         print(f"resumed from checkpoint: offset={runner._reader_position()} "
               f"events={engine.events_processed}", flush=True)
-    signal.signal(signal.SIGTERM, lambda *_: runner.stop())
+    # The handlers only set flags: the flight dump and the capture
+    # trigger take locks the host loop may hold when a signal lands, so
+    # they run on the host loop (the dump once the run has stopped, the
+    # capture at the next flush tick).
+    signals = {"sigterm": False, "sigusr2": False}
+
+    def _on_sigterm(*_):
+        signals["sigterm"] = True
+        runner.stop()
+
+    signal.signal(signal.SIGTERM, _on_sigterm)
     signal.signal(signal.SIGINT, lambda *_: runner.stop())
 
     # Build the kernels and run every device path once on a throwaway
@@ -179,6 +229,112 @@ def main(argv: list[str] | None = None) -> int:
     warm.warmup()
     warm.close()
     del warm
+
+    # Live telemetry (obs/, default-off): jax.metrics.interval.ms > 0
+    # starts the sampler journaling snapshots to <workdir>/metrics.jsonl;
+    # jax.metrics.port >= 0 serves the localhost Prometheus endpoint
+    # (0 = ephemeral, the chosen port is printed below).
+    sampler = metrics_server = occupancy = slo = None
+    xfer = devmem = capture = None
+    slo_wanted = cfg.jax_slo_p99_ms > 0 or cfg.jax_slo_rate_evps > 0
+    flush_hooks = []
+    if (cfg.jax_metrics_interval_ms > 0 or cfg.jax_metrics_port >= 0
+            or cfg.jax_obs_lifecycle or cfg.jax_obs_spans
+            or cfg.jax_obs_occupancy or slo_wanted
+            or cfg.jax_obs_xfer or cfg.jax_obs_devmem
+            or cfg.jax_obs_capture):
+        registry = MetricsRegistry()
+        # jax.obs.occupancy: sampled CUDA-event-timed dispatches -> the
+        # MEASURED device_busy_ratio, plus the kernel-library build
+        # detector (mark_steady below, once everything is built)
+        if cfg.jax_obs_occupancy:
+            occupancy = OccupancySampler(
+                registry, sample_every=cfg.jax_obs_occupancy_sample)
+        # jax.obs.xfer: host->device transfer ledger — exact payload
+        # bytes per dispatch by wire format + 1-in-N timed copies
+        if cfg.jax_obs_xfer:
+            xfer = TransferLedger(registry,
+                                  sample_every=cfg.jax_obs_xfer_sample)
+        engine.attach_obs(registry, lifecycle=cfg.jax_obs_lifecycle,
+                          spans=spans, occupancy=occupancy, xfer=xfer)
+        # jax.obs.devmem: K1's launch footprints once, the allocator
+        # census on the host loop at flush cadence
+        if cfg.jax_obs_devmem:
+            devmem = DeviceMemoryLedger(registry)
+            devmem.analyze_engine(engine)
+            devmem.poll()
+            flush_hooks.append(devmem.poll)
+        metrics_path = os.path.join(args.workdir, "metrics.jsonl")
+        sampler = MetricsSampler(
+            metrics_path,
+            interval_ms=cfg.jax_metrics_interval_ms or 1000,
+            registry=registry,
+            max_bytes=cfg.jax_metrics_max_bytes)
+        sampler.add_collector(engine_collector(
+            engine, reader=reader, runner=runner, registry=registry))
+        # Kafka delivery ledger: the adapter's shared FaultCounters carry
+        # the produced/delivered/redelivered accounting
+        if getattr(broker, "counters", None) is not None:
+            sampler.add_collector(kafka_collector(
+                broker.counters, lag=getattr(reader, "lag", None),
+                registry=registry))
+        if devmem is not None:
+            sampler.add_collector(devmem.collect)
+        # jax.obs.capture.*: bounded triggered torch.profiler windows
+        # into <workdir>/xprof_<ms>_<reason>/ on an SLO breach, SIGUSR2
+        # or the one-shot, started and stopped on the host loop
+        if cfg.jax_obs_capture:
+            capture = CaptureManager(
+                args.workdir,
+                cooldown_s=cfg.jax_obs_capture_cooldown_s,
+                max_captures=cfg.jax_obs_capture_max,
+                window_s=cfg.jax_obs_capture_window_s,
+                registry=registry, flightrec=flightrec,
+                annotate=sampler.annotate, device=engine.device)
+            capture.warm()
+            signal.signal(signal.SIGUSR2,
+                          lambda *_: signals.__setitem__("sigusr2", True))
+            oneshot = [cfg.jax_obs_capture_oneshot]
+
+            def capture_tick() -> None:
+                if signals["sigusr2"]:
+                    signals["sigusr2"] = False
+                    capture.trigger("sigusr2")
+                # the config one-shot traces the first window_s of the
+                # stream: it fires at the first flush with events folded
+                # (a paced run's engine is up before its generator)
+                if oneshot[0] and engine.events_processed:
+                    oneshot[0] = False
+                    capture.trigger("oneshot")
+                capture.poll()
+
+            flush_hooks.append(capture_tick)
+        # SLO burn-rate tracking (obs.slo): collects AFTER the engine
+        # collector so rec["events"]/["events_per_s"] feed the rate
+        # objective; breach transitions are journaled and recorded
+        if slo_wanted:
+            slo = SloTracker(
+                registry, p99_ms=cfg.jax_slo_p99_ms,
+                rate_evps=cfg.jax_slo_rate_evps,
+                budget=cfg.jax_slo_budget, fast_s=cfg.jax_slo_fast_s,
+                slow_s=cfg.jax_slo_slow_s,
+                use_lifecycle=cfg.jax_obs_lifecycle,
+                annotate=sampler.annotate, flightrec=flightrec,
+                capture=capture)
+            sampler.add_collector(slo.collect)
+        sampler.start()
+        endpoint = ""
+        if cfg.jax_metrics_port >= 0:
+            metrics_server = MetricsServer(registry,
+                                           port=cfg.jax_metrics_port,
+                                           refresh=sampler.collect_now)
+            endpoint = f" endpoint={metrics_server.url}"
+        print(f"metrics: interval={sampler.interval_ms}ms "
+              f"jsonl={metrics_path}{endpoint}", flush=True)
+    runner.flush_hooks = tuple(flush_hooks)
+    # everything is built now; a build from here on is a mid-run stall
+    if occupancy is not None:
+        occupancy.mark_steady()
     # the count kernel's launches over the run itself (warmup's excluded);
     # CPU folds take the plain version and launch nothing
     count_cells.launches = 0
@@ -188,12 +344,22 @@ def main(argv: list[str] | None = None) -> int:
           f"device={engine.device} method={engine.method} "
           f"pipeline={'on' if runner._pipeline_on() else 'off'} "
           f"encode_workers={cfg.jax_encode_workers}", flush=True)
-    if args.catchup:
-        stats = runner.run_catchup(max_events=args.maxEvents)
-    else:
-        stats = runner.run(duration_s=args.duration,
-                           idle_timeout_s=args.idleTimeout,
-                           max_events=args.maxEvents)
+    try:
+        with device_trace(args.traceDir, engine.device):
+            if args.catchup:
+                stats = runner.run_catchup(max_events=args.maxEvents)
+            else:
+                stats = runner.run(duration_s=args.duration,
+                                   idle_timeout_s=args.idleTimeout,
+                                   max_events=args.maxEvents)
+    finally:
+        if signals["sigterm"] and flightrec is not None:
+            flightrec.record("signal", event="sigterm")
+            flightrec.dump("sigterm")
+    if capture is not None:
+        # stop any in-flight capture (host loop's thread) and record
+        # where the evidence lives
+        capture.close()
     close_err: BaseException | None = None
     try:
         engine.close()
@@ -208,6 +374,10 @@ def main(argv: list[str] | None = None) -> int:
     rows_lost = engine.faults.get("rows_lost")
     if rows_lost:
         stats.faults = dict(stats.faults, rows_lost=rows_lost)
+        if flightrec is not None:
+            flightrec.dump("rows_lost", terminal={
+                "kind": "fault", "event": "rows_lost",
+                "rows_lost": rows_lost, "error": repr(close_err)})
     print(engine.tracer.report(), file=sys.stderr, flush=True)
     print(engine.latency_tracker.report(), file=sys.stderr, flush=True)
     if runner._pipeline is not None:
@@ -216,14 +386,51 @@ def main(argv: list[str] | None = None) -> int:
     if runner.stall_detector.stalls:
         print(f"flush stalls: {runner.stall_detector.stalls}",
               file=sys.stderr, flush=True)
-    print(json.dumps({
+    stats_line = {
         "events": stats.events, "batches": stats.batches,
         "windows_written": stats.windows_written,
         "events_per_s": round(stats.events_per_s, 1),
         "dropped": engine.dropped, "wall_s": round(stats.wall_s, 2),
         "faults": stats.faults,
         "kernel_launches": {"count_cells": count_cells.launches},
-    }), flush=True)
+    }
+    if occupancy is not None:
+        # the MEASURED busy ratio + the steady-state build invariant
+        occ_sum = occupancy.summary()
+        stats_line["device_busy_ratio"] = occ_sum["device_busy_ratio"]
+        stats_line["occupancy"] = occ_sum
+        steady = (occ_sum.get("compiles") or {}).get("compiles_steady")
+        if steady:
+            print(f"WARNING: {steady} kernel-library build(s) landed "
+                  "after warmup", file=sys.stderr, flush=True)
+            if flightrec is not None:
+                flightrec.record("steady_compiles", count=steady)
+        occupancy.close()
+    if slo is not None:
+        stats_line["slo"] = slo.verdict()
+    if engine._obs_lifecycle is not None:
+        # what the attribution's clamping added, beside its sums
+        stats_line["attribution_clamps"] = engine._obs_lifecycle.clamps()
+    if xfer is not None:
+        stats_line["xfer"] = xfer.summary()
+    if devmem is not None:
+        devmem.refresh_census()
+        stats_line["devmem"] = devmem.summary()
+    if capture is not None:
+        stats_line["capture"] = capture.summary()
+    if spans is not None:
+        trace_path = os.path.join(args.workdir,
+                                  f"trace_{os.getpid()}.json")
+        spans.dump(trace_path, run=cfg.kafka_topic)
+        print(f"trace: {trace_path} ({len(spans)} spans, "
+              f"{spans.dropped} dropped)", file=sys.stderr, flush=True)
+    if sampler is not None:
+        # final telemetry record AFTER close(): the writer has drained,
+        # so the record's counters and the run_stats it carries agree
+        sampler.close(final=stats_line)
+    if metrics_server is not None:
+        metrics_server.close()
+    print(json.dumps(stats_line), flush=True)
     return 1 if close_err is not None else 0
 
 

@@ -108,9 +108,17 @@ class IngestPipeline:
                  est_event_bytes: int = 256,
                  block_queue: int = 4,
                  batch_queue: int = 4,
-                 poll_interval_s: float = 0.001) -> None:
+                 poll_interval_s: float = 0.001,
+                 flightrec=None, spans=None) -> None:
         self.engine = engine
         self.reader = reader
+        # crash flight recorder (obs.flightrec or None): stage errors
+        # and first-stall events land in the postmortem ring
+        self.flightrec = flightrec
+        # span tracer (obs.spans or None): non-empty reads and encode
+        # stage work land as "ingest_read"/"ingest_encode" spans on
+        # their own threads
+        self.spans = spans
         self.batch_size = max(int(batch_size), 1)
         self.chunk_records = max(int(chunk_records), self.batch_size)
         self.buffer_timeout_ms = buffer_timeout_ms
@@ -163,6 +171,10 @@ class IngestPipeline:
         """Record a stage failure for the host to re-raise from get()."""
         if self._error is None:
             self._error = err
+        if self.flightrec is not None:
+            self.flightrec.record("ingest_error", error=repr(err),
+                                  block_queue=self._block_q.qsize(),
+                                  batch_queue=self._batch_q.qsize())
         self._stop.set()
 
     def _put(self, q: queue.Queue, item, counter: str | None) -> bool:
@@ -177,6 +189,11 @@ class IngestPipeline:
                 if not stalled and counter is not None:
                     stalled = True
                     setattr(self, counter, getattr(self, counter) + 1)
+                    if self.flightrec is not None:
+                        self.flightrec.record(
+                            "ingest_stall", stage=counter,
+                            block_queue=self._block_q.qsize(),
+                            batch_queue=self._batch_q.qsize())
         return False
 
     # -- stage 1: reader ----------------------------------------------
@@ -196,7 +213,7 @@ class IngestPipeline:
         filled its byte budget means more data is waiting (an empty read
         must never count as full, or a tiny budget at room == 1 would
         busy-spin on an idle stream)."""
-        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
         with self._reader_lock:
             if self.block_mode:
                 budget = room * self.est_event_bytes
@@ -208,7 +225,13 @@ class IngestPipeline:
                 data = self.reader.poll(max_records=room)
                 got = len(data)
                 full = got >= room
-        self.read_ms_total += (time.perf_counter() - t0) * 1e3
+        dur_ns = time.perf_counter_ns() - t0_ns
+        self.read_ms_total += dur_ns / 1e6
+        if self.spans is not None and got:
+            # only non-empty reads: at the 1 ms poll cadence, empty
+            # polls would flood the bounded ring with nothing
+            self.spans.add("ingest_read", t0_ns, dur_ns, cat="ingest",
+                           args={"records": got})
         return data, got, full
 
     def _reader_catchup(self) -> None:
@@ -297,7 +320,7 @@ class IngestPipeline:
                 if item is EOF:
                     self._put(self._batch_q, EOF, None)
                     return
-                t0 = time.perf_counter()
+                t0_ns = time.perf_counter_ns()
                 with self._encode_lock:
                     if self.block_mode:
                         item.batches = self.engine.encode_raw_block(
@@ -306,7 +329,22 @@ class IngestPipeline:
                         item.batches = self.engine.encode_chunk_lines(
                             item.payload)
                 item.payload = None   # free the raw bytes early
-                self.encode_ms_total += (time.perf_counter() - t0) * 1e3
+                dur_ns = time.perf_counter_ns() - t0_ns
+                self.encode_ms_total += dur_ns / 1e6
+                if self.spans is not None:
+                    self.spans.add("ingest_encode", t0_ns, dur_ns,
+                                   cat="ingest",
+                                   args={"records": item.records})
+                if item.read_ms is not None and item.batches:
+                    # attribution stamps (obs.lifecycle): the engine's
+                    # encode halves default the read stamp to encode
+                    # time; with read-ahead the TRUE read time is the
+                    # item's — override so ingest_ms/encode_ms split at
+                    # the real boundary
+                    lc = self.engine._obs_lifecycle
+                    if lc is not None:
+                        for b in item.batches:
+                            b._lc_read_ms = item.read_ms
                 if not self._put(self._batch_q, item, "encode_stalls"):
                     return
         except BaseException as e:

@@ -20,7 +20,9 @@ per-thread native encoders (``encode.parallel``); the ingest pipeline
 (``engine.ingest``) calls the encode halves from its own thread, and only
 the host loop's thread folds.
 
-Not ported yet (later slices): observability hooks and device decode.
+Observability (``obs/``) attaches through ``attach_obs``; until then the
+engine carries ``None`` attributes and one None check per dispatch,
+flush and write.  Not ported yet (a later slice): device decode.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from streambench_tpu_torch.io.redis_schema import (
     write_windows_pipelined,
 )
 from streambench_tpu_torch.metrics import FaultCounters, LatencyTracker
+from streambench_tpu_torch.ops import count as count_ops
 from streambench_tpu_torch.ops import windowcount as wc
 from streambench_tpu_torch.trace import Tracer
 from streambench_tpu_torch.utils.device import resolve_device
@@ -423,6 +426,10 @@ class AdAnalyticsEngine:
                                    self.device)
 
         self._span_start: int | None = None   # min unflushed event time (abs)
+        # Host mirror of the device watermark (max absolute event time
+        # folded), read by telemetry and _oldest_open_span_start without
+        # a device pull.
+        self._host_wm: int | None = None
         # Parked drains, each ``((tag, *handles), copied_event)``:
         #   ("dense", deltas, wids)
         #   ("compact", idx, vals, nnz, dense, wids)
@@ -488,6 +495,14 @@ class AdAnalyticsEngine:
         self._sink_epoch: int | None = None
         self._sink_seq0 = 0
         self._writer: _RedisWriter | None = None
+        # live telemetry (obs/): None until attach_obs — the writeback
+        # latency histogram, the per-window lifecycle, the occupancy
+        # sampler and the transfer ledger; one None check each per
+        # dispatch, flush or write otherwise
+        self._obs_hist = None
+        self._obs_lifecycle = None
+        self._obs_occupancy = None
+        self._obs_xfer = None
         # Parallel encode pool (multi-core hosts): per-thread encoders,
         # sound only for engines whose fold never reads the interned
         # user/page columns (see encode.parallel).  GIL-bound (pure
@@ -503,6 +518,8 @@ class AdAnalyticsEngine:
     # Engines whose device state is keyed by interned ids must keep one
     # consistent intern table and clear this (encode.parallel).
     PARALLEL_ENCODE_OK = True
+    # the encoded columns the unpacked wire ships, in scan order
+    SCAN_COLUMNS = ("ad_idx", "event_type", "event_time", "valid")
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
@@ -537,13 +554,16 @@ class AdAnalyticsEngine:
                 encoded = self._encode_pool.encode_chunks(
                     [lines[off:off + B] for off in range(0, len(lines), B)],
                     B)
-            return [b for b in encoded if b.n]
-        batches = []
-        for off in range(0, len(lines), B):
-            with self.tracer.span("encode"):
-                b = self.encoder.encode(lines[off:off + B], B)
-            if b.n:
-                batches.append(b)
+            batches = [b for b in encoded if b.n]
+        else:
+            batches = []
+            for off in range(0, len(lines), B):
+                with self.tracer.span("encode"):
+                    b = self.encoder.encode(lines[off:off + B], B)
+                if b.n:
+                    batches.append(b)
+        if self._obs_lifecycle is not None:
+            self._obs_lifecycle.stamp_encoded(batches)
         return batches
 
     def fold_batches(self, batches: list) -> int:
@@ -587,23 +607,31 @@ class AdAnalyticsEngine:
         if self._track_dirty_rows():
             self._note_batch_campaigns(batches)
         with self.tracer.span("device_scan"):
-            self._fold_stack(batches)
+            stacks = self._fold_stack(batches)
+        if self._obs_occupancy is not None:
+            self._obs_occupancy.note_dispatch(self.state)
+        if self._obs_xfer is not None:
+            # the numpy stacks ARE the dispatched host payload
+            self._note_xfer("packed" if self._pack_ok else "unpacked",
+                            sum(b.n for b in batches), stacks)
+        for b in batches:
+            self._note_watermark(b)
         self.events_processed += sum(b.n for b in batches)
         self.last_event_ms = now_ms()
 
-    def _fold_stack(self, batches: list) -> None:
+    def _fold_stack(self, batches: list) -> list[np.ndarray]:
         """Ship ``batches`` as [K, B] stacks and fold them with one scan
-        call."""
+        call.  Returns the host stacks shipped."""
         if self._pack_ok:
-            packs = [wc.pack_columns(b.ad_idx, b.event_type, b.valid)
-                     for b in batches]
-            self._device_scan_packed(
-                self._to_device(np.stack(packs)),
-                self._to_device(np.stack([b.event_time for b in batches])))
-            return
-        self._device_scan(*(
-            self._to_device(np.stack([getattr(b, name) for b in batches]))
-            for name in ("ad_idx", "event_type", "event_time", "valid")))
+            stacks = [np.stack([wc.pack_columns(b.ad_idx, b.event_type,
+                                                b.valid) for b in batches]),
+                      np.stack([b.event_time for b in batches])]
+            self._device_scan_packed(*map(self._to_device, stacks))
+            return stacks
+        stacks = [np.stack([getattr(b, name) for b in batches])
+                  for name in self.SCAN_COLUMNS]
+        self._device_scan(*map(self._to_device, stacks))
+        return stacks
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """Host column -> device tensor (a synchronous copy from pageable
@@ -663,6 +691,8 @@ class AdAnalyticsEngine:
                 b = self.encoder.encode([data[start:]], B)
                 if b.n:
                     batches.append(b)
+        if self._obs_lifecycle is not None:
+            self._obs_lifecycle.stamp_encoded(batches)
         return batches
 
     def _fold(self, batch) -> None:
@@ -690,8 +720,81 @@ class AdAnalyticsEngine:
             self._note_batch_campaigns([batch])
         with self.tracer.span("device_step"):
             self._device_step(batch)
+        if self._obs_occupancy is not None:
+            self._obs_occupancy.note_dispatch(self.state)
+        if self._obs_xfer is not None:
+            fmt, cols = self._xfer_step_cols(batch)
+            self._note_xfer(fmt, batch.n, cols)
+        self._note_watermark(batch)
         self.events_processed += batch.n
         self.last_event_ms = now_ms()
+
+    def _note_watermark(self, batch) -> None:
+        """Advance the host watermark mirror — strictly AFTER the fold
+        that carries these events is dispatched, and over VALID rows
+        only, so ``_host_wm`` equals the device watermark at every drain
+        point (device work runs in dispatch order).  Reads the host
+        batch, never the device."""
+        if self._obs_lifecycle is not None:
+            # attribution hook (obs.lifecycle): this batch's windows
+            # just folded — record its read/encode stamps + fold time
+            self._obs_lifecycle.note_fold(batch)
+        v = batch.valid[:batch.n]
+        if not v.any():
+            return
+        vt = batch.event_time[:batch.n]
+        mx = int(vt.max() if v.all() else vt[v].max()) + batch.base_time_ms
+        if self._host_wm is None or mx > self._host_wm:
+            self._host_wm = mx
+
+    # ------------------------------------------------------------------
+    # host->device transfer accounting (obs.xfer) — called only when
+    # attach_obs handed over a TransferLedger; never on the default path
+    def _xfer_step_cols(self, batch):
+        """``(fmt, cols)`` describing what ``_device_step`` ships for one
+        batch: the column buffers at their wire dtypes, with
+        ``batch.ad_idx`` standing in for the packed word (same int32
+        ``[B]`` shape)."""
+        if self._pack_ok:
+            return "packed", [batch.ad_idx, batch.event_time]
+        return "unpacked", [getattr(batch, c) for c in self.SCAN_COLUMNS]
+
+    def _note_xfer(self, fmt: str, events: int, cols) -> None:
+        """Account one dispatch's payload: exact wire bytes of the
+        dispatched host buffers (``[B]`` columns or ``[K, B]`` stacks,
+        every element one shipped row of its column), int32-normalized
+        column bytes alongside (see obs.xfer); ``cols`` double as the
+        timed copy's payload."""
+        wire = sum(c.nbytes for c in cols)
+        colb = sum(c.size * 4 for c in cols)
+        self._obs_xfer.note_dispatch(fmt, events, wire, colb,
+                                     rows=cols[0].size,
+                                     sample_arrays=cols, device=self.device)
+
+    # ------------------------------------------------------------------
+    # device-memory accounting (obs.devmem) — analysis time only
+    def _devmem_kernels(self) -> list:
+        """``(name, footprint)`` of every kernel this engine launches: K1
+        at the step's B rows, on the ``[C, W]`` plane, from the launch
+        plan it takes on this card (16-byte-aligned columns, as the
+        caching allocator hands them out).  A CPU engine's count is the
+        plain version: no kernel, an empty list."""
+        if self.method != "kernel" or self.device.type != "cuda":
+            return []
+        B = self.batch_size
+        C, W = self.state.counts.shape
+        plan = count_ops.launch_plan(
+            B, C, W, (0, 0, 0),
+            *count_ops.device_limits(self.device.index or 0))
+        plane = C * W * 4
+        # campaign and slot int32, the mask one byte, the plan struct
+        args = 4 * B + 4 * B + B + count_ops.PLAN_BYTES
+        return [("count_cells", {
+            "supported": True, "rows": B, "tier": plan.tier,
+            "blocks": plan.blocks, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes, "argument_bytes": args,
+            "output_bytes": plane, "alias_bytes": plane, "temp_bytes": 0,
+            "total_bytes": args + plane})]
 
     @staticmethod
     def _halves(batch):
@@ -976,6 +1079,14 @@ class AdAnalyticsEngine:
                 rows.extend(zip((campaigns[c] for c in ci.tolist()),
                                 ts_a.tolist(), cnt.tolist()))
         self._pending_np.clear()
+        if self._obs_lifecycle is not None:
+            # attribution hook: these windows' rows leave for the sink
+            # writer NOW — everything before this stamp is device/pending
+            # residency (flush_ms), everything after is sink_ms
+            ts_out = [ts for _, ts, _ in rows]
+            if arrays is not None:
+                ts_out.extend(np.unique(arrays.ts).tolist())
+            self._obs_lifecycle.note_flush(ts_out)
         total = len(rows) + (len(arrays) if arrays is not None else 0)
         if self.redis is not None:
             writer = self._ensure_writer()
@@ -1085,6 +1196,10 @@ class AdAnalyticsEngine:
         self._taint.clear()
         if rows_abs:
             self.faults.inc("reconciled_windows", len(rows_abs))
+        if self._obs_lifecycle is not None:
+            self._obs_lifecycle.note_flush(
+                [ts for _, ts, _ in rows_abs] +
+                [ts for _, ts, _ in rows_delta])
         total = len(rows_abs) + len(rows_delta)
         if self.redis is not None:
             writer = self._ensure_writer()
@@ -1122,11 +1237,19 @@ class AdAnalyticsEngine:
         return self._camp_table
 
     def _note_written(self, payload, stamp: int) -> None:
-        """Latency + write-count bookkeeping at actual write time."""
+        """Latency + write-count bookkeeping at actual write time (writer
+        thread).  With telemetry attached, each unique window's writeback
+        latency also lands in the live histogram and the lifecycle."""
         if isinstance(payload, _ArrayRows):
             self.windows_written += len(payload)
-            for t in _unique_ts(payload.ts).tolist():
-                self.window_latency[int(t)] = stamp - int(t)
+            uniq = [int(t) for t in _unique_ts(payload.ts).tolist()]
+            for t in uniq:
+                self.window_latency[t] = stamp - t
+            if self._obs_hist is not None:
+                for t in uniq:
+                    self._obs_hist.observe(stamp - t)
+            if self._obs_lifecycle is not None:
+                self._obs_lifecycle.note_written(uniq, stamp)
             self.latency_tracker.record_bulk(
                 payload.ci, payload.ts, stamp, payload.campaigns)
             return
@@ -1134,6 +1257,13 @@ class AdAnalyticsEngine:
         for camp, ts, _ in payload:
             self.window_latency[ts] = stamp - ts
             self.latency_tracker.record(camp, ts, stamp)
+        if self._obs_hist is not None or self._obs_lifecycle is not None:
+            uniq = {ts for _, ts, _ in payload}
+            if self._obs_hist is not None:
+                for ts in uniq:
+                    self._obs_hist.observe(stamp - ts)
+            if self._obs_lifecycle is not None:
+                self._obs_lifecycle.note_written(uniq, stamp)
 
     def _reclaim_failed_writes(self) -> None:
         """Fold failed writeback batches back into ``_pending`` so the
@@ -1153,6 +1283,77 @@ class AdAnalyticsEngine:
                 continue
             for camp, ts, n in batch:
                 self._pending[(idx[camp], ts)] += n
+
+    # ------------------------------------------------------------------
+    # live telemetry (obs/): pull-oriented — the sampler thread polls
+    # host-side bookkeeping; the pushed signals are the writeback
+    # histogram and lifecycle (writer thread) and the dispatch hooks
+    # (host loop)
+    def attach_obs(self, registry, lifecycle: bool = False,
+                   spans=None, occupancy=None, xfer=None) -> None:
+        """Opt into live telemetry: register the window-latency streaming
+        histogram on ``registry`` (obs.MetricsRegistry), fed at write
+        time.  ``lifecycle=True`` attaches the per-window attribution
+        tracker (obs.lifecycle); ``spans`` (obs.spans.SpanTracer) takes
+        every Tracer stage span, the writer thread's included;
+        ``occupancy`` (obs.occupancy.OccupancySampler) is called after
+        every device dispatch; ``xfer`` (obs.xfer.TransferLedger)
+        accounts every dispatch's host->device payload."""
+        from streambench_tpu_torch.obs.lifecycle import WindowLifecycle
+
+        self._obs_hist = registry.histogram(
+            "streambench_window_latency_ms",
+            "window writeback latency (time_updated - window_ts), ms")
+        if lifecycle:
+            self._obs_lifecycle = WindowLifecycle(
+                registry, divisor_ms=self.divisor,
+                lateness_ms=self.lateness)
+        if spans is not None:
+            spans.attach(self.tracer)
+        if occupancy is not None:
+            self._obs_occupancy = occupancy
+        if xfer is not None:
+            self._obs_xfer = xfer
+
+    def telemetry(self) -> dict:
+        """Point-in-time snapshot of host bookkeeping: plain field reads
+        and one wall-clock call, no device sync — safe from the sampler
+        thread at any cadence."""
+        wm = self._host_wm
+        writer = self._writer
+        out = {
+            "events": self.events_processed,
+            "windows_written": self.windows_written,
+            "watermark_lag_ms": (now_ms() - wm) if wm is not None else None,
+            "sink_dirty_rows": (writer.dirty_rows()
+                                if writer is not None else 0),
+            # parked/pending flush backlog; tuple() snapshots the list
+            # atomically under the GIL while the host loop appends
+            "pending_rows": (len(self._pending)
+                             + sum(int(t[0].shape[0])
+                                   for t in tuple(self._pending_np))),
+        }
+        if self._xo:
+            e, s = self._fence_state()
+            out["sink_fence"] = {"epoch": e, "seq": s,
+                                 "reconcile": self._reconcile_all,
+                                 "tainted_windows": len(self._taint)}
+        return out
+
+    def _oldest_open_span_start(self) -> int | None:
+        """Absolute event time of the oldest window that could still be
+        open, from the host watermark mirror (no device pull): a window
+        starting at ``ws`` is closed once ``ws + divisor + lateness <=
+        watermark``.  Conservative — it may point at a window that
+        already closed, never past one still open.  Its reader in the
+        JAX package is the sketch engines, which are not ported yet."""
+        if self._host_wm is None:
+            return None
+        base = self.encoder.base_time_ms or 0
+        min_open_wid = (self._host_wm - base - self.lateness) // self.divisor
+        if min_open_wid < 0:
+            min_open_wid = 0
+        return base + min_open_wid * self.divisor
 
     def drain_writes(self) -> None:
         """Block until every queued Redis writeback has landed: the sync
@@ -1255,6 +1456,13 @@ class AdAnalyticsEngine:
                 self._dirty_rows.append(live)
         self.encoder.set_base_time(snap.meta["base_time_ms"])
         self._span_start = snap.meta["span_start"]
+        # gate on the NEG "no events" sentinel, not truthiness: a
+        # relative watermark of 0 is set (host_wm = base); NEG, or a
+        # snapshot taken before the first event (no base), is unset
+        wm = int(snap.watermark)
+        base = snap.meta["base_time_ms"]
+        self._host_wm = (int(base) + wm
+                         if base is not None and wm > wc.NEG else None)
         self.events_processed = int(snap.meta["events_processed"])
         self.windows_written = int(snap.meta["windows_written"])
         self.started_ms = int(snap.meta["started_ms"])

@@ -22,8 +22,15 @@ operating policies are the reference engines':
   more at the end of a run; ``resume()`` restores the newest one.  Under
   the ingest pipeline the stages are quiesced around the snapshot, whose
   offset is the folded position, never the read-ahead.
+- **observability** — with a flight recorder (``obs.flightrec``) the
+  loop records a tick at every flush and the checkpoints, and a loop
+  that dies dumps the ring; with a span tracer (``obs.spans``) the
+  serial loops add their journal reads and the pipeline its stage
+  spans; ``flush_hooks`` run on the host loop after every periodic
+  flush (the triggered profiler capture and the device-memory census,
+  which must touch torch from this thread only).
 
-Not ported yet: chaos points, the flight recorder and span hooks.
+Not ported yet: chaos points.
 """
 
 from __future__ import annotations
@@ -74,7 +81,8 @@ class StreamRunner:
                  flush_interval_ms: int | None = None,
                  checkpointer: Checkpointer | None = None,
                  checkpoint_interval_ms: int | None = None,
-                 ingest_pipeline: str | None = None):
+                 ingest_pipeline: str | None = None,
+                 flightrec=None, spans=None):
         cfg = engine.cfg
         self.engine = engine
         self.reader = reader
@@ -104,9 +112,78 @@ class StreamRunner:
                 else cfg.jax_ingest_pipeline)
         self.ingest_mode = (mode or "off").strip().lower()
         self._pipeline: ingest.IngestPipeline | None = None
+        # Crash flight recorder (obs.flightrec or None): a "tick" record
+        # at every flush cycle + checkpoint offsets, dumped with the
+        # terminal fault when a run loop dies.
+        self.flightrec = flightrec
+        self._flight_prev_faults: dict = {}
+        # Span tracer (obs.spans or None): the engine's Tracer spans are
+        # forwarded by attach_obs; the runner adds the READ side — the
+        # serial loops' journal polls and the pipeline's stage spans.
+        self.spans = spans
+        # Callables run on the host loop after every periodic flush; the
+        # CLI sets them (capture, device-memory census).
+        self.flush_hooks: tuple = ()
 
     def stop(self) -> None:
         self._stop = True
+
+    # ------------------------------------------------------------------
+    # crash flight recorder (obs.flightrec)
+    def _flight_tick(self) -> None:
+        """One structured sample into the flight ring (flush cadence):
+        progress counters, watermark lag, sink health, fault deltas,
+        and — when the staged pipeline is live — its queue depths."""
+        fr = self.flightrec
+        if fr is None:
+            return
+        tel = self.engine.telemetry()
+        rec = {"events": tel["events"],
+               "windows_written": tel["windows_written"],
+               "watermark_lag_ms": tel["watermark_lag_ms"],
+               "pending_rows": tel["pending_rows"],
+               "sink_dirty_rows": tel["sink_dirty_rows"],
+               "batches": self.stats.batches,
+               "flushes": self.stats.flushes}
+        if "sink_fence" in tel:
+            rec["sink_fence"] = tel["sink_fence"]
+        faults = self.engine.faults.snapshot()
+        deltas = {k: v - self._flight_prev_faults.get(k, 0)
+                  for k, v in faults.items()
+                  if v != self._flight_prev_faults.get(k, 0)}
+        self._flight_prev_faults = faults
+        if deltas:
+            rec["fault_deltas"] = deltas
+        pipe = self._pipeline
+        if pipe is not None and not pipe.closed:
+            ing = pipe.telemetry()
+            rec["ingest"] = {k: ing[k] for k in
+                             ("block_queue_depth", "batch_queue_depth",
+                              "reader_stalls", "encode_stalls")}
+        fr.record("tick", **rec)
+
+    def _flight_crash(self, err: BaseException) -> None:
+        """A run loop died: freeze the ring with the terminal fault as
+        the last record."""
+        fr = self.flightrec
+        if fr is None:
+            return
+        try:
+            offset = self._reader_position()
+        except Exception:
+            offset = None
+        fr.dump("crash", terminal={
+            "kind": "fault", "event": "crash", "error": repr(err),
+            "offset": offset, "events": self.stats.events,
+            "batches": self.stats.batches,
+            "flushes": self.stats.flushes})
+
+    def _read_span(self, t0_ns: int, records: "int | None") -> None:
+        """A non-empty journal read of a serial loop, as a span (empty
+        polls at the 1 ms yield cadence would flood the bounded ring)."""
+        self.spans.add("journal_read", t0_ns, time.perf_counter_ns() - t0_ns,
+                       cat="ingest",
+                       args=None if records is None else {"records": records})
 
     def _block_mode(self) -> bool:
         """Native scanner over raw bytes when both ends support it."""
@@ -171,8 +248,11 @@ class StreamRunner:
             finally:
                 pipe.resume()
         else:
-            self.checkpointer.save(
-                self.engine.snapshot(self._reader_position()))
+            off = self._reader_position()
+            self.checkpointer.save(self.engine.snapshot(off))
+        if self.flightrec is not None:
+            self.flightrec.record("checkpoint", offset=off,
+                                  events=self.engine.events_processed)
         self._last_ckpt = now
 
     def _checkpoint_due(self, now: float) -> bool:
@@ -180,11 +260,15 @@ class StreamRunner:
                 (now - self._last_ckpt) * 1000 >= self.checkpoint_interval_ms)
 
     def _flush(self, now: float) -> None:
-        """The periodic flush, its stall tick and the checkpoint cadence."""
+        """The periodic flush, its stall tick, the flight tick, the flush
+        hooks and the checkpoint cadence."""
         st = self.stats
         st.windows_written += self.engine.flush()
         st.flushes += 1
         self.stall_detector.tick(int(time.monotonic() * 1000))
+        self._flight_tick()
+        for hook in self.flush_hooks:
+            hook()
         if self._checkpoint_due(now):
             self._checkpoint_now(now)
 
@@ -193,6 +277,7 @@ class StreamRunner:
         st = self.stats
         st.windows_written += self.engine.flush(final=True)
         st.flushes += 1
+        self._flight_tick()   # short runs still leave ring context
         if self.checkpointer is not None:
             self._checkpoint_now(time.monotonic())
 
@@ -220,7 +305,8 @@ class StreamRunner:
             catchup=catchup,
             est_event_bytes=self.EST_EVENT_BYTES,
             block_queue=cfg.jax_ingest_block_queue,
-            batch_queue=cfg.jax_ingest_batch_queue)
+            batch_queue=cfg.jax_ingest_batch_queue,
+            flightrec=self.flightrec, spans=self.spans)
         self._pipeline = pipe
         return pipe
 
@@ -320,7 +406,18 @@ class StreamRunner:
     def run(self, duration_s: float | None = None,
             idle_timeout_s: float | None = None,
             max_events: int | None = None) -> RunStats:
-        """Consume until stopped / duration / idle-timeout / max_events."""
+        """Consume until stopped / duration / idle-timeout / max_events.
+        A loop that dies leaves its flight-recorder black box (when one
+        is attached) before the exception propagates."""
+        try:
+            return self._run(duration_s, idle_timeout_s, max_events)
+        except BaseException as e:
+            self._flight_crash(e)
+            raise
+
+    def _run(self, duration_s: float | None,
+             idle_timeout_s: float | None,
+             max_events: int | None) -> RunStats:
         if self._pipeline_on():
             return self._run_pipelined(duration_s, idle_timeout_s,
                                        max_events)
@@ -363,6 +460,8 @@ class StreamRunner:
 
             room = target - pending_n
             full_read = False
+            spans = self.spans
+            t0_ns = time.perf_counter_ns() if spans is not None else 0
             if room <= 0:
                 got = 0
             elif block_mode:
@@ -380,6 +479,8 @@ class StreamRunner:
                 full_read = got >= room
                 if got:
                     pending.extend(lines)
+            if spans is not None and got:
+                self._read_span(t0_ns, got)
             if got:
                 last_data = now
                 if pending_since is None:
@@ -424,6 +525,13 @@ class StreamRunner:
         """Drain the journal as fast as possible (catchup/throughput mode):
         scan-chunked batches, no buffer timeout, flush only on ring-span
         guard + once per second of wall clock."""
+        try:
+            return self._run_catchup(max_events)
+        except BaseException as e:
+            self._flight_crash(e)
+            raise
+
+    def _run_catchup(self, max_events: int | None) -> RunStats:
         if self._pipeline_on():
             return self._run_catchup_pipelined(max_events)
         st = self.stats
@@ -432,17 +540,23 @@ class StreamRunner:
         chunk = self.batch_size * self.engine.scan_batches
         block_mode = self._block_mode()
         block_bytes = chunk * self.EST_EVENT_BYTES
+        spans = self.spans
         while not self._stop:
             before = self.engine.events_processed
+            t0_ns = time.perf_counter_ns() if spans is not None else 0
             if block_mode:
                 data = self.reader.poll_block(block_bytes)
                 if not data:
                     break
+                if spans is not None:
+                    self._read_span(t0_ns, None)
                 self.engine.process_block(data)
             else:
                 lines = self.reader.poll(max_records=chunk)
                 if not lines:
                     break
+                if spans is not None:
+                    self._read_span(t0_ns, len(lines))
                 self.engine.process_chunk(lines)
             st.events += self.engine.events_processed - before
             st.batches += 1

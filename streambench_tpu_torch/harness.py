@@ -24,6 +24,16 @@ every window in Redis against the generator's oracle over the journal the
 load wrote (``VERIFY``, before the services stop) and record the result in
 ``WORKDIR/verify.json``.
 
+Observability knobs, under the JAX harness's names and all default-off:
+``METRICS_INTERVAL_MS`` (``WORKDIR/metrics.jsonl``), ``OBS_LIFECYCLE``
+(per-window latency attribution, ``python -m streambench_tpu_torch.obs
+attribution``), ``FLIGHTREC`` (``WORKDIR/flight_<reason>.jsonl``),
+``OBS_SPANS`` (``WORKDIR/trace_<pid>.json``), ``OBS_OCCUPANCY``,
+``SLO_P99_MS``, ``SLO_RATE_EVPS``, ``OBS_XFER``, ``OBS_DEVMEM`` and
+``OBS_CAPTURE`` (a ``torch.profiler`` one-shot into
+``WORKDIR/xprof_<ms>_oneshot/``).  ``OBS_SHARD``, ``OBS_QUERY`` and
+``OBS_FLEET`` need surfaces not ported yet and are refused.
+
 Services are subprocesses with ``<pid> <starttime>`` pidfiles
 (``utils.pidfile``), so STOP never signals a recycled pid.  An engine that
 dies during startup fails ``START_TORCH_PROCESSING``; nothing falls back
@@ -90,6 +100,20 @@ ENCODE_WORKERS = int(os.environ.get("ENCODE_WORKERS", "1"))
 INGEST_PIPELINE = os.environ.get("INGEST_PIPELINE", "off")
 EXACTLY_ONCE = _flag("EXACTLY_ONCE")
 VERIFY = _flag("VERIFY")
+# observability (obs/), forwarded into localConf (jax.metrics.*,
+# jax.obs.*, jax.slo.* keys)
+METRICS_INTERVAL_MS = int(os.environ.get("METRICS_INTERVAL_MS", "0"))
+OBS_LIFECYCLE = _flag("OBS_LIFECYCLE")
+FLIGHTREC = _flag("FLIGHTREC")
+OBS_SPANS = _flag("OBS_SPANS")
+OBS_OCCUPANCY = _flag("OBS_OCCUPANCY")
+SLO_P99_MS = int(os.environ.get("SLO_P99_MS", "0"))
+SLO_RATE_EVPS = int(os.environ.get("SLO_RATE_EVPS", "0"))
+OBS_XFER = _flag("OBS_XFER")
+OBS_DEVMEM = _flag("OBS_DEVMEM")
+OBS_CAPTURE = _flag("OBS_CAPTURE")
+#: knobs of the JAX harness whose surfaces the port does not have yet
+NOT_PORTED_KNOBS = ("OBS_SHARD", "OBS_QUERY", "OBS_FLEET")
 
 PID_DIR = os.path.join(WORKDIR, "pids")
 LOG_DIR = os.path.join(WORKDIR, "logs")
@@ -210,6 +234,10 @@ def op_setup() -> None:
     from streambench_tpu_torch import native
     from streambench_tpu_torch.config import write_local_conf
 
+    refused = [k for k in NOT_PORTED_KNOBS if _flag(k)]
+    if refused:
+        raise SystemExit("not ported to the PyTorch harness yet: "
+                         + ", ".join(refused))
     os.makedirs(WORKDIR, exist_ok=True)
     # Start from a fresh journal — except on a checkpoint-resume run (the
     # snapshot's offsets index THIS journal) or in a directory the user
@@ -236,6 +264,19 @@ def op_setup() -> None:
         "jax.encode.workers": ENCODE_WORKERS,
         "jax.ingest.pipeline": INGEST_PIPELINE,
         "jax.sink.exactly_once": EXACTLY_ONCE,
+        "jax.metrics.interval.ms": METRICS_INTERVAL_MS,
+        "jax.obs.lifecycle": OBS_LIFECYCLE,
+        "jax.obs.flightrec.enabled": FLIGHTREC,
+        "jax.obs.spans": OBS_SPANS,
+        "jax.obs.occupancy": OBS_OCCUPANCY,
+        "jax.slo.p99.ms": SLO_P99_MS,
+        "jax.slo.rate.evps": SLO_RATE_EVPS,
+        "jax.obs.xfer": OBS_XFER,
+        "jax.obs.devmem": OBS_DEVMEM,
+        "jax.obs.capture.enabled": OBS_CAPTURE,
+        # the env knob means "prove capture works": one bounded window
+        # of the stream, so every such run leaves an xprof dir
+        "jax.obs.capture.oneshot": OBS_CAPTURE,
     })
     log(f"wrote {CONF_FILE}")
     native.build()

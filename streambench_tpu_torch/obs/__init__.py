@@ -1,0 +1,90 @@
+"""Live telemetry of the PyTorch port: the single-engine half of
+``streambench_tpu/obs/``.
+
+All default-off; importing the package builds nothing and does not
+initialise CUDA (the device modules import torch inside the calls that
+need it):
+
+- ``registry``  — counters/gauges + O(1) log-bucketed streaming
+  histograms (live p50/p95/p99 while the run is going)
+- ``sampler``   — background thread journaling one snapshot record per
+  ``jax.metrics.interval.ms`` to ``metrics.jsonl`` in the workdir
+- ``httpd``     — localhost Prometheus text-exposition endpoint
+  (``jax.metrics.port``)
+- ``report``    — ``python -m streambench_tpu_torch.obs`` renders a run
+  report from ``metrics.jsonl`` and diffs two runs
+- ``lifecycle`` — per-window latency attribution: the YSB latency
+  decomposed into ingest/encode/fold/flush/sink segments
+  (``jax.obs.lifecycle``; ``python -m streambench_tpu_torch.obs
+  attribution``)
+- ``flightrec`` — bounded crash flight recorder dumping
+  ``flight_<reason>.jsonl`` on crash/SIGTERM
+  (``jax.obs.flightrec.enabled``)
+- ``spans``     — bounded thread-aware span tracer exporting Chrome
+  trace-event JSON (``jax.obs.spans``; ``python -m
+  streambench_tpu_torch.obs trace`` validates)
+- ``occupancy`` — MEASURED device occupancy: sampled CUDA-event-timed
+  dispatches -> ``device_busy_ratio``, and the kernel-library build
+  detector ``streambench_compiles_*`` (``jax.obs.occupancy``)
+- ``slo``       — objectives (``jax.slo.p99.ms``, ``jax.slo.rate.evps``)
+  with multi-window burn-rate breach gates and a pass/fail verdict in
+  the RunStats close line
+- ``regress``   — tolerance-driven A/B comparator over run artifacts or
+  metrics journals (``python -m streambench_tpu_torch.obs regress``)
+- ``xfer``      — host->device transfer ledger (exact payload bytes per
+  dispatch by wire format + sampled CUDA-event-timed copies;
+  ``jax.obs.xfer``)
+- ``devmem``    — device-memory ledger: K1's launch footprints + the
+  CUDA caching allocator's live-block census (``jax.obs.devmem``)
+- ``capture``   — bounded TRIGGERED ``torch.profiler`` capture (SLO
+  breach / SIGUSR2 / config one-shot, with cooldown + cap;
+  ``jax.obs.capture.*``); also owns the one profiler start/stop path
+  ``trace.device_trace`` delegates to
+
+Not ported yet, each with the surface it observes: ``fleet`` and
+``clock`` (the pub/sub fleet), ``queryattr`` (reach serving),
+``tenancy`` and ``admission`` (tenants), ``autoscale`` and ``diagnose``
+(the SLO autoscaler with chaos), ``xfer.ShardSkew`` (the sharded
+engines).
+
+Enable on the engine CLI via config keys (``jax.metrics.interval.ms``
+> 0 and/or ``jax.metrics.port`` >= 0); embed via::
+
+    registry = MetricsRegistry()
+    engine.attach_obs(registry)
+    sampler = MetricsSampler(path, interval_ms=1000, registry=registry)
+    sampler.add_collector(engine_collector(engine, reader=reader,
+                                           runner=runner,
+                                           registry=registry))
+    sampler.start()
+    server = MetricsServer(registry, port=0, refresh=sampler.collect_now)
+"""
+
+from streambench_tpu_torch.obs.capture import (  # noqa: F401
+    CaptureManager,
+    profiler_window,
+)
+from streambench_tpu_torch.obs.devmem import DeviceMemoryLedger  # noqa: F401
+from streambench_tpu_torch.obs.flightrec import FlightRecorder  # noqa: F401
+from streambench_tpu_torch.obs.httpd import MetricsServer  # noqa: F401
+from streambench_tpu_torch.obs.lifecycle import WindowLifecycle  # noqa: F401
+from streambench_tpu_torch.obs.occupancy import (  # noqa: F401
+    CompileWatcher,
+    OccupancySampler,
+)
+from streambench_tpu_torch.obs.registry import (  # noqa: F401
+    Counter,
+    Gauge,
+    MetricsRegistry,
+    StreamingHistogram,
+)
+from streambench_tpu_torch.obs.sampler import (  # noqa: F401
+    MetricsSampler,
+    engine_collector,
+    kafka_collector,
+    rss_bytes,
+    rss_sample,
+)
+from streambench_tpu_torch.obs.slo import SloTracker  # noqa: F401
+from streambench_tpu_torch.obs.spans import SpanTracer  # noqa: F401
+from streambench_tpu_torch.obs.xfer import TransferLedger  # noqa: F401

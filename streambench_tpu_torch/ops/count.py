@@ -103,6 +103,10 @@ class _PlanArgs(ctypes.Structure):
             "vec_slot", "vec_mask")]
 
 
+#: bytes of the plan struct each launch passes (by pointer)
+PLAN_BYTES = ctypes.sizeof(_PlanArgs)
+
+
 @functools.lru_cache(maxsize=None)
 def device_limits(index: int) -> tuple[int, int]:
     """``(SM count, shared memory a block may opt in to)`` of CUDA device

@@ -1,4 +1,4 @@
-"""Stamped-timestamp tracing for the host loop.
+"""Stamped-timestamp tracing for the host loop + device profiler hook.
 
 The reference has no dedicated tracer; profiling is ad-hoc stopwatch
 timestamps woven into the dataflow (SURVEY.md §5.1): ``DeserializeBolt``
@@ -9,6 +9,10 @@ stamps (``:316-353``), and per-window wall time is printed
 monotonic-clock spans per pipeline stage, aggregated into per-stage
 totals/counts, cheap enough to leave on (two ``perf_counter_ns`` calls and
 a dict update per span).
+
+``device_trace`` wraps ``torch.profiler`` so a run can also capture a
+Chrome trace of the host's torch ops and, on the card, its kernels and
+copies.
 """
 
 from __future__ import annotations
@@ -112,3 +116,19 @@ class Tracer:
                 for name, (calls, total_ns, max_ns)
                 in self.snapshot().items()}
 
+
+@contextlib.contextmanager
+def device_trace(logdir: str | None, device=None):
+    """Capture a ``torch.profiler`` trace into ``logdir/trace.json``
+    (no-op if None); ``device`` is the engine's, whose kernels are
+    recorded when it is a CUDA device.
+
+    Delegates to ``obs.capture.profiler_window`` — the ONE profiler
+    start/stop path in the package, shared with the triggered-capture
+    manager (the profiler is process-wide; two entry points with their
+    own state could double-start it).  If a triggered capture already
+    owns the profiler, this trace is skipped rather than raised."""
+    from streambench_tpu_torch.obs.capture import profiler_window
+
+    with profiler_window(logdir, device):
+        yield

@@ -9,6 +9,10 @@ Safe under concurrent first use (pytest-xdist workers, several engines):
 one process builds behind an exclusive file lock, into a temporary name
 that ``os.replace`` publishes atomically; the others wait on the lock and
 then find the finished library.
+
+Each compiler run is reported to the listeners of ``add_build_listener``
+(``obs.occupancy.CompileWatcher`` counts them): the port's only compile
+at first use, so a warmed run must report none.
 """
 
 from __future__ import annotations
@@ -17,11 +21,23 @@ import fcntl
 import hashlib
 import os
 import subprocess
+import time
 from typing import Callable, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "streambench_tpu_torch")
+# ``fn(name, seconds)`` called after every successful compiler run;
+# process-wide, as the builds are
+_build_listeners: set = set()
+
+
+def add_build_listener(fn) -> None:
+    _build_listeners.add(fn)
+
+
+def remove_build_listener(fn) -> None:
+    _build_listeners.discard(fn)
 
 
 class BuildError(RuntimeError):
@@ -52,6 +68,7 @@ def build_library(name: str, sources: Sequence[str],
             return out
         tmp = f"{out}.{os.getpid()}.tmp"
         try:
+            t0 = time.perf_counter()
             proc = subprocess.run(command(tmp), capture_output=True,
                                   text=True, timeout=timeout_s)
             if proc.returncode != 0:
@@ -64,4 +81,6 @@ def build_library(name: str, sources: Sequence[str],
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    for fn in list(_build_listeners):
+        fn(name, time.perf_counter() - t0)
     return out

@@ -240,7 +240,9 @@ def test_cli_catchup_on_cpu(tmp_path):
 @pytest.mark.parametrize("extra,conf_line,word", [
     (["--sharded"], "", "--sharded"),
     (["--engine", "hll"], "", "--engine hll"),
-    (["--traceDir", "tr"], "", "--traceDir"),
+    # --traceDir is ported; what stays refused of tracing is the fleet
+    # layer's cross-process trace stitching (jax.obs.fleet)
+    ([], "jax.obs.fleet: true", "jax.obs.fleet"),
     ([], 'jax.decode.device: "on"', "jax.decode.device"),
     (["--microbatch"], "", "--microbatch"),
     (["--tenants", "a:exact"], "", "--tenants"),

@@ -19,6 +19,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "streambench_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "streambench_tpu"}
+OBS_MODULES = ("__main__", "capture", "devmem", "flightrec", "httpd",
+               "lifecycle", "occupancy", "registry", "regress", "report",
+               "sampler", "slo", "spans", "xfer")
 
 CHILD = r"""
 import json, pkgutil, subprocess, sys
@@ -70,7 +73,8 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.ops.count",
                 "streambench_tpu_torch.ops.windowcount",
                 "streambench_tpu_torch.native",
-                "streambench_tpu_torch.datagen.gen"}
+                "streambench_tpu_torch.datagen.gen"} | {
+                    f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES}
     assert expected <= set(got["modules"])
     assert got["jax"] == []
     assert got["cuda_initialized"] is False
@@ -100,3 +104,32 @@ def test_first_component_rule_tells_the_packages_apart():
     assert "streambench_tpu_torch".startswith("streambench_tpu")
     assert "streambench_tpu_torch.ops".split(".")[0] not in FORBIDDEN
     assert "streambench_tpu.ops".split(".")[0] in FORBIDDEN
+
+
+OBS_CHILD = r"""
+import json, sys
+import streambench_tpu_torch.obs
+for m in sys.argv[1:]:
+    __import__("streambench_tpu_torch.obs." + m)
+print(json.dumps({
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib",
+                                            "streambench_tpu", "torch")),
+}))
+"""
+
+
+def test_obs_package_imports_no_jax_and_not_even_torch():
+    """The obs layer builds nothing and touches no device at import: its
+    device modules import torch inside the calls that need it, so the
+    report CLI starts without torch and cannot initialise CUDA."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", OBS_CHILD,
+                           *[m for m in OBS_MODULES if m != "__main__"]],
+                          capture_output=True, text=True, timeout=120,
+                          env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "loaded": []}

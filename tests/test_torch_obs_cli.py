@@ -1,0 +1,249 @@
+"""The port's engine CLI and harness with the observability keys on, on
+the CPU: the journal, the span trace, the flight recorder's SIGTERM
+dump, the triggered capture, the ``obs`` CLI reading what they wrote,
+and the keys and knobs that stay refused."""
+
+import glob
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import pytest
+
+from streambench_tpu_torch.engine import __main__ as cli
+from streambench_tpu_torch.obs import __main__ as obs_cli
+from tests.test_torch_engine import REPO, TOPIC, write_journal
+
+OBS_CONF = """redis.host: ":inprocess:"
+kafka.topic: "ad-events"
+jax.batch.size: 1024
+jax.metrics.interval.ms: 100
+jax.metrics.port: 0
+jax.obs.lifecycle: true
+jax.obs.flightrec.enabled: true
+jax.obs.spans: true
+jax.obs.occupancy: true
+jax.obs.xfer: true
+jax.obs.devmem: true
+jax.obs.capture.enabled: true
+jax.obs.capture.oneshot: true
+jax.obs.capture.window.s: 0.1
+jax.slo.p99.ms: 15000
+"""
+
+
+def _engine(workdir, conf, *extra):
+    return [sys.executable, "-m", "streambench_tpu_torch.engine",
+            "--confPath", conf, "--workdir", workdir, "--device", "cpu",
+            *extra]
+
+
+def test_cli_catchup_with_obs_on(tmp_path, capsys):
+    workdir = str(tmp_path)
+    write_journal(workdir, 20_000, 10, seed=31)
+    conf = tmp_path / "conf.yaml"
+    conf.write_text(OBS_CONF)
+    proc = subprocess.run(
+        _engine(workdir, str(conf), "--catchup"), capture_output=True,
+        text=True, timeout=180, env=dict(os.environ, PYTHONPATH=REPO),
+        cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert any(ln.startswith("metrics: interval=100ms") and "endpoint="
+               in ln for ln in lines)
+    stats = json.loads(lines[-1])
+    assert stats["events"] == 20_000 and stats["dropped"] == 0
+    assert stats["occupancy"]["dispatches"] > 0
+    assert stats["occupancy"]["compiles"]["compiles_steady"] == 0
+    assert stats["xfer"]["formats"]["packed"]["bytes_per_row"] == 8.0
+    assert stats["devmem"]["live"]["supported"] is False   # the CPU
+    assert stats["slo"]["pass"] in (True, False)
+    assert "capture" in stats
+
+    metrics = os.path.join(workdir, "metrics.jsonl")
+    recs = [json.loads(ln) for ln in open(metrics)]
+    assert recs[-1]["kind"] == "final"
+    assert recs[-1]["run_stats"] == stats
+    att = recs[-1]["attribution"]
+    assert att["writes_observed"] > 0
+    # the unclamped sums agree: segments telescope to the e2e
+    clamps = stats["attribution_clamps"]
+    seg_sum = sum(v["sum"] for v in att["segments"].values())
+    assert seg_sum - sum(clamps["segments_ms"].values()) == pytest.approx(
+        att["e2e_ms"]["sum"] - clamps["e2e_ms"], abs=0.01)
+    capsys.readouterr()
+    for args in (["report", metrics], ["attribution", metrics],
+                 ["trace", *glob.glob(os.path.join(workdir,
+                                                   "trace_*.json"))]):
+        assert obs_cli.main(args) == 0, args
+    out = capsys.readouterr().out
+    assert "window latency attribution" in out and "device_step" in out
+
+
+def test_sigterm_dumps_the_flight_recorder(tmp_path):
+    workdir = str(tmp_path)
+    write_journal(workdir, 5_000, 10, seed=32)
+    conf = tmp_path / "conf.yaml"
+    conf.write_text(OBS_CONF)
+    proc = subprocess.Popen(
+        _engine(workdir, str(conf)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    try:
+        deadline = time.monotonic() + 120
+        for line in proc.stdout:
+            if line.startswith("engine up:"):
+                break
+            assert time.monotonic() < deadline
+        time.sleep(1.5)           # a few flush ticks
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    stats = json.loads(out.strip().splitlines()[-1])
+    assert stats["events"] == 5_000
+    path = os.path.join(workdir, "flight_sigterm.jsonl")
+    recs = [json.loads(ln) for ln in open(path)]
+    kinds = [r["kind"] for r in recs]
+    assert "tick" in kinds and "spans" in kinds
+    # the ring, then the span tail (no terminal record on a signal)
+    assert recs[-1]["kind"] == "spans"
+    assert recs[-2]["kind"] == "signal" and recs[-2]["event"] == "sigterm"
+    # the one-shot fired at the first flush with events folded
+    assert [c["reason"] for c in stats["capture"]["captures"]] == [
+        "oneshot"]
+    trace = glob.glob(os.path.join(workdir, "xprof_*_oneshot",
+                                   "trace.json"))
+    assert len(trace) == 1 and json.load(open(trace[0]))["traceEvents"]
+
+
+@pytest.mark.parametrize("capture", [False, True],
+                         ids=["alone", "oneshot_suppressed"])
+def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
+    workdir = str(tmp_path)
+    write_journal(workdir, 20_000, 10, seed=33)
+    conf = tmp_path / "conf.yaml"
+    text = ('redis.host: ":inprocess:"\nkafka.topic: "ad-events"\n'
+            "jax.batch.size: 1024\n")
+    if capture:
+        # a flush at every step: the one-shot is claimed at the first
+        # flush with events and refused at the next, --traceDir holding
+        # the profiler
+        text += ("jax.flush.interval.ms: 1\n"
+                 "jax.obs.capture.enabled: true\n"
+                 "jax.obs.capture.oneshot: true\n")
+    conf.write_text(text)
+    trace_dir = str(tmp_path / "tdir")
+    proc = subprocess.run(
+        _engine(workdir, str(conf), "--catchup", "--traceDir", trace_dir),
+        capture_output=True, text=True, timeout=180,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert stats["events"] == 20_000 and stats["dropped"] == 0
+    events = json.load(open(os.path.join(trace_dir,
+                                         "trace.json")))["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
+    if capture:
+        assert stats["capture"]["captures"] == []
+        assert stats["capture"]["suppressed"] == 1
+        assert not glob.glob(os.path.join(workdir, "xprof_*"))
+
+
+@pytest.mark.parametrize("extra,conf_line,word", [
+    ([], "jax.obs.query: true", "jax.obs.query"),
+    ([], "jax.obs.fleet: true", "jax.obs.fleet"),
+    ([], "jax.obs.shard: true", "jax.obs.shard"),
+    (["--sharded"], "jax.obs.shard: true", "jax.obs.shard"),
+], ids=["query", "fleet", "shard", "shard_sharded"])
+def test_cli_refuses_the_obs_keys_not_ported(tmp_path, capsys, extra,
+                                             conf_line, word):
+    conf = tmp_path / "conf.yaml"
+    conf.write_text('redis.host: ":inprocess:"\n' + conf_line + "\n")
+    rc = cli.main(["--confPath", str(conf), "--workdir", str(tmp_path),
+                   "--device", "cpu", *extra])
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert "not ported" in err and word in err
+
+
+@pytest.mark.parametrize("args", [["serve", "m.jsonl"],
+                                  ["fleet", "m.jsonl"],
+                                  ["trace", "a.json", "b.json", "--merge"]],
+                         ids=["serve", "fleet", "trace_merge"])
+def test_obs_cli_refuses_what_is_not_ported(capsys, args):
+    assert obs_cli.main(args) == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+HARNESS_OBS = {"METRICS_INTERVAL_MS": "1000", "OBS_LIFECYCLE": "1",
+               "FLIGHTREC": "1", "OBS_SPANS": "1", "OBS_OCCUPANCY": "1",
+               "OBS_XFER": "1", "OBS_DEVMEM": "1", "OBS_CAPTURE": "1",
+               "SLO_P99_MS": "15000"}
+
+
+def _harness_env(workdir, port, **extra):
+    return dict(os.environ, PYTHONPATH=REPO, WORKDIR=workdir,
+                REDIS_PORT=str(port), TOPIC=TOPIC, DEVICE="cpu",
+                PYTHONUNBUFFERED="1", **extra)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_harness_torch_test_with_obs_knobs_on_the_cpu(tmp_path):
+    workdir = str(tmp_path / "run")
+    harness = [sys.executable, "-m", "streambench_tpu_torch.harness"]
+    env = _harness_env(workdir, _free_port(), LOAD="600", TEST_TIME="6",
+                       INGEST_PIPELINE="on", VERIFY="1",
+                       STOP_STATS_GRACE="2", **HARNESS_OBS)
+    try:
+        p = subprocess.run([*harness, "TORCH_TEST"], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+        conf = open(os.path.join(workdir, "localConf.yaml")).read()
+        for key in ("jax.obs.lifecycle: true", "jax.obs.devmem: true",
+                    "jax.obs.capture.oneshot: true", "jax.slo.p99.ms: 15000",
+                    "jax.metrics.interval.ms: 1000"):
+            assert key in conf
+        verify = json.load(open(os.path.join(workdir, "verify.json")))
+        assert verify["windows_correct"] > 0 and not (
+            verify["windows_differ"] or verify["windows_missing"]
+            or verify["windows_extra"])
+        engine_log = open(os.path.join(workdir, "logs",
+                                       "engine.log")).read()
+        stats = json.loads([ln for ln in engine_log.splitlines()
+                            if ln.startswith("{")][-1])
+        assert stats["events"] == verify["journal_events"]
+        assert stats["slo"]["pass"] is True
+        assert os.path.exists(os.path.join(workdir, "flight_sigterm.jsonl"))
+        assert glob.glob(os.path.join(workdir, "xprof_*", "trace.json"))
+        metrics = os.path.join(workdir, "metrics.jsonl")
+        assert obs_cli.main(["attribution", metrics]) == 0
+        traces = glob.glob(os.path.join(workdir, "trace_*.json"))
+        assert len(traces) == 1 and obs_cli.main(["trace", traces[0]]) == 0
+    finally:
+        subprocess.run([*harness, "STOP_ALL"], cwd=REPO, env=env,
+                       capture_output=True, timeout=120)
+
+
+@pytest.mark.parametrize("knob", ["OBS_SHARD", "OBS_QUERY", "OBS_FLEET"])
+def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob):
+    workdir = str(tmp_path / "run")
+    p = subprocess.run(
+        [sys.executable, "-m", "streambench_tpu_torch.harness", "SETUP"],
+        cwd=REPO, env=_harness_env(workdir, _free_port(), **{knob: "1"}),
+        capture_output=True, text=True, timeout=120)
+    assert p.returncode != 0
+    assert "not ported" in p.stderr and knob in p.stderr
+    assert not os.path.exists(os.path.join(workdir, "localConf.yaml"))
