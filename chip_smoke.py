@@ -5,8 +5,9 @@ Drives the port's main path on one CUDA card and fails (non-zero exit, no
 result line) when any phase fails:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
-2. Build: the CUDA kernel library (``nvcc``) and the native host library
-   (``g++``), both from the sources in this checkout, in parallel.
+2. Build: the two CUDA kernel libraries (``nvcc``, one per source) and
+   the native host library (``g++``), all from the sources in this
+   checkout, in parallel.
 3. Kernels: the count kernel K1 (``csrc/count_cells.cu``) against its
    plain PyTorch version and a numpy count on the card, exact equality, at
    the main path's shapes and others (``CASES``: Zipf-skewed campaigns and
@@ -16,7 +17,23 @@ result line) when any phase fails:
    times from CUDA events over CUDA-graph replays and eager call times,
    beside the byte bound at 3.35 TB/s, one ``index_add_`` call as a
    library yardstick, the launch floor (an empty kernel), and the share
-   of a warp's rounds of atomics in which two rows hit one cell.
+   of a warp's rounds of atomics in which two rows hit one cell.  Then
+   the decode kernel K2 (``csrc/decode_rows.cu``) against its plain
+   PyTorch version on the card, exactly, in the cases of
+   ``DECODE_CASES`` (a [8, 4096] group of generator rows; the stock
+   catchup's own dispatch, 4096 rows of a half batch padded to one
+   8192-row group; pad rows, unknown ads, every event type and times on
+   both sides of a 10^9 boundary; ads that sit three or more probes deep
+   in the join table; a paced block's dispatch, 10,700 rows in two
+   8192-row groups), each with its device time over CUDA-graph
+   replays, its eager call time, the plain version's device time, the
+   byte bound (the join table once, each row's bytes once; the probes'
+   key reads, served from L2, reported apart), and the launch floor (no
+   PyTorch call computes this function: no library time).  Last, the
+   method table (``ops.methodbench``): the four ``apply_count`` arms
+   timed with CUDA events at config #1's geometry (C = 100, W = 16; B =
+   4096 and 8192) and config #5's (C = 1e6, W = 64, B = 8192), the arms
+   whose operands would not fit marked as skipped.
 4. End to end: BASELINE config #1 (``conf/benchmarkConf.yaml`` with the
    in-process Redis store): generate the catchup journal (10,000,000
    events by default), run ``AdAnalyticsEngine(device="cuda")`` under
@@ -57,7 +74,7 @@ result line) when any phase fails:
 9. Paced YSB through the port's harness, as users run it: ``python -m
    streambench_tpu_torch.harness TORCH_TEST`` in a fresh workdir (a RESP
    server process, the engine process on ``cuda`` with the pipeline on
-   and four encode workers, the generator at 100,000 ev/s for 60 s over
+   and four encode workers, the generator at 100,000 ev/s for 30 s over
    the file journal, ``-g`` stats, ``VERIFY=1``).  The engine must exit
    0 having folded exactly the events the generator emitted, none
    dropped, with every window in Redis equal to the oracle over the
@@ -87,11 +104,27 @@ result line) when any phase fails:
    device memory, K1's launches, and the window latency beside phase
    9's.
 
-K1's launches are counted over each of phases 4 and 6-11, from 0 just
-before the phase's run to just after it (phases 9-11 run the engine in
-its own process, which reports them in its stats line).  The line
-before the nvidia-smi line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+12. Device-decode catchup: phase 4's journal again with
+   ``jax.decode.device: on`` (the host probes raw blocks, K2 decodes them,
+   K1 counts), once serial and once with the ingest pipeline on; every
+   window must equal phase 4's oracle-checked rows, compared in full, and
+   no generator row may fall back to the host encoder.  Its ev/s beside
+   phases 4 and 8, the ``decode_probe`` and ``device_decode`` spans, K1's
+   and K2's launches.  The A/B winners go to the method cache, one per
+   ingest mode, under ``cuda/devdecode/serial`` and
+   ``cuda/devdecode/pipelined``: the device wins only if its run is exact
+   and faster than the host encode's in the same mode, phase 4's serial
+   and phase 8's pipelined (``$STREAMBENCH_TORCH_METHOD_CACHE``, here a
+   file under ``build/``).
+13. Paced decode: phase 9's composite with ``DECODE_DEVICE=on``, 100,000
+   ev/s for 30 s, ``VERIFY=1``; the window latency beside phase 9's and
+   K2's launches from the engine's stats line.
+
+Each kernel's launches are counted over each of phases 4, 6-13, from 0
+just before the phase's run to just after it (phases 9-11 and 13 run the
+engine in its own process, which reports them in its stats line).  The
+line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
+is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--events N] [--out FILE]
 """
@@ -108,6 +141,7 @@ import subprocess
 import sys
 import threading
 import time
+import uuid
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PROFILE_EVENTS = 1_000_000         # events replayed under torch.profiler
@@ -119,7 +153,7 @@ CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
            "jax.batch.size": 8192, "jax.num.campaigns": 1_000_000,
            "jax.ads.per.campaign": 1}
 # phases 9 and 10: (rate ev/s, seconds) of the paced load
-PACED_LOAD = (100_000, 60)
+PACED_LOAD = (100_000, 30)
 KAFKA_LOAD = (10_000, 30)
 # phase 11: the paced load and the harness's obs knobs
 OBS_LOAD = (100_000, 30)
@@ -134,6 +168,28 @@ OBS_TRACE_SPANS = ("encode", "drain", "redis_flush", "ingest_read",
              "ingest_encode")
 OBS_DISPATCH_SPANS = ("device_step", "device_scan")
 FLUSH_MS = 1000                    # jax.flush.interval.ms, the default the harness keeps
+# K2's cases: (label, groups, rows per group, kind); "generator" = the
+# generator's rows at config #1, 10 ms apart; "halfbatch" = 4096 of them
+# padded with 4096 pad rows to one group, as the stock catchup's span
+# guard dispatches them; "adversarial" = a quarter pad rows, one ad in
+# seven unknown, every event type, times within 5 s of a 10^9 boundary;
+# "deep" = only ads that sit 3 or more probes deep in the join table;
+# "paced" = PACED_BLOCK_ROWS generator rows in two 8192-row groups with
+# the pad tail a paced block's dispatch carries (phase 13's shape)
+PACED_BLOCK_ROWS = 10_700
+DECODE_CASES = (
+    ("a scan group of generator rows, [8, 4096]", 8, 4096, "generator"),
+    ("main path: the stock catchup's dispatch, 4096 rows of a half batch "
+     "in one 8192-row group", 1, 8192, "halfbatch"),
+    ("pad rows, unknown ads, every event type, times across a 10^9 "
+     "boundary", 2, 4096, "adversarial"),
+    ("ads 3 or more probes deep in the join table", 1, 4096, "deep"),
+    ("paced path: a paced block's dispatch, %d rows in two 8192-row "
+     "groups" % PACED_BLOCK_ROWS, 2, 8192, "paced"),
+)
+# the method table's geometries: (C, W, B)
+METHOD_GEOMETRIES = ((100, 16, 4096), (100, 16, 8192),
+                     (1_000_000, 64, 8192))
 REPO = os.path.dirname(os.path.abspath(__file__))
 CASES = (
     # (label, B, C, W, inputs): "zipf" = Zipf(1.2) campaigns, uniform
@@ -192,7 +248,8 @@ def phase_build() -> list[str]:
             results[name] = (time.perf_counter() - t0, e)
 
     threads = [threading.Thread(target=run, args=(n, f)) for n, f in
-               (("cuda kernels (nvcc)", _build.count_cells_lib),
+               (("count kernel K1 (nvcc)", _build.count_cells_lib),
+                ("decode kernel K2 (nvcc)", _build.decode_rows_lib),
                 ("native host library (g++)", native.build))]
     for t in threads:
         t.start()
@@ -206,7 +263,8 @@ def phase_build() -> list[str]:
 
     ptxas = []
     for log in sorted(os.listdir(BUILD_DIR)):
-        if log.startswith("libcount_cells") and log.endswith(".log"):
+        if (log.startswith(("libcount_cells", "libdecode_rows"))
+                and log.endswith(".log")):
             with open(os.path.join(BUILD_DIR, log)) as f:
                 ptxas += [line.strip() for line in f.read().splitlines()
                           if "spill" in line or "ptxas" in line and (
@@ -430,6 +488,200 @@ def phase_kernels() -> tuple[list[dict], dict]:
     return out, floor
 
 
+def _event_line(rng, users, t: int, event_type: str, ad: str) -> str:
+    """One event in the generator's wire format (``gen.EventSource``)."""
+    return ('{"user_id": "%s", "page_id": "%s", "ad_id": "%s", '
+            '"ad_type": "%s", "event_type": "%s", "event_time": "%d", '
+            '"ip_address": "1.2.3.4"}'
+            % (rng.choice(users), rng.choice(users), ad,
+               rng.choice(("banner", "modal", "sponsored-search", "mail",
+                           "mobile")), event_type, t))
+
+
+def _decode_inputs(seed: int, groups: int, B: int, kind: str) -> dict:
+    """numpy inputs of one K2 case (see DECODE_CASES): the byte
+    buffer, ``[groups, B]`` starts and lens, config #1's join table (100
+    campaigns x 10 ads) and the base time, as ``DeviceDecoder`` makes
+    them; every real row passes the host probe."""
+    import numpy as np
+
+    from streambench_tpu_torch.datagen import gen
+    from streambench_tpu_torch.encode.encoder import EventEncoder
+    from streambench_tpu_torch.ops import devdecode
+    from streambench_tpu_torch.utils.ids import make_ids
+
+    rng = random.Random(seed)
+    campaigns = make_ids(100, rng)
+    ads = make_ids(1000, rng)
+    users = make_ids(100, rng)
+    mapping = {ad: campaigns[i // 10] for i, ad in enumerate(ads)}
+    enc = EventEncoder(mapping)
+    keys, vals, probes = devdecode.build_ad_table(
+        [a.encode() for a in enc.ads], enc.join_table[:-1])
+    rows = groups * B
+    real = {"halfbatch": rows // 2, "adversarial": rows - rows // 4,
+            "paced": PACED_BLOCK_ROWS}.get(kind, rows)
+    t0 = 1_700_000_000_000
+    if kind in ("generator", "halfbatch", "paced"):
+        src = gen.EventSource(ads=ads, user_ids=users, page_ids=users,
+                              rng=rng)
+        lines = [src.event_at(t0 + 10 * i) for i in range(real)]
+    else:
+        pool = ads
+        if kind == "deep":
+            # each ad's depth: the probes its own lookup takes
+            T = vals.shape[0]
+            depth = {}
+            for a in ads:
+                h = devdecode.fnv1a32(a.encode())
+                p = 0
+                while bytes(keys[(h + p) & (T - 1)]) != a.encode():
+                    p += 1
+                depth[a] = p + 1
+            pool = [a for a in ads if depth[a] >= 3]
+            if probes < 3 or not pool:
+                raise AssertionError(f"no ad 3 probes deep (bound "
+                                     f"{probes})")
+        boundary = 1_723_000_000_000          # a multiple of 10^9
+        lines = []
+        for i in range(real):
+            ad = (str(uuid.UUID(int=rng.getrandbits(128), version=4))
+                  if kind == "adversarial" and i % 7 == 0
+                  else rng.choice(pool))
+            lines.append(_event_line(
+                rng, users, boundary + rng.randint(-5_000, 5_000),
+                ("view", "click", "purchase")[i % 3], ad))
+    data = ("\n".join(lines) + "\n").encode()
+    starts, lens, times, ok = devdecode.probe_block(data)
+    if not ok.all() or starts.size != real:
+        raise AssertionError(f"{kind}: the probe accepted {int(ok.sum())} "
+                             f"of {real} rows")
+    base = int(times[0]) - int(times[0]) % 10_000 - 60_000
+    buf = np.frombuffer(data, np.uint8).copy()
+    s = np.zeros(rows, np.int32)
+    l = np.zeros(rows, np.int32)
+    if kind == "adversarial":
+        # pad rows spread among the real ones
+        at = np.sort(np.random.default_rng(seed).choice(rows, real,
+                                                        replace=False))
+    else:
+        at = np.arange(real)
+    s[at], l[at] = starts, lens
+    return {"buf": buf, "starts": s.reshape(groups, B),
+            "lens": l.reshape(groups, B), "keys": keys, "vals": vals,
+            "probes": probes, "base": base}
+
+
+def _decode_bytes(case: dict) -> tuple[int, dict]:
+    """The bytes K2 must move from and to memory for THIS case's rows,
+    each input read once: the join table once (36 B of key and 4 B of
+    value a slot; it stays in L2 across the probes), a pad row's length
+    (4 B: its start is never read), a real row's start and length (8 B),
+    36 ad bytes, 4 event-type bytes and 13 digits, and every row's four
+    outputs (10 B).  The key bytes the probes read (36 B a probe taken,
+    served from L2) are reported apart, as ``l2_key_bytes``.  Returns the
+    bytes and what was counted."""
+    import numpy as np
+
+    s, l = case["starts"].reshape(-1), case["lens"].reshape(-1)
+    real = l > 0
+    buf, keys = case["buf"], case["keys"]
+    ad = buf[s[real][:, None] + 113 + np.arange(36)[None, :]].astype(
+        np.uint64)
+    h = np.full(ad.shape[0], 2166136261, np.uint64)
+    for i in range(36):
+        h = ((h ^ ad[:, i]) * np.uint64(16777619)) & np.uint64(0xFFFFFFFF)
+    T = keys.shape[0]
+    found = np.zeros(ad.shape[0], bool)
+    taken = np.zeros(ad.shape[0], np.int64)
+    for p in range(case["probes"]):
+        slot = ((h + np.uint64(p)) & np.uint64(T - 1)).astype(np.int64)
+        taken += ~found
+        found |= (keys[slot] == ad).all(axis=1)
+    n = int(real.sum())
+    nbytes = (T * (36 + 4) + (s.size - n) * 4 + n * (8 + 36 + 4 + 13)
+              + s.size * 10)
+    return nbytes, {"real_rows": n, "pad_rows": int(s.size - n),
+                    "table_bytes": T * (36 + 4),
+                    "l2_key_bytes": int(taken.sum()) * 36,
+                    "probes_bound": case["probes"],
+                    "probes_taken": int(taken.sum()),
+                    "max_probes_taken": int(taken.max()) if n else 0,
+                    "unknown_ads": int(n - found.sum())}
+
+
+def _decode_case(label: str, groups: int, B: int, kind: str, seed: int,
+                 floor: dict) -> dict:
+    """K2 against its plain version on the card, every output in full
+    (the two agree on pad rows too), and its times beside the bound."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.ops.decode import (decode_rows,
+                                                  decode_rows_plain)
+
+    case = _decode_inputs(seed, groups, B, kind)
+    base = case["base"]
+    args = (*(torch.from_numpy(case[k]).cuda()
+              for k in ("buf", "starts", "lens", "keys", "vals")),
+            case["probes"], base // 1_000_000_000, base % 1_000_000_000)
+    got = decode_rows(*args)
+    want = decode_rows_plain(*args)
+    torch.cuda.synchronize()
+    diff = 0
+    for name, a, b in zip(("campaign", "is_view", "rel", "valid"), got,
+                          want):
+        if a.shape != (groups, B) or a.dtype != b.dtype:
+            raise AssertionError(f"decode_rows {name}: {a.dtype} "
+                                 f"{tuple(a.shape)} at {label!r}")
+        diff = max(diff, int((a.long() - b.long()).abs().max().item()))
+    valid = got[3].cpu().numpy()
+    if not np.array_equal(valid, case["lens"] > 0):
+        raise AssertionError(f"decode_rows valid rows wrong at {label!r}")
+    nbytes, counted = _decode_bytes(case)
+    kernel_ms = _device_ms(lambda: decode_rows(*args))
+    plain_ms = _device_ms(lambda: decode_rows_plain(*args), reps=20)
+    call_ms = _call_ms_in_turns({"kernel": lambda: decode_rows(*args)})
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {
+        "case": label, "shape": {"groups": groups, "B": B}, "inputs": kind,
+        **counted, "views": int(got[1].sum().item()),
+        "max_abs_diff": diff, "kernel_ms": kernel_ms,
+        "kernel_call_ms": call_ms["kernel"], "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": bound_ms, "bound_bytes": nbytes,
+        "bound_share": bound_ms / kernel_ms, **floor,
+    }
+    print(f"[decode] {json.dumps(out)}", flush=True)
+    if diff:
+        raise AssertionError(f"decode_rows disagrees with its plain "
+                             f"version at {label!r}: max |diff| {diff}")
+    return out
+
+
+def phase_decode_kernels(floor: dict) -> list[dict]:
+    return [_decode_case(label, groups, B, kind, 100 + i, floor)
+            for i, (label, groups, B, kind) in enumerate(DECODE_CASES)]
+
+
+def phase_method_table() -> list[dict]:
+    """The four ``apply_count`` arms at config #1's and #5's geometries
+    (``ops.methodbench``, CUDA events); an arm that errs or disagrees
+    fails the phase, one whose operands would not fit is skipped."""
+    from streambench_tpu_torch.ops import methodbench
+
+    tables = []
+    for C, W, B in METHOD_GEOMETRIES:
+        t = methodbench.measure_methods(num_campaigns=C, window_slots=W,
+                                        batch_size=B, device="cuda")
+        print(f"[methods] {json.dumps(t)}", flush=True)
+        bad = {m: v for m, v in t["methods"].items() if "error" in v}
+        if bad or not t["winner"]:
+            raise AssertionError(f"method table at C={C} W={W} B={B}: "
+                                 f"{bad}")
+        tables.append(t)
+    return tables
+
+
 def _capture_steps(cfg, mapping, campaigns, broker, events: int):
     """The plane's ``(C, W)`` and the ``(campaign, slot, count_mask)`` of
     every K1 launch, cloned, while a fresh engine and store fold the first
@@ -635,7 +887,9 @@ def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
                                       min(events, PROFILE_EVENTS))
         pipelined = phase_pipelined_catchup(workdir, broker, mapping,
                                             campaigns, r, result)
-        return result, plane, steps, pipelined
+        decode = phase_decode_catchup(workdir, broker, mapping, campaigns,
+                                      r, result, pipelined)
+        return result, plane, steps, pipelined, decode
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -722,6 +976,118 @@ def phase_pipelined_catchup(workdir: str, broker, mapping, campaigns,
     return result
 
 
+def phase_decode_catchup(workdir: str, broker, mapping, campaigns,
+                         serial_store, serial: dict,
+                         pipelined: dict) -> dict:
+    """Phase 12: phase 4's journal with device decode on, serial and
+    pipelined (see the module doc)."""
+    import torch
+
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis, seed_campaigns
+    from streambench_tpu_torch.ops import devdecode, methodbench
+    from streambench_tpu_torch.ops.count import count_cells
+    from streambench_tpu_torch.ops.decode import decode_rows
+
+    want = _store_windows(serial_store)
+    out: dict = {}
+    for mode in ("off", "on"):
+        name = "pipelined" if mode == "on" else "serial"
+        cfg = _config(workdir, {"jax.decode.device": "on",
+                                "jax.ingest.pipeline": mode})
+        r = as_redis(make_store())
+        seed_campaigns(r, campaigns)
+        warm = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                                 device="cuda")
+        warm.warmup()
+        warm.close()
+        engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                                   redis=r, device="cuda")
+        if engine._devdecode is None or engine.method != "kernel":
+            raise AssertionError(f"decode {engine._devdecode}, method "
+                                 f"{engine.method!r} on cuda")
+        reader = broker.reader(cfg.kafka_topic)
+        runner = StreamRunner(engine, reader)
+        if runner._pipeline_on() != (mode == "on"):
+            raise AssertionError(f"ingest pipeline is not {mode}")
+        count_cells.launches = 0          # this path starts here
+        decode_rows.launches = 0
+        t0 = time.perf_counter()
+        stats = runner.run_catchup()
+        run_s = time.perf_counter() - t0
+        engine.close()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        k1, k2 = count_cells.launches, decode_rows.launches   # ends here
+        reader.close()
+        stages = engine.tracer.as_dict()
+        res = {
+            "events": stats.events, "flushes": stats.flushes,
+            "windows_written": stats.windows_written,
+            "dropped": engine.dropped, "run_catchup_s": run_s,
+            "catchup_with_close_s": total_s,
+            "events_per_s": stats.events / run_s,
+            "events_per_s_with_close": stats.events / total_s,
+            "phase4_events_per_s": serial["events_per_s"],
+            "phase8_events_per_s": pipelined["events_per_s"],
+            "device_decode": engine._devdecode.telemetry(),
+            "count_cells_launches": k1, "decode_rows_launches": k2,
+            "events_per_decode_launch": stats.events / max(k2, 1),
+            "spans": {k: stages.get(k) for k in
+                      ("decode_probe", "device_decode", "encode", "drain",
+                       "redis_flush")},
+            "stages": stages,
+        }
+        if mode == "on":
+            res["pipeline"] = runner._pipeline.telemetry()
+        print(f"[decode_{name}] {json.dumps(res)}", flush=True)
+        t0 = time.perf_counter()
+        got = _store_windows(r)
+        res["windows_compared"] = len(want)
+        res["compare_s"] = time.perf_counter() - t0
+        if got != want or not want:
+            diff = [k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k)]
+            raise AssertionError(f"decode ({name}) windows differ from "
+                                 f"phase 4's at {len(diff)} of "
+                                 f"{len(want)}: {diff[:5]}")
+        print(f"[decode_{name}] {len(want)} windows equal phase 4's "
+              f"oracle-checked rows ({res['compare_s']:.2f} s)", flush=True)
+        if stats.events != serial["events"] or engine.dropped:
+            raise AssertionError(f"folded {stats.events} of "
+                                 f"{serial['events']}, dropped "
+                                 f"{engine.dropped}")
+        if res["device_decode"]["rows_fallback"]:
+            raise AssertionError(f"generator rows fell back to the host "
+                                 f"encoder: {res['device_decode']}")
+        if k1 <= 0 or k2 <= 0:
+            raise AssertionError(f"K1 launched {k1} and K2 {k2} times on "
+                                 f"the decode path")
+        out[name] = res
+    # bench.py's A/B rule, per ingest mode (the serial loop against phase
+    # 4, the pipeline against phase 8): the device wins only if it is
+    # oracle-exact (it is, or the phase has failed above) and faster than
+    # the host encode
+    out["ab"] = {}
+    for name, host in (("serial", serial), ("pipelined", pipelined)):
+        ab = {"off_events_per_s": host["events_per_s"],
+              "on_events_per_s": out[name]["events_per_s"],
+              "on_oracle": "exact",
+              "fallback_rows": out[name]["device_decode"]["rows_fallback"],
+              "winner": ("device" if out[name]["events_per_s"]
+                         > host["events_per_s"] else "host"),
+              "device": torch.cuda.get_device_name(0)}
+        key = devdecode.ab_key("cuda", name == "pipelined")
+        methodbench.record(key, ab)
+        out["ab"][key] = ab
+        print(f"[decode] A/B {name}: host {ab['off_events_per_s']} ev/s, "
+              f"device {ab['on_events_per_s']} ev/s -> {key} "
+              f"{ab['winner']}", flush=True)
+    out["method_cache"] = methodbench.cache_path()
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -800,6 +1166,7 @@ def phase_paced(tag: str, load: tuple[int, int], check=None,
             "verify": verify, "seen_rows": seen_rows,
             "window_latency": _percentiles(updated) if updated else None,
             "count_cells_launches": stats["kernel_launches"]["count_cells"],
+            "decode_rows_launches": stats["kernel_launches"]["decode_rows"],
             # the engine's stage spans and latency deciles (its stderr)
             "engine_report": [ln for ln in lines if ln.startswith(
                 ("  ", "trace", "latency report"))][:40],
@@ -819,6 +1186,13 @@ def phase_paced(tag: str, load: tuple[int, int], check=None,
         if result["count_cells_launches"] <= 0:
             raise AssertionError("the count kernel never launched in the "
                                  "engine process")
+        decode = env.get("DECODE_DEVICE", "off") == "on"
+        up = " ".join(result["engine_up"])
+        if decode and ("decode=device" not in up
+                       or result["decode_rows_launches"] <= 0):
+            raise AssertionError(f"device decode did not run in the engine "
+                                 f"process: {up}, K2 launches "
+                                 f"{result['decode_rows_launches']}")
         if check is not None:
             result["obs"] = check(workdir, stats)
             print(f"[{tag}] obs {json.dumps(result['obs'])}", flush=True)
@@ -1205,16 +1579,37 @@ def main(argv: list[str] | None = None) -> int:
 
     import numpy as np
 
+    # the decode A/B of phase 12 goes to a method cache inside the checkout
+    os.environ["STREAMBENCH_TORCH_METHOD_CACHE"] = os.path.join(
+        REPO, "build", "smoke_method_bench.json")
+    if os.path.exists(os.environ["STREAMBENCH_TORCH_METHOD_CACHE"]):
+        os.unlink(os.environ["STREAMBENCH_TORCH_METHOD_CACHE"])
+
     smi = phase_device()
     ptxas = phase_build()
     cases, floor = phase_kernels()
-    e2e, (C, W), steps, pipelined = phase_end_to_end(args.events)
+    decode_cases = phase_decode_kernels(floor)
+    methods = phase_method_table()
+    e2e, (C, W), steps, pipelined, decode = phase_end_to_end(args.events)
     large = phase_large_key_space(LARGE_EVENTS)
     xo = phase_exactly_once_resume(LARGE_EVENTS)
     paced = phase_paced("paced", PACED_LOAD)
     kafka = phase_paced("kafka", KAFKA_LOAD, KAFKA_FAKE="1",
                         KAFKA_BROKERS=f"127.0.0.1:{_free_port()}")
     obs = phase_paced("obs", OBS_LOAD, check=check_obs, **OBS_ENV)
+    paced_decode = phase_paced("paced_decode", PACED_LOAD,
+                               DECODE_DEVICE="on")
+    print(f"[paced_decode] window latency p50/p99 "
+          f"{paced_decode['window_latency']['p50_ms']}/"
+          f"{paced_decode['window_latency']['p99_ms']} ms with device "
+          f"decode, {paced['window_latency']['p50_ms']}/"
+          f"{paced['window_latency']['p99_ms']} ms in phase 9; K2 launches "
+          f"{paced_decode['decode_rows_launches']}, K1 launches "
+          f"{paced_decode['count_cells_launches']}", flush=True)
+    print(f"[decode] catchup ev/s: phase 4 {e2e['events_per_s']}, phase 8 "
+          f"{pipelined['events_per_s']}, phase 12 serial "
+          f"{decode['serial']['events_per_s']}, pipelined "
+          f"{decode['pipelined']['events_per_s']}", flush=True)
     o = obs["obs"]
     print(f"[obs] segments p50/p99 ms: " + ", ".join(
         f"{k} {v['p50_ms']}/{v['p99_ms']}" for k, v in o["segments"].items())
@@ -1253,7 +1648,11 @@ def main(argv: list[str] | None = None) -> int:
             "pipelined_catchup": pipelined["count_cells_launches"],
             "paced_ysb": paced["count_cells_launches"],
             "fake_kafka": kafka["count_cells_launches"],
-            "paced_ysb_obs": obs["count_cells_launches"]},
+            "paced_ysb_obs": obs["count_cells_launches"],
+            "decode_catchup": decode["serial"]["count_cells_launches"],
+            "decode_catchup_pipelined":
+                decode["pipelined"]["count_cells_launches"],
+            "paced_ysb_decode": paced_decode["count_cells_launches"]},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -1266,13 +1665,40 @@ def main(argv: list[str] | None = None) -> int:
         "launch_floor_ms": main_case["launch_floor_ms"],
         "cases": cases,
     }]
+    main_decode = next(c for c in decode_cases
+                       if c["inputs"] == "halfbatch")
+    kernels.append({
+        "name": "decode_rows",
+        "route": "cuda",
+        "source": "streambench_tpu_torch/csrc/decode_rows.cu",
+        # not a Pallas kernel: the XLA fusion _decode_columns
+        "replaces": "streambench_tpu/ops/devdecode.py:268",
+        "launches": decode["serial"]["decode_rows_launches"],
+        "launches_by_path": {
+            "decode_catchup": decode["serial"]["decode_rows_launches"],
+            "decode_catchup_pipelined":
+                decode["pipelined"]["decode_rows_launches"],
+            "paced_ysb_decode": paced_decode["decode_rows_launches"]},
+        "shape": main_decode["shape"],
+        "max_abs_err": max(c["max_abs_diff"] for c in decode_cases),
+        "ms": main_decode["kernel_ms"],
+        "kernel_call_ms": main_decode["kernel_call_ms"],
+        "plain_ms": main_decode["plain_ms"],
+        "bound_ms": main_decode["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "launch_floor_ms": main_decode["launch_floor_ms"],
+        "cases": decode_cases,
+    })
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"kernels": kernels,
+            json.dump({"kernels": kernels, "method_table": methods,
                        "end_to_end": e2e, "large_key_space": large,
                        "exactly_once_resume": xo,
                        "pipelined_catchup": pipelined, "paced_ysb": paced,
                        "fake_kafka": kafka, "paced_ysb_obs": obs,
+                       "decode_catchup": decode,
+                       "paced_ysb_decode": paced_decode,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,7 +17,9 @@ confluent-kafka installed; without it the CLI fails, never falls back).
 ``jax.ingest.pipeline`` (off/on/auto) overlaps read, encode and fold on
 their own threads; ``jax.encode.workers > 1`` encodes on a pool of native
 encoders; ``jax.deadletter.enabled`` journals malformed events to
-``<topic>-deadletter``.
+``<topic>-deadletter``.  ``jax.decode.device`` (off/on/auto) decodes
+raw journal blocks on the device (``ops.devdecode``: the host probes,
+the decode kernel K2 turns bytes into columns, K1 counts them).
 
 Observability (``obs/``, all default-off) takes the JAX CLI's keys:
 ``jax.metrics.interval.ms`` / ``jax.metrics.port`` (the
@@ -33,9 +35,8 @@ profiles the whole run.
         --workdir RUN_DIR --catchup [--device cuda|cpu] [--checkpointDir D]
 
 Options and config keys that need parts of the JAX engine not ported yet
-(other engines, sharding, the fork's micro-batch mode, tenants, device
-decode, the reach query, fleet and shard observability) are refused with
-exit 2.
+(other engines, sharding, the fork's micro-batch mode, tenants, the
+reach query, fleet and shard observability) are refused with exit 2.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ from streambench_tpu_torch.obs import (
     kafka_collector,
 )
 from streambench_tpu_torch.ops.count import count_cells
+from streambench_tpu_torch.ops.decode import decode_rows
 from streambench_tpu_torch.trace import device_trace
 
 
@@ -108,8 +110,8 @@ def unsupported(args, cfg) -> list[str]:
     """What this run asks for beyond what the port runs: the exact-count
     engine on one device, at any key space, with checkpoint/resume, the
     exactly-once sink, the staged ingest pipeline, the encode pool, the
-    dead-letter queue, the Kafka source and the single-engine
-    observability layer."""
+    dead-letter queue, the Kafka source, device decode and the
+    single-engine observability layer."""
     out = []
     for flag, on in (("--sharded", args.sharded),
                      ("--engine " + str(args.engine), args.engine != "exact"),
@@ -119,7 +121,6 @@ def unsupported(args, cfg) -> list[str]:
             out.append(flag)
     for key, on in (
             ("jax.tenants", cfg.jax_tenants),
-            ("jax.decode.device", cfg.jax_decode_device != "off"),
             ("jax.obs.query", cfg.jax_obs_query),
             ("jax.obs.fleet", cfg.jax_obs_fleet),
             ("jax.obs.shard", cfg.jax_obs_shard)):
@@ -226,6 +227,7 @@ def main(argv: list[str] | None = None) -> int:
     # on a compiler.
     warm = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
                              device=args.device)
+    warm.settle_decode(runner._pipeline_on())
     warm.warmup()
     warm.close()
     del warm
@@ -335,14 +337,16 @@ def main(argv: list[str] | None = None) -> int:
     # everything is built now; a build from here on is a mid-run stall
     if occupancy is not None:
         occupancy.mark_steady()
-    # the count kernel's launches over the run itself (warmup's excluded);
-    # CPU folds take the plain version and launch nothing
+    # the kernels' launches over the run itself (warmup's excluded); CPU
+    # folds take the plain versions and launch nothing
     count_cells.launches = 0
+    decode_rows.launches = 0
 
     print(f"engine up: topic={cfg.kafka_topic} redis={cfg.redis_host}:"
           f"{cfg.redis_port} batch={engine.batch_size} "
           f"device={engine.device} method={engine.method} "
           f"pipeline={'on' if runner._pipeline_on() else 'off'} "
+          f"decode={'device' if engine._devdecode is not None else 'host'} "
           f"encode_workers={cfg.jax_encode_workers}", flush=True)
     try:
         with device_trace(args.traceDir, engine.device):
@@ -392,7 +396,8 @@ def main(argv: list[str] | None = None) -> int:
         "events_per_s": round(stats.events_per_s, 1),
         "dropped": engine.dropped, "wall_s": round(stats.wall_s, 2),
         "faults": stats.faults,
-        "kernel_launches": {"count_cells": count_cells.launches},
+        "kernel_launches": {"count_cells": count_cells.launches,
+                            "decode_rows": decode_rows.launches},
     }
     if occupancy is not None:
         # the MEASURED busy ratio + the steady-state build invariant

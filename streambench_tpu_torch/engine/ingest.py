@@ -424,8 +424,14 @@ class IngestPipeline:
     # ------------------------------------------------------------------
     def telemetry(self) -> dict:
         """Point-in-time stage health: queue depths, stall/starvation
-        counters, per-stage busy time."""
+        counters, per-stage busy time.  With device decode active the
+        encode stage is only the layout probe; its row counters ride
+        along, to show where the encode work went."""
+        dd = getattr(self.engine, "_devdecode", None)
+        extra = ({"device_decode": dd.telemetry()}
+                 if dd is not None else {})
         return {
+            **extra,
             "block_queue_depth": self._block_q.qsize(),
             "batch_queue_depth": self._batch_q.qsize(),
             "reader_stalls": self.reader_stalls,

@@ -20,9 +20,14 @@ per-thread native encoders (``encode.parallel``); the ingest pipeline
 (``engine.ingest``) calls the encode halves from its own thread, and only
 the host loop's thread folds.
 
+With ``jax.decode.device`` on (``ops.devdecode``) the host only probes
+raw journal blocks; one launch of the decode kernel (K2) per dispatch
+turns their bytes into columns and joins each ad to its campaign on the
+device, and the same window fold (K1) counts them.
+
 Observability (``obs/``) attaches through ``attach_obs``; until then the
 engine carries ``None`` attributes and one None check per dispatch,
-flush and write.  Not ported yet (a later slice): device decode.
+flush and write.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from streambench_tpu_torch.io.redis_schema import (
 )
 from streambench_tpu_torch.metrics import FaultCounters, LatencyTracker
 from streambench_tpu_torch.ops import count as count_ops
+from streambench_tpu_torch.ops import devdecode
 from streambench_tpu_torch.ops import windowcount as wc
 from streambench_tpu_torch.trace import Tracer
 from streambench_tpu_torch.utils.device import resolve_device
@@ -385,9 +391,6 @@ class AdAnalyticsEngine:
                  redis: RedisLike | None = None,
                  method: str | None = None,
                  device: torch.device | str | None = None):
-        if cfg.jax_decode_device != "off":
-            raise ValueError("jax.decode.device is not ported to the "
-                             "PyTorch engine yet; set it to \"off\"")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.redis = redis
@@ -514,6 +517,13 @@ class AdAnalyticsEngine:
             self._encode_pool = ParallelEncodePool(
                 self.encoder, _new_encoder,
                 workers=cfg.jax_encode_workers)
+        # On-device event decode (ops.devdecode; jax.decode.device): raw
+        # journal blocks go to the device, where K2 turns bytes into
+        # columns and joins ads to campaigns, and the window fold counts
+        # them; the host keeps only the layout probe.  None whenever the
+        # mode is off or this engine or its data shape is not eligible:
+        # then the host encoders run, unchanged.
+        self._devdecode = self._maybe_device_decoder(cfg.jax_decode_device)
 
     # Engines whose device state is keyed by interned ids must keep one
     # consistent intern table and clear this (encode.parallel).
@@ -522,15 +532,66 @@ class AdAnalyticsEngine:
     SCAN_COLUMNS = ("ad_idx", "event_type", "event_time", "valid")
 
     # ------------------------------------------------------------------
+    def _maybe_device_decoder(self, mode: str, pipelined: bool = False):
+        """The device decoder when the mode and this engine allow it;
+        None otherwise (callers treat None as "host encode").
+
+        Eligibility fails CLOSED, as in the JAX engine: only the pure
+        exact-count device hooks are decodable (a subclass overriding
+        ``_device_step``/``_device_scan`` consumes columns this path never
+        builds), the key space must stay under the dirty-row-drain
+        threshold (those drains track touched campaigns from host-side
+        ``ad_idx`` columns that no longer exist, so config #5 keeps the
+        host encode), and the ad table must be the generator's fixed
+        36-byte uuid wire format.  ``auto`` also gates on the measured A/B
+        of the ingest mode (``devdecode.auto_enabled``; serial until the
+        runner says otherwise, ``settle_decode``).  These are rules of the
+        configuration: an eligible engine's decode never falls back."""
+        if mode == "off":
+            return None
+        if not (type(self)._device_step is AdAnalyticsEngine._device_step
+                and type(self)._device_scan
+                is AdAnalyticsEngine._device_scan):
+            return None
+        if self._track_dirty_rows():
+            return None
+        if mode == "auto" and not devdecode.auto_enabled(self.device.type,
+                                                         pipelined):
+            return None
+        try:
+            return devdecode.DeviceDecoder(
+                self.encoder, batch_size=self.batch_size,
+                scan_batches=self.scan_batches, divisor_ms=self.divisor,
+                lateness_ms=self.lateness, device=self.device)
+        except ValueError as e:
+            if mode == "on":
+                print(f"device decode requested but unsupported here "
+                      f"({e}); falling back to host encode",
+                      file=sys.stderr, flush=True)
+            return None
+
+    def settle_decode(self, pipelined: bool) -> None:
+        """``jax.decode.device: auto`` follows the A/B winner of the
+        ingest mode the runner resolved: the serial loop's and the staged
+        pipeline's differ.  Called before any block is folded."""
+        if self.cfg.jax_decode_device == "auto":
+            self._devdecode = self._maybe_device_decoder("auto", pipelined)
+
+    # ------------------------------------------------------------------
     def warmup(self) -> None:
-        """Build the count kernel and run every device path once — a step,
-        a scan group and a drain — on all-invalid batches (masked in every
-        op, so state is semantically unchanged), then synchronise."""
+        """Build the count kernel (and the decode kernel, with device
+        decode on) and run every device path once — a step, a scan
+        group, a decode dispatch and a drain — on all-invalid rows
+        (masked in every op, so state is semantically unchanged), then
+        synchronise."""
         zb = self.encoder.encode([], self.batch_size)
         with self.tracer.span("warmup"):
             self._device_step(zb)
             if self.scan_batches > 1:
                 self._fold_stack([zb, zb])
+            if self._devdecode is not None:
+                self.state = self._devdecode.warmup(self.state,
+                                                    method=self.method)
             self._drain_device()
             self._materialize_drains()
             if self.device.type == "cuda":
@@ -548,6 +609,11 @@ class AdAnalyticsEngine:
         through the encode pool (or the primary encoder), empty batches
         dropped.  The ingest pipeline's encode stage calls this from its
         own thread, so it is host-only: no torch, no device."""
+        if self._devdecode is not None and lines:
+            # line-mode ingest with device decode: rejoin into one block
+            # (a memcpy) so paced and streaming readers share the
+            # raw-bytes path; poll() strips the newlines, so restore them
+            return self._prepare_device_blocks(b"\n".join(lines) + b"\n")
         B = self.batch_size
         if self._encode_pool is not None:
             with self.tracer.span("encode"):
@@ -568,15 +634,31 @@ class AdAnalyticsEngine:
 
     def fold_batches(self, batches: list) -> int:
         """Fold encoded batches into device state IN ORDER, grouped by
-        ``scan_batches``.  Returns parsed events folded."""
+        ``scan_batches``.  Returns parsed events folded.
+
+        Device-decode items (``devdecode.PreparedBlock``) interleave with
+        encoded batches in journal order: runs of encoded batches keep
+        the grouped path, prepared blocks go through the decode + fold."""
         before = self.events_processed
         K = self.scan_batches
-        if K <= 1:
-            for b in batches:
-                self._fold(b)
-        else:
-            for g in range(0, len(batches), K):
-                self._fold_group(batches[g:g + K])
+        run: list = []
+
+        def flush_run() -> None:
+            if K <= 1:
+                for b in run:
+                    self._fold(b)
+            else:
+                for g in range(0, len(run), K):
+                    self._fold_group(run[g:g + K])
+            run.clear()
+
+        for b in batches:
+            if getattr(b, "is_device_block", False):
+                flush_run()
+                self._fold_prepared(b)
+            else:
+                run.append(b)
+        flush_run()
         return self.events_processed - before
 
     def _fold_group(self, batches: list) -> None:
@@ -633,6 +715,48 @@ class AdAnalyticsEngine:
         self._device_scan(*map(self._to_device, stacks))
         return stacks
 
+    def _fold_prepared(self, pb) -> None:
+        """Ring-guarded fold of one device-decode block: the span hazards
+        of ``_fold`` (drain when the unflushed span would overrun; halve
+        when the block ALONE outspans the ring), then one decode + fold
+        dispatch.  Host bookkeeping (watermark mirror, attribution, event
+        counting) reads the probe's times through the block's
+        ``EncodedBatch``-shaped surface."""
+        if pb.n == 0:
+            return
+        vt = pb.event_time
+        batch_max = int(vt.max()) + pb.base_time_ms
+        batch_min = int(vt.min()) + pb.base_time_ms
+        if batch_max - batch_min > self._span_guard and pb.n > 1:
+            for half in pb.halves():
+                self._fold_prepared(half)
+            return
+        if self._span_start is None:
+            self._span_start = batch_min
+        if batch_max - self._span_start > self._span_guard:
+            with self.tracer.span("drain"):
+                self._drain_device()
+            if self._span_start is None or batch_min < self._span_start:
+                self._span_start = batch_min
+        with self.tracer.span("device_decode"):
+            self.state = self._devdecode.fold(self.state, pb,
+                                              method=self.method)
+        if self._obs_occupancy is not None:
+            self._obs_occupancy.note_dispatch(self.state)
+        if self._obs_xfer is not None:
+            # the raw byte buffer crosses once, at the first fold that
+            # reads it (span-guard halves share it), plus each fold's row
+            # vectors
+            wire = pb.starts.nbytes + pb.lens.nbytes
+            if not pb.raw.counted:
+                pb.raw.counted = True
+                wire += pb.raw.nbytes
+            self._obs_xfer.note_dispatch("devdecode", pb.n, wire,
+                                         rows=pb.n)
+        self._note_watermark(pb)
+        self.events_processed += pb.n
+        self.last_event_ms = now_ms()
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """Host column -> device tensor (a synchronous copy from pageable
         memory: the numpy buffer may be reused as soon as this returns)."""
@@ -656,7 +780,10 @@ class AdAnalyticsEngine:
     @property
     def supports_block_ingest(self) -> bool:
         """True when raw journal blocks can be encoded without per-line
-        Python objects (the native encoder)."""
+        Python objects (the native encoder, or the device-decode path,
+        which wants raw bytes by construction)."""
+        if self._devdecode is not None:
+            return True
         return hasattr(self.encoder, "encode_block")
 
     def process_block(self, data: bytes) -> int:
@@ -673,6 +800,8 @@ class AdAnalyticsEngine:
         ``encode_chunk_lines``)."""
         if not data:
             return []
+        if self._devdecode is not None:
+            return self._prepare_device_blocks(data)
         if not self.supports_block_ingest:
             lines = data.split(b"\n")
             if lines and not lines[-1]:
@@ -694,6 +823,35 @@ class AdAnalyticsEngine:
         if self._obs_lifecycle is not None:
             self._obs_lifecycle.stamp_encoded(batches)
         return batches
+
+    def _prepare_device_blocks(self, data: bytes) -> list:
+        """Device-decode "encode" stage (host-only, like
+        ``encode_chunk_lines``): probe the raw block (record boundaries,
+        fixed-layout validation, times; NO columns) and return the items
+        to fold: the probe-rejected rows re-encoded through the host
+        encoder first (bad-line counting and dead-letter parity), then
+        the :class:`devdecode.PreparedBlock`\\ s.  The fallback batches
+        fold before the device rows of the same call, so a malformed row
+        is never judged against a watermark its own block advanced."""
+        with self.tracer.span("decode_probe"):
+            blocks, bad_lines = self._devdecode.prepare(data)
+            nl_end = data.rfind(b"\n") + 1
+            if nl_end < len(data):
+                # unterminated trailing record: the host block path's
+                # one-line rule
+                bad_lines.append(data[nl_end:])
+        out: list = []
+        if bad_lines:
+            B = self.batch_size
+            for off in range(0, len(bad_lines), B):
+                with self.tracer.span("encode"):
+                    b = self.encoder.encode(bad_lines[off:off + B], B)
+                if b.n:
+                    out.append(b)
+        out.extend(blocks)
+        if self._obs_lifecycle is not None:
+            self._obs_lifecycle.stamp_encoded(out)
+        return out
 
     def _fold(self, batch) -> None:
         """Ring-guarded fold of one encoded batch, splitting when needed.
@@ -1338,6 +1496,8 @@ class AdAnalyticsEngine:
             out["sink_fence"] = {"epoch": e, "seq": s,
                                  "reconcile": self._reconcile_all,
                                  "tainted_windows": len(self._taint)}
+        if self._devdecode is not None:
+            out["device_decode"] = self._devdecode.telemetry()
         return out
 
     def _oldest_open_span_start(self) -> int | None:

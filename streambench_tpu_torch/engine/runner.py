@@ -112,6 +112,9 @@ class StreamRunner:
                 else cfg.jax_ingest_pipeline)
         self.ingest_mode = (mode or "off").strip().lower()
         self._pipeline: ingest.IngestPipeline | None = None
+        if cfg.jax_decode_device == "auto":
+            # auto device decode follows the A/B of the mode resolved here
+            engine.settle_decode(self._pipeline_on())
         # Crash flight recorder (obs.flightrec or None): a "tick" record
         # at every flush cycle + checkpoint offsets, dumped with the
         # terminal fault when a run loop dies.

@@ -16,6 +16,7 @@ Knobs are environment variables (``stream-bench.sh:9-40``): ``TOPIC``,
 ``STOP_STATS_GRACE`` (s), ``KAFKA_FAKE=1`` (the fake broker as its own
 process, ``START_KAFKA``/``STOP_KAFKA``; ``KAFKA_BROKERS`` names its
 address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
+``DECODE_DEVICE`` (off/on/auto: device decode, ``jax.decode.device``),
 ``ENCODE_WORKERS``, ``SCAN_BATCHES``, ``WINDOW_SLOTS``, ``EXACTLY_ONCE``,
 ``BROKER_DIR`` (the file journal; default ``WORKDIR/broker``), and
 ``DEVICE`` (``cuda`` by default, passed to the engine as ``--device``;
@@ -98,6 +99,10 @@ SCAN_BATCHES = int(os.environ.get("SCAN_BATCHES", "8"))
 WINDOW_SLOTS = int(os.environ.get("WINDOW_SLOTS", "16"))
 ENCODE_WORKERS = int(os.environ.get("ENCODE_WORKERS", "1"))
 INGEST_PIPELINE = os.environ.get("INGEST_PIPELINE", "off")
+# device decode (ops/devdecode.py): off | on | auto; "on" ships raw
+# journal blocks to the device, where the decode kernel turns them into
+# columns.  Default off: the host encoders run.
+DECODE_DEVICE = os.environ.get("DECODE_DEVICE", "off")
 EXACTLY_ONCE = _flag("EXACTLY_ONCE")
 VERIFY = _flag("VERIFY")
 # observability (obs/), forwarded into localConf (jax.metrics.*,
@@ -263,6 +268,7 @@ def op_setup() -> None:
         "jax.window.slots": WINDOW_SLOTS,
         "jax.encode.workers": ENCODE_WORKERS,
         "jax.ingest.pipeline": INGEST_PIPELINE,
+        "jax.decode.device": DECODE_DEVICE,
         "jax.sink.exactly_once": EXACTLY_ONCE,
         "jax.metrics.interval.ms": METRICS_INTERVAL_MS,
         "jax.obs.lifecycle": OBS_LIFECYCLE,

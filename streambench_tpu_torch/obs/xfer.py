@@ -8,7 +8,9 @@ The port of ``streambench_tpu/obs/xfer.py``.
   computed from the dispatched numpy buffers' dtypes and shapes), keyed
   by wire format — ``packed`` (the int32 wire word + the int32 time,
   8 B per shipped row), ``unpacked`` (the separate columns; ``valid``
-  ships as 1-byte bools, so 13 B per row).  The bytes are those of the
+  ships as 1-byte bools, so 13 B per row), ``devdecode`` (the raw-bytes
+  format of device decode: each journal block's padded byte buffer, once,
+  plus the int32 start and length of every row).  The bytes are those of the
   buffers the port ships; the JAX engine pads a partial scan group to a
   power of two with empty batches and the port does not, so the two
   ledgers agree wherever no group is padded (every step, every full
@@ -60,7 +62,7 @@ class TransferLedger:
     #: wire formats the engine can dispatch — pre-declared at
     #: construction so a scrape before the first dispatch already
     #: returns every per-format family with zero samples
-    KNOWN_FORMATS = ("packed", "unpacked")
+    KNOWN_FORMATS = ("packed", "unpacked", "devdecode")
 
     def __init__(self, registry=None, sample_every: int = 32):
         self.sample_every = max(int(sample_every), 0)

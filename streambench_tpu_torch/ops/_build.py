@@ -18,8 +18,12 @@ from streambench_tpu_torch.utils.build import build_library
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 COUNT_CELLS_SRC = os.path.join(_CSRC, "count_cells.cu")
-_lock = threading.Lock()
+DECODE_ROWS_SRC = os.path.join(_CSRC, "decode_rows.cu")
+# one lock per library, so the two nvcc runs can go at once
+_count_lock = threading.Lock()
+_decode_lock = threading.Lock()
 _count_lib: ctypes.CDLL | None = None
+_decode_lib: ctypes.CDLL | None = None
 
 
 def nvcc_path() -> str:
@@ -49,7 +53,7 @@ def count_cells_lib() -> ctypes.CDLL:
     global _count_lib
     if _count_lib is not None:          # built: no lock on the launch path
         return _count_lib
-    with _lock:
+    with _count_lock:
         if _count_lib is None:
             lib = ctypes.CDLL(build_library(
                 "count_cells", [COUNT_CELLS_SRC], _nvcc(COUNT_CELLS_SRC)))
@@ -64,3 +68,23 @@ def count_cells_lib() -> ctypes.CDLL:
             lib.sb_empty_launch.argtypes = [p]
             _count_lib = lib
         return _count_lib
+
+
+def decode_rows_lib() -> ctypes.CDLL:
+    """The decode kernel's library (K2), built on first call; raises when
+    it cannot be built."""
+    global _decode_lib
+    if _decode_lib is not None:         # built: no lock on the launch path
+        return _decode_lib
+    with _decode_lock:
+        if _decode_lib is None:
+            lib = ctypes.CDLL(build_library(
+                "decode_rows", [DECODE_ROWS_SRC], _nvcc(DECODE_ROWS_SRC)))
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+            lib.sb_decode_rows.restype = ctypes.c_int
+            # buf, cap, starts, lens, rows, keys, vals, table, probes,
+            # base_hi, base_lo, campaign, is_view, rel, valid, stream
+            lib.sb_decode_rows.argtypes = [p, i64, p, p, i64, p, p, i32, i32,
+                                           i32, i32, p, p, p, p, p]
+            _decode_lib = lib
+        return _decode_lib

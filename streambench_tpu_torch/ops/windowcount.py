@@ -23,12 +23,17 @@ Differences from the JAX functions, all deliberate:
   parked drain never sees later steps or a zeroing.
 - The scan is a Python loop of steps: PyTorch runs eagerly and has no
   ``lax.scan``.
-- Gathers are kept in range explicitly (``ad_idx`` is clamped into the
-  join table, which is what JAX's gather does with an out-of-range index),
-  because a CUDA gather out of range faults instead of clamping.
-- ``apply_count`` has two methods: ``"scatter"``, the plain PyTorch
-  version, and ``"kernel"``, the hand-written CUDA kernel (``ops.count``;
-  on a CPU tensor it runs the plain version).
+- Gathers are kept in range explicitly (``gather_rows``: a negative
+  index wraps by the table's length, then every index is clamped into
+  it, which is what JAX's gather does), because a CUDA gather out of
+  range faults instead of clamping.
+- ``apply_count`` has four methods: ``"scatter"``, the plain PyTorch
+  version; ``"kernel"``, the hand-written CUDA kernel (``ops.count``; on
+  a CPU tensor it runs the plain version); and the reference's
+  ``"onehot"`` and ``"matmul"`` arms as torch ops, which
+  ``ops.methodbench`` measures beside the other two.  The engine's
+  method on the card stays ``"kernel"``: the table reports and does not
+  switch the engine.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from streambench_tpu_torch.ops.count import count_cells, count_cells_plain
 # "minus infinity" for int32 maxes, as in the JAX package.
 NEG = -2_000_000_000
 
-METHODS = ("scatter", "kernel")
+METHODS = ("scatter", "kernel", "onehot", "matmul")
 
 
 class WindowState(NamedTuple):
@@ -119,14 +124,54 @@ def assign_windows(window_ids: torch.Tensor, watermark: torch.Tensor,
     return slot, count_mask, new_window_ids, new_watermark
 
 
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` as JAX's gather reads it: a negative index counts
+    from the end (``idx + n``), then every index is clamped into
+    ``[0, n)``.  The one copy of that rule for every gather-join of the
+    port: a CUDA gather out of range faults instead of clamping."""
+    n = table.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return table[idx]
+
+
 def apply_count(counts: torch.Tensor, campaign: torch.Tensor,
                 slot: torch.Tensor, count_mask: torch.Tensor,
                 method: str) -> torch.Tensor:
-    """``counts[campaign, slot] += 1`` for masked rows, in place."""
+    """``counts[campaign, slot] += 1`` for masked rows, in place.
+
+    The four arms are bit-identical (tested against the JAX package's
+    ``apply_count``).  ``onehot`` and ``matmul`` are the reference's
+    arms as torch ops: their operands grow with ``B * C * W`` and
+    ``B * C``, so ``ops.methodbench`` skips them where they would not
+    fit."""
     if method == "scatter":
         return count_cells_plain(counts, campaign, slot, count_mask)
     if method == "kernel":
         return count_cells(counts, campaign, slot, count_mask)
+    C, W = counts.shape
+    if method == "onehot":
+        flat = torch.where(count_mask, campaign * W + slot, C * W)
+        onehot = flat[:, None] == torch.arange(
+            C * W, dtype=flat.dtype, device=flat.device)[None, :]
+        # a float32 sum of ones is exact up to 2^24 rows
+        delta = onehot.to(torch.float32).sum(0).to(torch.int32)
+        return counts.add_(delta.view(C, W))
+    if method == "matmul":
+        # Rows that do not count get an all-zero campaign one-hot row,
+        # which zeroes their whole outer product.  A float32 product is
+        # exact only while every count stays below 2^24 and only in full
+        # float32: torch.backends.cuda.matmul.allow_tf32 stays False
+        # (PyTorch's default), since TF32 keeps 10 bits of mantissa.
+        if counts.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise ValueError("apply_count(method='matmul') needs "
+                             "torch.backends.cuda.matmul.allow_tf32 False")
+        camp_oh = ((campaign[:, None] == torch.arange(
+            C, dtype=campaign.dtype, device=campaign.device)[None, :])
+            & count_mask[:, None]).to(torch.float32)            # [B, C]
+        slot_oh = (slot[:, None] == torch.arange(
+            W, dtype=slot.dtype, device=slot.device)[None, :]
+            ).to(torch.float32)                                  # [B, W]
+        return counts.add_((camp_oh.T @ slot_oh).to(torch.int32))
     raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
 
 
@@ -136,7 +181,7 @@ def step(state: WindowState, join_table: torch.Tensor,
          divisor_ms: int = 10_000, lateness_ms: int = 60_000,
          view_type: int = 0, method: str = "scatter") -> WindowState:
     """Fold one micro-batch into the window state (counts in place)."""
-    campaign = join_table[ad_idx.clamp(0, join_table.shape[0] - 1)]
+    campaign = gather_rows(join_table, ad_idx)
     wid = torch.div(event_time, divisor_ms, rounding_mode="floor")
     wanted = valid & (event_type == view_type) & (campaign >= 0)
 

@@ -243,11 +243,9 @@ def test_cli_catchup_on_cpu(tmp_path):
     # --traceDir is ported; what stays refused of tracing is the fleet
     # layer's cross-process trace stitching (jax.obs.fleet)
     ([], "jax.obs.fleet: true", "jax.obs.fleet"),
-    ([], 'jax.decode.device: "on"', "jax.decode.device"),
     (["--microbatch"], "", "--microbatch"),
     (["--tenants", "a:exact"], "", "--tenants"),
-], ids=["sharded", "engine", "trace", "device_decode", "microbatch",
-        "tenants"])
+], ids=["sharded", "engine", "trace", "microbatch", "tenants"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, extra, conf_line,
                                        word):
     conf = tmp_path / "conf.yaml"
@@ -281,14 +279,7 @@ def test_resolve_device_and_method_choice():
     assert pipeline.default_method(torch.device("cpu")) == "scatter"
     with pytest.raises(ValueError, match="unknown method"):
         AdAnalyticsEngine(default_config(), {"ad": "camp"}, device="cpu",
-                          method="matmul")
-
-
-@pytest.mark.parametrize("key,value", [("jax_decode_device", "on")])
-def test_engine_refuses_config_it_cannot_honor(key, value):
-    with pytest.raises(ValueError, match="not ported"):
-        AdAnalyticsEngine(default_config(**{key: value}), {"ad": "camp"},
-                          device="cpu")
+                          method="pallas")
 
 
 def test_warmup_leaves_state_and_output_unchanged():

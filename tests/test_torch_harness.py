@@ -125,6 +125,28 @@ def test_torch_test_composite_in_one_call(tmp_path):
     assert not os.listdir(os.path.join(wd, "pids"))
 
 
+def test_torch_test_with_device_decode_on_cpu(tmp_path):
+    """``TORCH_TEST`` with ``DECODE_DEVICE=on``: the engine decodes the
+    journal's raw blocks on its device (here the CPU, through the decode
+    kernel's plain version) and ``VERIFY`` finds every window exact."""
+    wd = str(tmp_path / "run")
+    p = run_harness(["TORCH_TEST"], {
+        "WORKDIR": wd, "REDIS_PORT": str(free_port()), "LOAD": "400",
+        "TEST_TIME": "6", "STOP_STATS_GRACE": "3", "DEVICE": "cpu",
+        "DECODE_DEVICE": "on", "VERIFY": "1"}, timeout=240)
+    assert p.returncode == 0, p.stdout + p.stderr
+    engine_log = open(os.path.join(wd, "logs", "engine.log")).read()
+    assert "decode=device" in engine_log
+    stats = json.loads(engine_log.strip().splitlines()[-1])
+    assert stats["events"] > 0 and stats["dropped"] == 0
+    assert stats["kernel_launches"] == {"count_cells": 0, "decode_rows": 0}
+    verdict = json.load(open(os.path.join(wd, "verify.json")))
+    assert verdict["journal_events"] == stats["events"]
+    assert verdict["windows_correct"] > 0
+    assert (verdict["windows_differ"], verdict["windows_missing"],
+            verdict["windows_extra"]) == (0, 0, 0)
+
+
 def test_unknown_operation_lists_supported(tmp_path):
     proc = run_harness(["NO_SUCH_OP"], {"WORKDIR": str(tmp_path)})
     assert proc.returncode == 1

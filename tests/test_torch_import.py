@@ -48,7 +48,8 @@ print(json.dumps({
                   if m.split(".")[0] in ("jax", "jaxlib", "streambench_tpu")),
     "cuda_initialized": torch.cuda.is_initialized(),
     "built": [native._lib is not None, native._tried,
-              _build._count_lib is not None],
+              _build._count_lib is not None,
+              _build._decode_lib is not None],
 }))
 """
 
@@ -72,13 +73,16 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.engine.__main__",
                 "streambench_tpu_torch.ops.count",
                 "streambench_tpu_torch.ops.windowcount",
+                "streambench_tpu_torch.ops.decode",
+                "streambench_tpu_torch.ops.devdecode",
+                "streambench_tpu_torch.ops.methodbench",
                 "streambench_tpu_torch.native",
                 "streambench_tpu_torch.datagen.gen"} | {
                     f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES}
     assert expected <= set(got["modules"])
     assert got["jax"] == []
     assert got["cuda_initialized"] is False
-    assert got["built"] == [False, False, False]
+    assert got["built"] == [False, False, False, False]
 
 
 @pytest.mark.parametrize("path", _port_sources(),

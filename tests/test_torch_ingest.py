@@ -276,13 +276,12 @@ def test_exactly_once_with_the_pipeline_on(tmp_path):
     assert rows["torch"] == rows["jax"]
 
 
-def test_encode_thread_creates_no_tensor(tmp_path):
-    """Only the host loop's thread may touch torch: a profiler hooked
-    into every thread the pipeline starts (reader, encode, and the encode
-    pool's workers) sees no call into torch, while the positive control
-    shows the hook would."""
-    cfg, broker, mapping = setup_run(tmp_path, events=6_000,
-                                     jax_encode_workers=2)
+def _stage_threads_torch_calls(tmp_path, **cfg_over):
+    """Run a pipelined catchup with a profiler hooked into every thread
+    the pipeline starts; returns (torch calls seen off the host loop,
+    stats, pipeline telemetry, whether the engine built an encode pool,
+    whether it decodes on the device)."""
+    cfg, broker, mapping = setup_run(tmp_path, events=6_000, **cfg_over)
     hits: list[str] = []
     main = threading.main_thread()
 
@@ -309,7 +308,8 @@ def test_encode_thread_creates_no_tensor(tmp_path):
         hits.clear()
         eng = AdAnalyticsEngine(cfg, mapping, redis=fresh_store(tmp_path),
                                 device="cpu")
-        assert eng._encode_pool is not None
+        pooled = eng._encode_pool is not None
+        decoded = eng._devdecode is not None
         with broker.reader(cfg.kafka_topic) as reader:
             runner = StreamRunner(eng, reader, ingest_pipeline="on")
             stats = runner.run_catchup()
@@ -317,7 +317,31 @@ def test_encode_thread_creates_no_tensor(tmp_path):
         eng.close()
     finally:
         threading.setprofile(None)
+    return hits, stats, tel, pooled, decoded
+
+
+def test_encode_thread_creates_no_tensor(tmp_path):
+    """Only the host loop's thread may touch torch: a profiler hooked
+    into every thread the pipeline starts (reader, encode, and the encode
+    pool's workers) sees no call into torch, while the positive control
+    shows the hook would."""
+    hits, stats, tel, pooled, _ = _stage_threads_torch_calls(
+        tmp_path, jax_encode_workers=2)
+    assert pooled
     assert stats.events == 6_000 and tel["encode_ms_total"] > 0
+    assert hits == []
+
+
+def test_encode_thread_creates_no_tensor_with_device_decode(tmp_path):
+    """With device decode on the encode stage probes raw blocks and keeps
+    their padded bytes on the host; the upload happens on the host loop
+    at the first fold, so the stage threads still touch no torch."""
+    hits, stats, tel, _, decoded = _stage_threads_torch_calls(
+        tmp_path, jax_decode_device="on")
+    assert decoded
+    assert stats.events == 6_000
+    assert tel["device_decode"]["rows_decoded"] == 6_000
+    assert tel["device_decode"]["rows_fallback"] == 0
     assert hits == []
 
 

@@ -22,7 +22,7 @@ from streambench_tpu.ops import windowcount as jwc
 from streambench_tpu_torch.ops import windowcount as twc
 
 J_METHODS = ("scatter", "pallas")
-T_METHODS = ("scatter", "kernel")
+T_METHODS = ("scatter", "kernel", "onehot", "matmul")
 
 # tiny tensors: one intra-op thread keeps these tests from crowding the
 # other test workers' CPUs
@@ -94,11 +94,34 @@ def test_apply_count_matches_jax(jm, tm, B, C, W):
     assert np.array_equal(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("jm,tm", [("scatter", "scatter"),
+                                   ("pallas", "kernel"),
+                                   ("onehot", "onehot"),
+                                   ("matmul", "matmul")])
+@pytest.mark.parametrize("B,C,W", [(300, 7, 5), (4096, 100, 16)])
+def test_apply_count_arms_match_their_jax_arms(jm, tm, B, C, W):
+    """Each of the port's four arms against the JAX arm it ports, on a
+    plane that already holds counts, with masked rows of every kind."""
+    rng = np.random.default_rng(B * C + W)
+    counts = rng.integers(0, 1000, (C, W)).astype(np.int32)
+    camp = rng.integers(-1, C, B).astype(np.int32)
+    slot = rng.integers(0, W, B).astype(np.int32)
+    mask = (rng.random(B) < 0.8) & (camp >= 0)
+    want = jwc.apply_count(jnp.asarray(counts), jnp.asarray(camp),
+                           jnp.asarray(slot), jnp.asarray(mask), jm)
+    got = torch.from_numpy(counts.copy())
+    out = twc.apply_count(got, torch.from_numpy(camp),
+                          torch.from_numpy(slot), torch.from_numpy(mask), tm)
+    assert out is got                       # in place
+    assert np.array_equal(np.asarray(want), got.numpy())
+    assert twc.METHODS == T_METHODS
+
+
 def test_apply_count_rejects_unknown_method():
     z = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown method"):
         twc.apply_count(torch.zeros(1, 2, dtype=torch.int32), z, z,
-                        z.bool(), "matmul")
+                        z.bool(), "pallas")
 
 
 # ----------------------------------------------------------------------
@@ -290,6 +313,28 @@ def test_gathers_stay_in_range_without_the_pad_row_conventions():
     ts = tstep(twc.init_state(3, 8), jt, (ad, et, tt, v), "kernel")
     assert_state_equal(js, ts)
     assert int(ts.counts.sum()) == 6
+
+
+@pytest.mark.parametrize("tm", T_METHODS)
+def test_negative_ad_index_wraps_like_jax(tm):
+    """JAX's gather counts a negative index from the end, then clamps;
+    the port's ``gather_rows`` does the same, so ``-1`` reads the
+    trailing unknown-ad row and counts nothing, ``-2`` reads campaign 1,
+    ``-n`` and ``-n - 1`` read row 0, and indices past the end read the
+    last row."""
+    jt = np.array([0, 1, -1], np.int32)
+    n = jt.size
+    for ad in (-1, -2, -n, -n - 1, -100, n, n + 4):
+        cols = (np.array([ad], np.int32), np.zeros(1, np.int32),
+                np.array([12_000], np.int32), np.ones(1, bool))
+        js = jstep(jwc.init_state(2, 8), jt, cols, "scatter")
+        ts = tstep(twc.init_state(2, 8), jt, cols, tm)
+        assert_state_equal(js, ts)
+    idx = torch.tensor([-1, -2, -3, -4, -100, 0, 2, 3, 9], dtype=torch.int32)
+    got = twc.gather_rows(torch.from_numpy(jt), idx)
+    want = jnp.asarray(jt)[jnp.asarray(idx.numpy())]
+    assert np.array_equal(np.asarray(want), got.numpy())
+    assert got.tolist() == [-1, 1, 0, 0, 0, 0, -1, -1, -1]
 
 
 def test_flush_hands_back_old_counts_and_a_fresh_zeroed_tensor():
