@@ -25,10 +25,17 @@ result line) when any phase fails:
    8192-row group; pad rows, unknown ads, every event type and times on
    both sides of a 10^9 boundary; ads that sit three or more probes deep
    in the join table; a paced block's dispatch, 10,700 rows in two
-   8192-row groups), each with its device time over CUDA-graph
+   8192-row groups; two table ads and an unknown one with one FNV-1a
+   hash; rows at every start mod 16, across both ends of the buffer and
+   over random bytes, through an aligned buffer and views 1 and 3 bytes
+   into their storage; 100,000 ads, past the shared-memory tier; a full
+   journal block, [8, 8192]; and a bandwidth case, [64, 8192]), each
+   with the launch plan it took (tier, block size, shared bytes) and the
+   rows predicted to take 16-byte loads, its device time over CUDA-graph
    replays, its eager call time, the plain version's device time, the
-   byte bound (the join table once, each row's bytes once; the probes'
-   key reads, served from L2, reported apart), and the launch floor (no
+   byte bound (the join table's slots the lookups reach, each once; each
+   row's bytes once; the probes' key reads, served from L2, reported
+   apart), and the launch floor (no
    PyTorch call computes this function: no library time).  Last, the
    method table (``ops.methodbench``): the four ``apply_count`` arms
    timed with CUDA events at config #1's geometry (C = 100, W = 16; B =
@@ -175,7 +182,14 @@ FLUSH_MS = 1000                    # jax.flush.interval.ms, the default the harn
 # seven unknown, every event type, times within 5 s of a 10^9 boundary;
 # "deep" = only ads that sit 3 or more probes deep in the join table;
 # "paced" = PACED_BLOCK_ROWS generator rows in two 8192-row groups with
-# the pad tail a paced block's dispatch carries (phase 13's shape)
+# the pad tail a paced block's dispatch carries (phase 13's shape);
+# "collision" = the table holds COLLIDING_ADS, and rows of both and of
+# COLLIDING_UNKNOWN; "edgesK" = rows at every start mod 16, rows crossing
+# either end of the buffer, rows of random bytes (one with an all-zero ad
+# span) and pad rows, through a buffer view K bytes into its storage;
+# "bigtable" = generator rows over 100,000 ads (T = 262,144: the global
+# tier); "tiled" = one 8192-row block of generator rows tiled `groups`
+# times, each copy's starts offset by the block's length
 PACED_BLOCK_ROWS = 10_700
 DECODE_CASES = (
     ("a scan group of generator rows, [8, 4096]", 8, 4096, "generator"),
@@ -186,7 +200,27 @@ DECODE_CASES = (
     ("ads 3 or more probes deep in the join table", 1, 4096, "deep"),
     ("paced path: a paced block's dispatch, %d rows in two 8192-row "
      "groups" % PACED_BLOCK_ROWS, 2, 8192, "paced"),
+    ("two table ads and an unknown ad with one FNV-1a hash", 1, 4096,
+     "collision"),
+    ("every start mod 16, both buffer ends, random bytes; 16-byte-aligned "
+     "buffer", 1, 4096, "edges0"),
+    ("the same through a view 1 byte into its storage (byte path)", 1, 4096,
+     "edges1"),
+    ("the same through a view 3 bytes into its storage (byte path)", 1,
+     4096, "edges3"),
+    ("100,000 ads in 262,144 slots (global tier)", 1, 8192, "bigtable"),
+    ("a full journal block of generator rows, [8, 8192]", 8, 8192,
+     "generator"),
+    ("bandwidth (not a main-path shape): [64, 8192], one block tiled", 64,
+     8192, "tiled"),
 )
+# Two uuid4 strings with one FNV-1a 32-bit hash (0x20fe7885), found among
+# the 2^17 of make_ids(1 << 17, random.Random(1)) by sorting their hashes,
+# and a third with the same hash that no table holds (a seeded uuid4 whose
+# last ten hex digits were solved for it, meeting in the middle)
+COLLIDING_ADS = ("3fdb86b0-7a3f-49f5-bd16-bf8507541a9c",
+                 "96559ca1-dba2-4688-b602-c94a1502eb22")
+COLLIDING_UNKNOWN = "940eee3c-ba6f-475c-ae84-49715a2a4143"
 # the method table's geometries: (C, W, B)
 METHOD_GEOMETRIES = ((100, 16, 4096), (100, 16, 8192),
                      (1_000_000, 64, 8192))
@@ -499,10 +533,12 @@ def _event_line(rng, users, t: int, event_type: str, ad: str) -> str:
 
 
 def _decode_inputs(seed: int, groups: int, B: int, kind: str) -> dict:
-    """numpy inputs of one K2 case (see DECODE_CASES): the byte
-    buffer, ``[groups, B]`` starts and lens, config #1's join table (100
-    campaigns x 10 ads) and the base time, as ``DeviceDecoder`` makes
-    them; every real row passes the host probe."""
+    """numpy inputs of one K2 case (see DECODE_CASES): the byte buffer
+    (``storage[offset:]``), ``[groups, B]`` starts and lens, the join
+    table (config #1's 100 campaigns x 10 ads; 100,000 ads for
+    "bigtable"; with COLLIDING_ADS for "collision") with its used mask,
+    and the base time, as ``DeviceDecoder`` makes them; every generated
+    row passes the host probe."""
     import numpy as np
 
     from streambench_tpu_torch.datagen import gen
@@ -511,18 +547,25 @@ def _decode_inputs(seed: int, groups: int, B: int, kind: str) -> dict:
     from streambench_tpu_torch.utils.ids import make_ids
 
     rng = random.Random(seed)
+    n_ads = 100_000 if kind == "bigtable" else 1000
     campaigns = make_ids(100, rng)
-    ads = make_ids(1000, rng)
+    ads = make_ids(n_ads, rng)
     users = make_ids(100, rng)
-    mapping = {ad: campaigns[i // 10] for i, ad in enumerate(ads)}
+    table_ads = ads + list(COLLIDING_ADS) if kind == "collision" else ads
+    mapping = {ad: campaigns[i * 100 // n_ads % 100]
+               for i, ad in enumerate(table_ads)}
     enc = EventEncoder(mapping)
-    keys, vals, probes = devdecode.build_ad_table(
-        [a.encode() for a in enc.ads], enc.join_table[:-1])
+    keys, vals, probes, used = devdecode.build_ad_table(
+        [a.encode() for a in enc.ads], enc.join_table[:-1], with_used=True)
     rows = groups * B
+    edges = kind.startswith("edges")
     real = {"halfbatch": rows // 2, "adversarial": rows - rows // 4,
-            "paced": PACED_BLOCK_ROWS}.get(kind, rows)
+            "paced": PACED_BLOCK_ROWS, "tiled": B}.get(kind, rows)
+    if edges:
+        real = rows - EDGE_ROWS
     t0 = 1_700_000_000_000
-    if kind in ("generator", "halfbatch", "paced"):
+    if edges or kind in ("generator", "halfbatch", "paced", "bigtable",
+                         "tiled"):
         src = gen.EventSource(ads=ads, user_ids=users, page_ids=users,
                               rng=rng)
         lines = [src.event_at(t0 + 10 * i) for i in range(real)]
@@ -545,9 +588,12 @@ def _decode_inputs(seed: int, groups: int, B: int, kind: str) -> dict:
         boundary = 1_723_000_000_000          # a multiple of 10^9
         lines = []
         for i in range(real):
-            ad = (str(uuid.UUID(int=rng.getrandbits(128), version=4))
-                  if kind == "adversarial" and i % 7 == 0
-                  else rng.choice(pool))
+            if kind == "collision" and i % 4 < 3:
+                ad = (*COLLIDING_ADS, COLLIDING_UNKNOWN)[i % 4]
+            elif kind == "adversarial" and i % 7 == 0:
+                ad = str(uuid.UUID(int=rng.getrandbits(128), version=4))
+            else:
+                ad = rng.choice(pool)
             lines.append(_event_line(
                 rng, users, boundary + rng.randint(-5_000, 5_000),
                 ("view", "click", "purchase")[i % 3], ad))
@@ -564,45 +610,122 @@ def _decode_inputs(seed: int, groups: int, B: int, kind: str) -> dict:
         # pad rows spread among the real ones
         at = np.sort(np.random.default_rng(seed).choice(rows, real,
                                                         replace=False))
+    elif kind == "tiled":
+        buf = np.tile(buf, groups)
+        starts = (starts[None, :] + len(data) * np.arange(
+            groups, dtype=np.int64)[:, None]).reshape(-1)
+        lens = np.tile(lens, groups)
+        at = np.arange(rows)
     else:
         at = np.arange(real)
     s[at], l[at] = starts, lens
-    return {"buf": buf, "starts": s.reshape(groups, B),
-            "lens": l.reshape(groups, B), "keys": keys, "vals": vals,
-            "probes": probes, "base": base}
+    offset = 0
+    storage = buf
+    if edges:
+        if np.unique(starts % 16).size != 16:
+            raise AssertionError("the generator rows miss a start mod 16")
+        buf, es, el = _edge_rows(buf, seed)
+        s[real:], l[real:] = es, el
+        offset = int(kind[5:])
+        storage = np.concatenate([np.full(offset, 0xEE, np.uint8), buf])
+    return {"buf": buf, "storage": storage, "offset": offset,
+            "starts": s.reshape(groups, B), "lens": l.reshape(groups, B),
+            "keys": keys, "vals": vals, "used": used, "probes": probes,
+            "base": base}
+
+
+EDGE_ROWS = 96      # the edge rows and pad rows that end an "edgesK" case
+
+
+def _edge_rows(buf, seed: int):
+    """``buf`` grown by 4,096 random bytes, 400 zero bytes and random bytes
+    up to a length of 7 mod 16, and ``EDGE_ROWS`` (start, len) rows after
+    the generator's: spans crossing the buffer's start (negative starts,
+    one below -cap) and its end (starts within 150 B of cap, and past it),
+    rows in the random bytes, one whose ad span is all zero, then pad
+    rows."""
+    import numpy as np
+
+    nrng = np.random.default_rng(seed)
+    n0 = buf.size
+    zs = n0 + 4096                          # the zero bytes' start
+    pad = 100 + (7 - (zs + 400 + 100)) % 16
+    buf = np.concatenate([buf, nrng.integers(0, 256, 4096, dtype=np.uint8),
+                          np.zeros(400, np.uint8),
+                          nrng.integers(0, 256, pad, dtype=np.uint8)])
+    cap = buf.size
+    rows = [(-1, 250), (-36, 260), (-113, 255), (-130, 270), (-149, 250),
+            (-200, 300), (-cap + 5, 250), (-cap - 20, 260)]
+    rows += [(cap - d, 250 + d % 7) for d in (150, 149, 148, 140, 120, 100,
+                                              62, 40, 27, 16, 1, 0, -5)]
+    rows += [(zs - 100, 300)]               # the ad span all zero
+    rows += [(int(a), int(b)) for a, b in zip(
+        nrng.integers(n0, n0 + 4096 - 400, 40),
+        nrng.integers(245, 400, 40))]
+    rows += [(0, 0)] * (EDGE_ROWS - len(rows))
+    st, ln = zip(*rows)
+    return buf, np.asarray(st, np.int32), np.asarray(ln, np.int32)
+
+
+def _vector_rows(case: dict, aligned: bool) -> int:
+    """The rows K2 should read with 16-byte loads, predicted from the
+    kernel's condition (``csrc/decode_rows.cu``; the kernel counts
+    nothing): real rows whose ad and tail spans lie in ``[0, cap & ~15)``
+    of a 16-byte aligned buffer; every other row reads its bytes one at a
+    time."""
+    import numpy as np
+
+    s = case["starts"].reshape(-1).astype(np.int64)
+    e = s + case["lens"].reshape(-1)
+    cap16 = case["buf"].size & ~15
+    ok = ((case["lens"].reshape(-1) > 0) & (s + 113 >= 0)
+          & (s + 149 <= cap16) & (e - 62 >= 0) & (e - 27 <= cap16))
+    return int(ok.sum()) if aligned else 0
 
 
 def _decode_bytes(case: dict) -> tuple[int, dict]:
     """The bytes K2 must move from and to memory for THIS case's rows,
-    each input read once: the join table once (36 B of key and 4 B of
-    value a slot; it stays in L2 across the probes), a pad row's length
-    (4 B: its start is never read), a real row's start and length (8 B),
-    36 ad bytes, 4 event-type bytes and 13 digits, and every row's four
-    outputs (10 B).  The key bytes the probes read (36 B a probe taken,
-    served from L2) are reported apart, as ``l2_key_bytes``.  Returns the
-    bytes and what was counted."""
+    each input read once: the join table's slots that the rows' lookups
+    reach (36 B of key and 4 B of value a slot, each distinct slot once; a
+    lookup walks its chain to the matching slot or the first unused one,
+    at most ``probes`` slots), a pad row's length (4 B: its start is never
+    read), a real row's start and length (8 B), 36 ad bytes, 4 event-type
+    bytes and 13 digits, and every row's four outputs (10 B).  The slots
+    the lookups inspect, counted with repeats (``probes_taken``, 36 B of
+    key each in ``l2_key_bytes``: the most key bytes the lookups compare,
+    served from L2), are reported apart.  Returns the bytes and what was
+    counted."""
     import numpy as np
 
     s, l = case["starts"].reshape(-1), case["lens"].reshape(-1)
     real = l > 0
-    buf, keys = case["buf"], case["keys"]
-    ad = buf[s[real][:, None] + 113 + np.arange(36)[None, :]].astype(
-        np.uint64)
+    buf, keys, used = case["buf"], case["keys"], case["used"]
+    at = s[real][:, None].astype(np.int64) + 113 + np.arange(36)[None, :]
+    at = np.clip(np.where(at < 0, at + buf.size, at), 0, buf.size - 1)
+    ad = buf[at].astype(np.uint64)           # JAX's gather rule
     h = np.full(ad.shape[0], 2166136261, np.uint64)
     for i in range(36):
         h = ((h ^ ad[:, i]) * np.uint64(16777619)) & np.uint64(0xFFFFFFFF)
     T = keys.shape[0]
     found = np.zeros(ad.shape[0], bool)
+    done = np.zeros(ad.shape[0], bool)
     taken = np.zeros(ad.shape[0], np.int64)
+    reached = np.zeros(T, bool)
     for p in range(case["probes"]):
         slot = ((h + np.uint64(p)) & np.uint64(T - 1)).astype(np.int64)
-        taken += ~found
-        found |= (keys[slot] == ad).all(axis=1)
+        live = ~done
+        taken += live
+        reached[slot[live]] = True
+        hit = live & used[slot] & (keys[slot] == ad).all(axis=1)
+        found |= hit
+        done |= hit | ~used[slot]
     n = int(real.sum())
-    nbytes = (T * (36 + 4) + (s.size - n) * 4 + n * (8 + 36 + 4 + 13)
+    slots = int(reached.sum())
+    nbytes = (slots * (36 + 4) + (s.size - n) * 4 + n * (8 + 36 + 4 + 13)
               + s.size * 10)
     return nbytes, {"real_rows": n, "pad_rows": int(s.size - n),
-                    "table_bytes": T * (36 + 4),
+                    "table_slots_reached": slots,
+                    "table_bytes": slots * (36 + 4),
                     "l2_key_bytes": int(taken.sum()) * 36,
                     "probes_bound": case["probes"],
                     "probes_taken": int(taken.sum()),
@@ -610,22 +733,52 @@ def _decode_bytes(case: dict) -> tuple[int, dict]:
                     "unknown_ads": int(n - found.sum())}
 
 
+def _decode_sectors(case: dict, nbytes: int) -> int:
+    """``nbytes``, the bound's bytes, with each real row's three spans (36
+    ad bytes, the event type's last 4, the 13 digits) counted instead as
+    the 32-byte sectors of ``buf`` they touch under the gather rule, each
+    distinct sector once: what the card fetches, at its sector
+    granularity, to read those bytes."""
+    import numpy as np
+
+    s = case["starts"].reshape(-1).astype(np.int64)
+    l = case["lens"].reshape(-1)
+    real = l > 0
+    s, e = s[real], s[real] + l[real]
+    cap = case["buf"].size
+    at = np.concatenate([s[:, None] + 113 + np.arange(36)[None, :],
+                         e[:, None] - 62 + np.arange(4)[None, :],
+                         e[:, None] - 40 + np.arange(13)[None, :]], axis=1)
+    at = np.clip(np.where(at < 0, at + cap, at), 0, cap - 1)
+    sectors = np.unique((at // 32).astype(np.int32))
+    return nbytes - at.size + 32 * sectors.size
+
+
 def _decode_case(label: str, groups: int, B: int, kind: str, seed: int,
                  floor: dict) -> dict:
     """K2 against its plain version on the card, every output in full
-    (the two agree on pad rows too), and its times beside the bound."""
+    (the two agree on pad rows too), the plan it took, and its times
+    beside the bound."""
     import numpy as np
     import torch
 
-    from streambench_tpu_torch.ops.decode import (decode_rows,
-                                                  decode_rows_plain)
+    from streambench_tpu_torch.ops.count import device_limits
+    from streambench_tpu_torch.ops.decode import (decode_plan, decode_rows,
+                                                  decode_rows_plain,
+                                                  slot_meta)
 
     case = _decode_inputs(seed, groups, B, kind)
     base = case["base"]
-    args = (*(torch.from_numpy(case[k]).cuda()
-              for k in ("buf", "starts", "lens", "keys", "vals")),
+    buf = torch.from_numpy(case["storage"]).cuda()[case["offset"]:]
+    args = (buf, *(torch.from_numpy(case[k]).cuda()
+                   for k in ("starts", "lens", "keys", "vals")),
             case["probes"], base // 1_000_000_000, base % 1_000_000_000)
-    got = decode_rows(*args)
+    meta = torch.from_numpy(slot_meta(case["keys"], case["vals"],
+                                      case["used"]).view(np.int32)).cuda()
+    sms, _ = device_limits(buf.get_device())
+    plan = decode_plan(case["keys"].shape[0], buf.shape[0],
+                       buf.data_ptr() % 16, groups * B, sms=sms)
+    got = decode_rows(*args, meta=meta)
     want = decode_rows_plain(*args)
     torch.cuda.synchronize()
     diff = 0
@@ -639,17 +792,27 @@ def _decode_case(label: str, groups: int, B: int, kind: str, seed: int,
     if not np.array_equal(valid, case["lens"] > 0):
         raise AssertionError(f"decode_rows valid rows wrong at {label!r}")
     nbytes, counted = _decode_bytes(case)
-    kernel_ms = _device_ms(lambda: decode_rows(*args))
-    plain_ms = _device_ms(lambda: decode_rows_plain(*args), reps=20)
-    call_ms = _call_ms_in_turns({"kernel": lambda: decode_rows(*args)})
+    sector_bytes = _decode_sectors(case, nbytes)
+    kernel_ms = _device_ms(lambda: decode_rows(*args, meta=meta))
+    plain_ms = _device_ms(lambda: decode_rows_plain(*args),
+                          reps=max(1, min(20, 20 * 16384 // (groups * B))))
+    call_ms = _call_ms_in_turns(
+        {"kernel": lambda: decode_rows(*args, meta=meta)})
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {
         "case": label, "shape": {"groups": groups, "B": B}, "inputs": kind,
+        "plan": plan._asdict(), "table_slots": int(case["keys"].shape[0]),
+        "buf_offset": case["offset"],
+        "predicted_vector_rows": _vector_rows(case, plan.vector),
         **counted, "views": int(got[1].sum().item()),
         "max_abs_diff": diff, "kernel_ms": kernel_ms,
         "kernel_call_ms": call_ms["kernel"], "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": bound_ms, "bound_bytes": nbytes,
-        "bound_share": bound_ms / kernel_ms, **floor,
+        "bound_share": bound_ms / kernel_ms,
+        # the same bytes at the card's 32-byte sector granularity: the
+        # least time any kernel reading these rows from HBM could take
+        "sector_bytes": sector_bytes,
+        "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3, **floor,
     }
     print(f"[decode] {json.dumps(out)}", flush=True)
     if diff:

@@ -82,9 +82,10 @@ def decode_rows_lib() -> ctypes.CDLL:
                 "decode_rows", [DECODE_ROWS_SRC], _nvcc(DECODE_ROWS_SRC)))
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
             lib.sb_decode_rows.restype = ctypes.c_int
-            # buf, cap, starts, lens, rows, keys, vals, table, probes,
-            # base_hi, base_lo, campaign, is_view, rel, valid, stream
+            # buf, cap, starts, lens, rows, keys, meta, table, probes,
+            # base_hi, base_lo, campaign, is_view, rel, valid, plan
+            # (ops/decode.py:_PlanArgs), stream
             lib.sb_decode_rows.argtypes = [p, i64, p, p, i64, p, p, i32, i32,
-                                           i32, i32, p, p, p, p, p]
+                                           i32, i32, p, p, p, p, p, p]
             _decode_lib = lib
         return _decode_lib

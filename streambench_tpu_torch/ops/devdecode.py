@@ -62,6 +62,7 @@ from streambench_tpu_torch.ops.decode import (
     TM_OFF,
     UUID_LEN,
     decode_rows,
+    slot_meta,
 )
 
 _EVENT_TYPES = (b"view", b"click", b"purchase")
@@ -76,15 +77,17 @@ def fnv1a32(data: bytes) -> int:
 
 # ----------------------------------------------------------------------
 # Device-resident ad -> campaign join table
-def build_ad_table(ads: list[bytes], campaign_idx: np.ndarray
-                   ) -> tuple[np.ndarray, np.ndarray, int]:
+def build_ad_table(ads: list[bytes], campaign_idx: np.ndarray, *,
+                   with_used: bool = False):
     """Open-addressed (linear probe) hash table over 36-byte ad ids.
 
     Returns ``(keys [T, 36] uint8, vals [T] int32, max_probes)`` with
-    ``T`` a power of two sized for load factor <= 0.5.  Empty slots hold
-    val -1 and an all-zero key no uuid can equal, so a probe that
-    exhausts ``max_probes`` without a key match yields campaign -1, the
-    host encoder's unknown-ad semantics.
+    ``T`` a power of two sized for load factor <= 0.5, and with
+    ``with_used`` a fourth value, ``used [T]`` bool: the slots it filled
+    (K2 stops a probe at the first unused one; ``ops.decode.slot_meta``).
+    Empty slots hold val -1 and an all-zero key no uuid can equal, so a
+    probe that exhausts ``max_probes`` without a key match yields
+    campaign -1, the host encoder's unknown-ad semantics.
     """
     if not ads:
         raise ValueError("device decode needs a non-empty ad table")
@@ -107,6 +110,8 @@ def build_ad_table(ads: list[bytes], campaign_idx: np.ndarray
         keys[slot] = np.frombuffer(ad, np.uint8)
         vals[slot] = int(c)
         max_probes = max(max_probes, p + 1)
+    if with_used:
+        return keys, vals, max_probes, used
     return keys, vals, max_probes
 
 
@@ -248,13 +253,15 @@ def decode_fold_scan(state: wc.WindowState, buf: torch.Tensor,
                      starts: torch.Tensor, lens: torch.Tensor,
                      keys: torch.Tensor, vals: torch.Tensor, base_hi: int,
                      base_lo: int, *, divisor_ms: int, lateness_ms: int,
-                     method: str, probes: int) -> wc.WindowState:
+                     method: str, probes: int,
+                     meta: torch.Tensor | None = None) -> wc.WindowState:
     """Decode + filter + join + fold ``[K, B]`` row groups out of ONE
-    shared byte buffer: one K2 launch over all ``K * B`` rows, then per
+    shared byte buffer: one K2 launch over all ``K * B`` rows (``meta``:
+    the table's ``slot_meta``, which the kernel needs on a card), then per
     group the window claim and the count (``state.counts`` in place, as
     ``windowcount.step``)."""
     campaign, is_view, rel, valid = decode_rows(
-        buf, starts, lens, keys, vals, probes, base_hi, base_lo)
+        buf, starts, lens, keys, vals, probes, base_hi, base_lo, meta=meta)
     for k in range(starts.shape[0]):
         wid = torch.div(rel[k], divisor_ms, rounding_mode="floor")
         wanted = valid[k] & is_view[k] & (campaign[k] >= 0)
@@ -339,12 +346,16 @@ class DeviceDecoder:
     def __init__(self, encoder, *, batch_size: int, scan_batches: int,
                  divisor_ms: int, lateness_ms: int,
                  device: torch.device | str):
-        keys, vals, probes = build_ad_table(
+        keys, vals, probes, used = build_ad_table(
             [a.encode() for a in encoder.ads],
-            encoder.join_table[:-1])
+            encoder.join_table[:-1], with_used=True)
         self.device = torch.device(device)
         self.keys = torch.from_numpy(keys).to(self.device)
         self.vals = torch.from_numpy(vals).to(self.device)
+        # K2's view of the table: slot tags, vals and used bits, staged in
+        # shared memory by each block (built and uploaded once)
+        self.meta = torch.from_numpy(
+            slot_meta(keys, vals, used).view(np.int32)).to(self.device)
         self.probes = probes
         self.encoder = encoder
         self.batch_size = max(int(batch_size), 1)
@@ -434,7 +445,7 @@ class DeviceDecoder:
                 rows_dev[1].view(kp, B), self.keys, self.vals,
                 base // 1_000_000_000, base % 1_000_000_000,
                 divisor_ms=self.divisor_ms, lateness_ms=self.lateness_ms,
-                method=method, probes=self.probes)
+                method=method, probes=self.probes, meta=self.meta)
         return state
 
     def warmup(self, state: wc.WindowState, *, method: str
@@ -448,7 +459,7 @@ class DeviceDecoder:
         return decode_fold_scan(
             state, buf, rows, rows, self.keys, self.vals, 0, 0,
             divisor_ms=self.divisor_ms, lateness_ms=self.lateness_ms,
-            method=method, probes=self.probes)
+            method=method, probes=self.probes, meta=self.meta)
 
     def telemetry(self) -> dict:
         return {

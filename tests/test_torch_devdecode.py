@@ -302,11 +302,13 @@ def test_cuda_launch_raises_and_counts_nothing_when_the_library_fails(
     raise, nothing falls back to the plain version, and only a launch
     that was made counts."""
     buf, starts, lens, keys, vals, probes, base, _ = _decode_case(6, 30)
-    args = [torch.from_numpy(a) for a in (buf, starts, lens, keys, vals)]
+    meta = tdec.slot_meta(keys, vals, vals >= 0).view(np.int32)
+    args = [torch.from_numpy(a) for a in (buf, starts, lens, keys, meta)]
     outs = (torch.empty(starts.shape, dtype=torch.int32),
             torch.empty(starts.shape, dtype=torch.bool),
             torch.empty(starts.shape, dtype=torch.int32),
             torch.empty(starts.shape, dtype=torch.bool))
+    plan = tdec._PlanArgs(1, 64, 1, tdec.meta_bytes(keys.shape[0]), 1)
     calls = []
 
     class Lib:
@@ -320,7 +322,7 @@ def test_cuda_launch_raises_and_counts_nothing_when_the_library_fails(
     before = tdec.decode_rows.launches
     monkeypatch.setattr(_build, "decode_rows_lib", lambda: Lib(209))
     with pytest.raises(RuntimeError, match="CUDA error 209"):
-        tdec._launch(*args, probes, 1, 2, outs, 0)
+        tdec._launch(*args, probes, 1, 2, outs, 0, plan)
     assert tdec.decode_rows.launches == before
 
     def no_nvcc():
@@ -328,11 +330,11 @@ def test_cuda_launch_raises_and_counts_nothing_when_the_library_fails(
 
     monkeypatch.setattr(_build, "decode_rows_lib", no_nvcc)
     with pytest.raises(BuildError):
-        tdec._launch(*args, probes, 1, 2, outs, 0)
+        tdec._launch(*args, probes, 1, 2, outs, 0, plan)
     assert tdec.decode_rows.launches == before
 
     monkeypatch.setattr(_build, "decode_rows_lib", lambda: Lib(0))
-    tdec._launch(*args, probes, 1, 2, outs, 0)
+    tdec._launch(*args, probes, 1, 2, outs, 0, plan)
     assert tdec.decode_rows.launches == before + 1
     # rows, table size and probes reach the kernel as ints
     assert calls[-1][4] == starts.size and calls[-1][7] == keys.shape[0]
