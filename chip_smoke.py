@@ -87,7 +87,7 @@ result line) when any phase fails:
    dropped, with every window in Redis equal to the oracle over the
    journal; the window latency (``updated.txt``) as p50/p90/p99/max.
 10. Fake Kafka: the same composite with ``KAFKA_FAKE=1`` (the broker its
-   own process, one partition), 10,000 ev/s for 30 s.
+   own process, one partition), 10,000 ev/s for 15 s.
 11. Observability: phase 9's composite at 100,000 ev/s for 30 s with every
    ported obs knob on (``METRICS_INTERVAL_MS=1000``, ``OBS_LIFECYCLE``,
    ``FLIGHTREC``, ``OBS_SPANS``, ``OBS_OCCUPANCY``, ``OBS_XFER``,
@@ -127,7 +127,37 @@ result line) when any phase fails:
    ev/s for 30 s, ``VERIFY=1``; the window latency beside phase 9's and
    K2's launches from the engine's stats line.
 
-Each kernel's launches are counted over each of phases 4, 6-13, from 0
+14. Supervised chaos: the chaos layer (``streambench_tpu_torch.chaos``) on
+   the card.  Each run's attempts come from a factory that builds a fresh
+   engine on ``cuda``, a fault-wrapped reader and a runner, under a
+   ``Supervisor`` (``max_no_progress_restarts=8``): (a) config #1 with
+   ``jax.sink.exactly_once: true``, 1,000,000 events, the reference's
+   exactly-once acceptance plan (seed 1234: sink faults with an outage
+   and partial applies, torn/truncated/corrupt journal reads, crashes at
+   batch 5, flush 1, batch 2, checkpoint 1), every window exact; (b) the
+   same journal at-least-once with ``jax.decode.device: on`` (K2, then
+   K1) under the at-least-once acceptance plan, within the bound, with
+   only the rows the journal faults damaged falling back to the host
+   encoder; (c) config #5's key space (phase 6's deployment, seed 7)
+   under a script with a checkpoint crash, within the bound, each restart
+   allocating the 256 MB plane and restoring a 256 MB snapshot; (d) the
+   in-process fake Kafka, three partitions, 200,000 events, broker
+   faults (produce errors, connection drops, a down window) and three
+   crashes under exactly-once: oracle-exact, the delivery ledger
+   balanced (consumed = delivered + redelivered; delivered = acked plus
+   the records the replay segments re-read).  Each run prints its
+   attempts, crashes, restarts, backoff, replay segments, the injector's
+   counters, K1's launches (and K2's in (b)), per restart the time to
+   recover (crash to the next attempt's first folded batch: the
+   supervisor's progress check and backoff, engine construction,
+   ``resume()`` with its host-to-device restore, the first fold), the
+   snapshot and save ms of each checkpoint, and the device memory
+   allocated at each restart's first fold and after the run.  Device
+   memory must not grow with the crashes: after the run, and at every
+   restart, it may exceed the live engine's by at most one crashed
+   engine's.
+
+Each kernel's launches are counted over each of phases 4, 6-14, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -139,6 +169,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import random
@@ -149,6 +180,7 @@ import sys
 import threading
 import time
 import uuid
+import weakref
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PROFILE_EVENTS = 1_000_000         # events replayed under torch.profiler
@@ -161,7 +193,7 @@ CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
            "jax.ads.per.campaign": 1}
 # phases 9 and 10: (rate ev/s, seconds) of the paced load
 PACED_LOAD = (100_000, 30)
-KAFKA_LOAD = (10_000, 30)
+KAFKA_LOAD = (10_000, 15)
 # phase 11: the paced load and the harness's obs knobs
 OBS_LOAD = (100_000, 30)
 OBS_ENV = {"METRICS_INTERVAL_MS": "1000", "OBS_LIFECYCLE": "1",
@@ -221,6 +253,33 @@ DECODE_CASES = (
 COLLIDING_ADS = ("3fdb86b0-7a3f-49f5-bd16-bf8507541a9c",
                  "96559ca1-dba2-4688-b602-c94a1502eb22")
 COLLIDING_UNKNOWN = "940eee3c-ba6f-475c-ae84-49715a2a4143"
+# phase 14: runs (a)-(c) at phase 7's and phase 6's size, run (d) over
+# the in-process fake Kafka; the sink retry of the reference's chaos
+# tests, so a faulted write is retried within milliseconds
+CHAOS_EVENTS = 1_000_000
+CHAOS_KAFKA_EVENTS = 200_000
+CHAOS_KAFKA_TAIL = 1_024            # produced through the armed cluster
+CHAOS_RUNS = ("xo", "decode", "config5", "kafka")
+CHAOS_SINK_RETRY = {"jax.sink.retry.base.ms": 1, "jax.sink.retry.cap.ms": 4}
+# runs (a) and (b) flush every 100 ms: a card attempt takes about a second,
+# so at the 1 Hz default the plan's 60 faulted sink ops (its 6-op outage
+# included) would all fall inside close()'s 8 bounded retries instead of
+# mid-run, where the reference's slower CPU runs meet them
+CHAOS_FLUSH = {"jax.flush.interval.ms": 100}
+# the acceptance crash script of tests/test_chaos_recovery.py:70-80
+CHAOS_SCRIPT = (("batch", 5), ("flush", 1), ("batch", 2), ("checkpoint", 1))
+# config #5's script: a crash before any snapshot, one right after a
+# snapshot, one after the resume (8192-event batches, ~40 a second)
+CHAOS_CONFIG5_SCRIPT = (("batch", 30), ("checkpoint", 1), ("batch", 40))
+CHAOS_KAFKA_SCRIPT = (("batch", 3), ("flush", 1), ("batch", 2))
+# run (d) reads three partitions round-robin, a third of a dispatch from
+# each in turn: at the stock 65,536-event dispatch one slice spans ~655 s
+# of event time and the lagging partitions fall past the 60 s lateness
+# (dropped), so (d) dispatches 3 x 1,024 events (a slice spans ~31 s).  A
+# dispatch that is a multiple of the partition count also keeps every
+# slice whole: a 1-record remainder slice makes a reconnect's rewind
+# redeliver one record per fetch, which a 12 % drop rate never finishes
+CHAOS_KAFKA_BATCH = {"jax.batch.size": 1024, "jax.scan.batches": 3}
 # the method table's geometries: (C, W, B)
 METHOD_GEOMETRIES = ((100, 16, 4096), (100, 16, 8192),
                      (1_000_000, 64, 8192))
@@ -962,9 +1021,11 @@ def _oracle(r, workdir: str, divisor_ms: int) -> dict:
     return out
 
 
-def _generate(workdir: str, cfg, events: int, seed: int, **setup):
+def _generate(workdir: str, cfg, events: int, seed: int, store: bool = True,
+              **setup):
     """The generator's dataset (ids, map, broker topic, oracle journal) in
-    ``workdir``, and an in-process store seeded with the campaigns."""
+    ``workdir``, and (``store``) an in-process store seeded with the
+    campaigns."""
     from streambench_tpu_torch.datagen import gen
     from streambench_tpu_torch.io.fakeredis import make_store
     from streambench_tpu_torch.io.journal import FileBroker
@@ -977,8 +1038,10 @@ def _generate(workdir: str, cfg, events: int, seed: int, **setup):
     mapping = gen.load_ad_mapping_file(
         os.path.join(workdir, gen.AD_TO_CAMPAIGN_FILE))
     campaigns = gen.load_ids(workdir)[0]
-    r = as_redis(make_store())
-    seed_campaigns(r, campaigns)
+    r = None
+    if store:
+        r = as_redis(make_store())
+        seed_campaigns(r, campaigns)
     return broker, mapping, campaigns, r, time.perf_counter() - t0
 
 
@@ -1520,97 +1583,129 @@ def check_obs(workdir: str, stats: dict) -> dict:
     }
 
 
-def phase_large_key_space(events: int) -> dict:
+class Config5Data:
+    """Config #5's dataset (1e6 campaigns x 1 ad, seed 7: the journal, its
+    oracle files and the ids), generated once for phase 6 and phase 14's
+    run (c); ``store()`` is a fresh in-process store seeded with the
+    campaigns, ``config(keys)`` the configuration with ``keys`` set."""
+
+    def __init__(self, events: int, keys: dict = CONFIG5,
+                 name: str = "smoke_config5", seed: int = 7):
+        self.workdir = _workdir(name)
+        self.keys = keys
+        self.events = events
+        cfg = _config(self.workdir, keys)
+        self.broker, self.mapping, self.campaigns, _, self.gen_s = _generate(
+            self.workdir, cfg, events, seed, store=False,
+            num_campaigns=cfg.jax_num_campaigns,
+            ads_per_campaign=cfg.jax_ads_per_campaign)
+        print(f"[config5] generated {events} events over "
+              f"{len(self.campaigns)} campaigns in {self.gen_s:.2f} s",
+              flush=True)
+
+    def config(self, keys: dict | None = None):
+        return _config(self.workdir, dict(self.keys, **(keys or {})))
+
+    def store(self):
+        from streambench_tpu_torch.io.fakeredis import make_store
+        from streambench_tpu_torch.io.redis_schema import (
+            as_redis,
+            seed_campaigns,
+        )
+
+        r = as_redis(make_store())
+        seed_campaigns(r, self.campaigns)
+        return r
+
+    def remove(self) -> None:
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def phase_large_key_space(data: Config5Data) -> dict:
     """BASELINE config #5's key space on one card (see the module doc)."""
     import torch
 
     from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
     from streambench_tpu_torch.ops.count import count_cells
 
-    workdir = _workdir("smoke_config5")
-    try:
-        cfg = _config(workdir, CONFIG5)
-        broker, mapping, campaigns, r, gen_s = _generate(
-            workdir, cfg, events, 7, num_campaigns=1_000_000,
-            ads_per_campaign=1)
-        print(f"[config5] generated {events} events over 1e6 campaigns "
-              f"in {gen_s:.2f} s", flush=True)
-        warm = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
-                                 device="cuda")
-        warm.warmup()
-        warm.close()
-        del warm
-        engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
-                                   redis=r, device="cuda")
-        if not (engine._track_dirty_rows() and engine._use_compact_drain()):
-            raise AssertionError("config #5 did not select the "
-                                 "large-key-space drains")
+    events, workdir = data.events, data.workdir
+    broker, mapping, campaigns = data.broker, data.mapping, data.campaigns
+    cfg = data.config()
+    r = data.store()
+    warm = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                             device="cuda")
+    warm.warmup()
+    warm.close()
+    del warm
+    engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                               redis=r, device="cuda")
+    if not (engine._track_dirty_rows() and engine._use_compact_drain()):
+        raise AssertionError("config #5 did not select the "
+                             "large-key-space drains")
 
-        # the first drains dispatch under sync-debug "error": any wait for
-        # the card inside them raises.  Then the engine's own method is
-        # back, so the rest of the run is not instrumented.
-        drain = engine._drain_device
-        checked: list[dict] = []
+    # the first drains dispatch under sync-debug "error": any wait for
+    # the card inside them raises.  Then the engine's own method is
+    # back, so the rest of the run is not instrumented.
+    drain = engine._drain_device
+    checked: list[dict] = []
 
-        def drain_checked():
-            before = dict(engine.drain_stats)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                drain()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            checked.append({k: v - before[k]
-                            for k, v in engine.drain_stats.items()
-                            if v != before[k]})
-            if len(checked) >= SYNC_CHECKED_DRAINS:
-                del engine._drain_device
+    def drain_checked():
+        before = dict(engine.drain_stats)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            drain()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked.append({k: v - before[k]
+                        for k, v in engine.drain_stats.items()
+                        if v != before[k]})
+        if len(checked) >= SYNC_CHECKED_DRAINS:
+            del engine._drain_device
 
-        engine._drain_device = drain_checked
-        reader = broker.reader(cfg.kafka_topic)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        allocated_at_start = torch.cuda.memory_allocated()
-        count_cells.launches = 0          # this path starts here
-        t0 = time.perf_counter()
-        stats = StreamRunner(engine, reader).run_catchup()
-        run_s = time.perf_counter() - t0
-        engine.close()
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        launches = count_cells.launches   # this path ends here
-        reader.close()
-        result = {
-            "events": stats.events, "flushes": stats.flushes,
-            "windows_written": stats.windows_written,
-            "dropped": engine.dropped,
-            "run_catchup_s": run_s, "catchup_with_close_s": total_s,
-            "events_per_s": stats.events / run_s,
-            "events_per_s_with_close": stats.events / total_s,
-            "drains": dict(engine.drain_stats),
-            "sync_checked_drains": checked,
-            "count_cells_launches": launches,
-            "memory_allocated_at_start_bytes": allocated_at_start,
-            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-            "counts_plane_bytes": engine.state.counts.numel() * 4,
-            "generate_s": gen_s, "stages": engine.tracer.as_dict(),
-        }
-        print(f"[config5] {json.dumps(result)}", flush=True)
-        result.update(_oracle(r, workdir, cfg.jax_time_divisor_ms))
-        print(f"[config5] oracle {json.dumps(result['windows_checked'])} "
-              f"windows exact in {result['check_correct_s']:.2f} s",
-              flush=True)
-        if stats.events != events or engine.dropped:
-            raise AssertionError(f"folded {stats.events} of {events}, "
-                                 f"dropped {engine.dropped}")
-        if not any(c.get("rows_compact") for c in checked):
-            raise AssertionError(f"no rows_compact drain ran under the "
-                                 f"sync check: {checked}")
-        if launches <= 0:
-            raise AssertionError("the count kernel never launched on the "
-                                 "config #5 path")
-        return result
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    engine._drain_device = drain_checked
+    reader = broker.reader(cfg.kafka_topic)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+    count_cells.launches = 0          # this path starts here
+    t0 = time.perf_counter()
+    stats = StreamRunner(engine, reader).run_catchup()
+    run_s = time.perf_counter() - t0
+    engine.close()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = count_cells.launches   # this path ends here
+    reader.close()
+    result = {
+        "events": stats.events, "flushes": stats.flushes,
+        "windows_written": stats.windows_written,
+        "dropped": engine.dropped,
+        "run_catchup_s": run_s, "catchup_with_close_s": total_s,
+        "events_per_s": stats.events / run_s,
+        "events_per_s_with_close": stats.events / total_s,
+        "drains": dict(engine.drain_stats),
+        "sync_checked_drains": checked,
+        "count_cells_launches": launches,
+        "memory_allocated_at_start_bytes": allocated_at_start,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "counts_plane_bytes": engine.state.counts.numel() * 4,
+        "generate_s": data.gen_s, "stages": engine.tracer.as_dict(),
+    }
+    print(f"[config5] {json.dumps(result)}", flush=True)
+    result.update(_oracle(r, workdir, cfg.jax_time_divisor_ms))
+    print(f"[config5] oracle {json.dumps(result['windows_checked'])} "
+          f"windows exact in {result['check_correct_s']:.2f} s",
+          flush=True)
+    if stats.events != events or engine.dropped:
+        raise AssertionError(f"folded {stats.events} of {events}, "
+                             f"dropped {engine.dropped}")
+    if not any(c.get("rows_compact") for c in checked):
+        raise AssertionError(f"no rows_compact drain ran under the "
+                             f"sync check: {checked}")
+    if launches <= 0:
+        raise AssertionError("the count kernel never launched on the "
+                             "config #5 path")
+    return result
 
 
 def _plain_sink_catchup(workdir: str, broker, mapping, campaigns) -> dict:
@@ -1716,6 +1811,478 @@ def phase_exactly_once_resume(events: int) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+class _ChaosProbe:
+    """Phase 14's instruments around one supervised run, holding no
+    engine (weak references only, so a crashed engine can be freed).
+
+    It stands in for the injector's crash scheduler (``point``,
+    ``reset``): a crash it passes on stamps the crash
+    time and keeps the dying engine's decode telemetry, and the first
+    ``batch`` point of each attempt (a fold committed) waits for the card
+    and stamps the first fold, the device memory allocated and the
+    engines still alive.  ``attach`` times one attempt's construction,
+    ``resume()`` (its ``restore`` apart) and each checkpoint's snapshot
+    and save."""
+
+    def __init__(self, scheduler, device: str):
+        from streambench_tpu_torch.chaos import EngineCrash
+
+        self._crash = EngineCrash
+        self._sched = scheduler
+        self._cuda = device == "cuda"
+        self.attempts: list[dict] = []
+        self.checkpoints: list[dict] = []
+        self.crashed_decode: list[dict] = []
+        self._engines: list = []          # weakref.ref per attempt
+        self._crash_t: float | None = None
+
+    def _sync(self) -> None:
+        if self._cuda:
+            import torch
+
+            torch.cuda.synchronize()
+
+    def _allocated(self) -> int:
+        if not self._cuda:
+            return 0
+        import torch
+
+        return torch.cuda.memory_allocated()
+
+    # -- the scheduler surface the runner and the supervisor call ------
+    def reset(self) -> None:
+        self._sched.reset()
+
+    def point(self, kind: str) -> None:
+        att = self.attempts[-1]
+        if kind == "batch" and "first_fold_t" not in att:
+            self._sync()
+            att["first_fold_t"] = time.perf_counter()
+            gc.collect()
+            att["allocated_bytes"] = self._allocated()
+            att["engines_alive"] = sum(r() is not None
+                                       for r in self._engines)
+        try:
+            self._sched.point(kind)
+        except self._crash:
+            self._crash_t = time.perf_counter()
+            att["crash_at"] = kind
+            eng = self._engines[-1]()
+            if eng is not None and eng._devdecode is not None:
+                self.crashed_decode.append(
+                    dict(eng._devdecode.telemetry(),
+                         bad_lines=int(eng.encoder.bad_lines)))
+            raise
+
+    # -- one attempt ----------------------------------------------------
+    def attach(self, build):
+        """``build() -> (engine, runner)``, timed and instrumented."""
+        t0 = time.perf_counter()
+        att = {"since_crash_ms": (None if self._crash_t is None
+                                  else (t0 - self._crash_t) * 1e3)}
+        engine, runner = build()
+        self._sync()
+        t1 = time.perf_counter()
+        att["construct_ms"] = (t1 - t0) * 1e3
+        att["crash_t"] = self._crash_t
+        self.attempts.append(att)
+        self._engines.append(weakref.ref(engine))
+        restore, resume = engine.restore, runner.resume
+        snapshot, save = engine.snapshot, runner.checkpointer.save
+
+        def timed_restore(snap):
+            r0 = time.perf_counter()
+            restore(snap)
+            self._sync()
+            att["restore_ms"] = (time.perf_counter() - r0) * 1e3
+            att["snapshot_bytes"] = int(snap.counts.nbytes)
+
+        def timed_resume():
+            r0 = time.perf_counter()
+            ok = resume()
+            att["resume_ms"] = (time.perf_counter() - r0) * 1e3
+            att["resume_end_t"] = time.perf_counter()
+            return ok
+
+        def timed_snapshot(offset):
+            r0 = time.perf_counter()
+            snap = snapshot(offset)
+            self.checkpoints.append({
+                "attempt": len(self.attempts),
+                "snapshot_ms": (time.perf_counter() - r0) * 1e3,
+                "counts_bytes": int(snap.counts.nbytes)})
+            return snap
+
+        def timed_save(snap):
+            r0 = time.perf_counter()
+            save(snap)
+            self.checkpoints[-1]["save_ms"] = (
+                (time.perf_counter() - r0) * 1e3)
+
+        engine.restore, runner.resume = timed_restore, timed_resume
+        engine.snapshot = timed_snapshot
+        runner.checkpointer.save = timed_save
+        return runner
+
+    def report(self) -> list[dict]:
+        """Per attempt: its timings, and for each restart the time to
+        recover, crash to first fold, in parts."""
+        out = []
+        for i, att in enumerate(self.attempts, 1):
+            rec = {"attempt": i, "crash_at": att.get("crash_at"),
+                   "construct_ms": att["construct_ms"],
+                   "resume_ms": att.get("resume_ms"),
+                   "restore_ms": att.get("restore_ms"),
+                   "snapshot_bytes": att.get("snapshot_bytes"),
+                   "allocated_at_first_fold_bytes":
+                       att.get("allocated_bytes"),
+                   "engines_alive_at_first_fold": att.get("engines_alive")}
+            fold_t = att.get("first_fold_t")
+            if fold_t is not None and "resume_end_t" in att:
+                rec["first_fold_ms"] = (fold_t - att["resume_end_t"]) * 1e3
+            if att["crash_t"] is not None:
+                rec["recover"] = {
+                    "progress_check_and_backoff_ms": att["since_crash_ms"],
+                    "construct_ms": att["construct_ms"],
+                    "resume_ms": att.get("resume_ms"),
+                    "first_fold_ms": rec.get("first_fold_ms"),
+                    "total_ms": (None if fold_t is None
+                                 else (fold_t - att["crash_t"]) * 1e3)}
+            out.append(rec)
+        return out
+
+
+def _chaos_supervise(tag: str, plan, device: str, build) -> tuple:
+    """One supervised catchup for phase 14: ``build(inj) -> (engine,
+    runner)`` makes a fresh attempt (engine on ``device``, wrapped
+    reader, checkpointer); the probe stands in for the crash scheduler.
+    Returns (stats, injector, supervisor, probe, record)."""
+    from streambench_tpu_torch.chaos import FaultInjector, Supervisor
+    from streambench_tpu_torch.ops.count import count_cells
+    from streambench_tpu_torch.ops.decode import decode_rows
+
+    inj = FaultInjector(plan)
+    probe = _ChaosProbe(inj.scheduler, device)
+
+    def make_runner():
+        runner = probe.attach(lambda: build(inj))
+        runner.crash_points = probe
+        return runner
+
+    gc.collect()
+    base = probe._allocated()
+    sup = Supervisor(make_runner, max_no_progress_restarts=8, seed=1)
+    count_cells.launches = 0              # this path starts here
+    decode_rows.launches = 0
+    t0 = time.perf_counter()
+    st = sup.run(catchup=True)
+    if not st.completed:
+        raise AssertionError(f"[chaos_{tag}] the supervised run gave up: "
+                             f"{st.errors}")
+    engine = sup.runner.engine
+    engine.close()
+    probe._sync()
+    run_s = time.perf_counter() - t0
+    k1, k2 = count_cells.launches, decode_rows.launches   # ends here
+    gc.collect()
+    after = probe._allocated()
+    attempts = probe.report()
+    record = {
+        "device": device, "attempts": st.attempts, "crashes": st.crashes,
+        "restarts": st.restarts, "gave_up": st.gave_up,
+        "backoff_ms_total": st.backoff_ms_total,
+        "replay_segments": st.replay_segments, "errors": st.errors,
+        "carried_windows": len(st.carried),
+        "injector": inj.counters.snapshot(),
+        "run_faults": st.stats.faults, "events": engine.events_processed,
+        "dropped": engine.dropped, "supervised_s": run_s,
+        "count_cells_launches": k1, "decode_rows_launches": k2,
+        "per_attempt": attempts, "checkpoints": probe.checkpoints,
+        "allocated_before_bytes": base, "allocated_after_bytes": after,
+    }
+    if device == "cuda":
+        # one engine's device footprint: attempt 1 at its first fold
+        first = next(a["allocated_at_first_fold_bytes"] for a in attempts
+                     if a["allocated_at_first_fold_bytes"] is not None)
+        footprint = first - base
+        record["engine_footprint_bytes"] = footprint
+        limit = base + 2 * footprint
+        grown = [a["attempt"] for a in attempts
+                 if (a["allocated_at_first_fold_bytes"] or 0) > limit]
+        if after > limit or grown:
+            raise AssertionError(
+                f"[chaos_{tag}] device memory grows with the crashes: "
+                f"{after} B after the run, attempts {grown} past "
+                f"{limit} B (base {base} + 2 x {footprint})")
+        if k1 <= 0:
+            raise AssertionError(f"[chaos_{tag}] K1 never launched")
+    return st, inj, sup, probe, record
+
+
+def _chaos_verdict(v) -> dict:
+    return {"ok": v.ok, "windows": v.windows, "exact": v.exact,
+            "within_bound": v.within_bound, "max_overcount": v.max_overcount,
+            "undercounts": v.undercounts[:3], "overcounts": v.overcounts[:3]}
+
+
+def _chaos_journal_runs(events: int, device: str) -> dict:
+    """Phase 14 (a) and (b): config #1's journal, exactly-once under the
+    reference's exactly-once plan, then at-least-once with device decode
+    under its at-least-once plan.  The close-time latency dump
+    (``redis.hashtable``) is off in both, as in the reference's
+    exactly-once tests: it is diagnostics, not counts, and on the faulted
+    sink it would draw plan indices meant for the writeback."""
+    from streambench_tpu_torch.chaos import (
+        FaultPlan,
+        check_at_least_once,
+        check_exactly_once,
+    )
+    from streambench_tpu_torch.checkpoint import Checkpointer
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis, seed_campaigns
+
+    workdir = _workdir("smoke_chaos")
+    out: dict = {}
+    try:
+        cfg0 = _config(workdir)
+        broker, mapping, campaigns, _, gen_s = _generate(
+            workdir, cfg0, events, 44, num_campaigns=cfg0.jax_num_campaigns,
+            ads_per_campaign=cfg0.jax_ads_per_campaign)
+        topic = broker.topic_path(cfg0.kafka_topic)
+        for tag, keys, plan_kw in (
+                ("xo", {"jax.sink.exactly_once": True,
+                        "redis.hashtable": ""},
+                 dict(sink_rate=0.12, sink_ops=60, sink_outage=(5, 6),
+                      sink_partial_rate=0.08, journal_rate=0.4,
+                      journal_polls=12)),
+                ("decode", {"jax.decode.device": "on",
+                            "redis.hashtable": ""},
+                 dict(sink_rate=0.25, sink_ops=30, sink_outage=(5, 6),
+                      journal_rate=0.4, journal_polls=12))):
+            cfg = _config(workdir, dict(CHAOS_SINK_RETRY, **CHAOS_FLUSH,
+                                        **keys))
+            base = FaultPlan.generate(1234, **plan_kw)
+            plan = FaultPlan(seed=1234, sink_faults=base.sink_faults,
+                             journal_faults=base.journal_faults,
+                             crashes=CHAOS_SCRIPT)
+            r = as_redis(make_store())
+            seed_campaigns(r, campaigns)
+            ckpt_dir = os.path.join(workdir, f"ckpt_{tag}")
+
+            def build(inj, cfg=cfg, r=r, ckpt_dir=ckpt_dir):
+                eng = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                                        redis=inj.wrap_redis(r),
+                                        device=device)
+                return eng, StreamRunner(
+                    eng, inj.wrap_reader(broker.reader(cfg.kafka_topic)),
+                    checkpointer=Checkpointer(ckpt_dir))
+
+            st, inj, sup, probe, rec = _chaos_supervise(tag, plan, device,
+                                                        build)
+            rec["generate_s"] = gen_s
+            t0 = time.perf_counter()
+            if tag == "xo":
+                v = check_exactly_once(r, workdir)
+                good = v.ok and v.exact == v.windows > 0
+            else:
+                v = check_at_least_once(r, workdir, topic,
+                                        st.replay_segments, st.carried)
+                good = v.ok and v.windows > 0
+            rec["verdict"] = _chaos_verdict(v)
+            rec["check_s"] = time.perf_counter() - t0
+            if tag == "decode":
+                # the rows the journal faults damaged: a torn page or a
+                # corrupt copy per fault served (a truncation damages none)
+                served = [k for i, k in plan.journal_faults.items()
+                          if i < inj._journal_idx]
+                final = dict(sup.runner.engine._devdecode.telemetry(),
+                             bad_lines=int(sup.runner.engine.encoder
+                                           .bad_lines))
+                tel = probe.crashed_decode + [final]
+                rec["device_decode"] = {
+                    "per_attempt": tel,
+                    "rows_fallback": sum(t["rows_fallback"] for t in tel),
+                    "bad_lines": sum(t["bad_lines"] for t in tel),
+                    "damaged_rows_served": sum(k != "truncated"
+                                               for k in served),
+                    "journal_faults_served": served}
+            print(f"[chaos_{tag}] {json.dumps(rec)}", flush=True)
+            if not good:
+                raise AssertionError(f"[chaos_{tag}] {v.summary()}")
+            if rec["events"] != events or rec["dropped"]:
+                raise AssertionError(f"[chaos_{tag}] folded {rec['events']} "
+                                     f"of {events}, dropped {rec['dropped']}")
+            if st.crashes < 3:
+                raise AssertionError(f"[chaos_{tag}] {st.crashes} crashes")
+            if tag == "decode":
+                dd = rec["device_decode"]
+                if not (dd["rows_fallback"] == dd["bad_lines"]
+                        == dd["damaged_rows_served"]):
+                    raise AssertionError(f"[chaos_decode] rows fell back "
+                                         f"beyond the journal damage: {dd}")
+                if device == "cuda" and rec["decode_rows_launches"] <= 0:
+                    raise AssertionError("[chaos_decode] K2 never launched")
+            out[tag] = rec
+        return out
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _chaos_config5(data: Config5Data, device: str) -> dict:
+    """Phase 14 (c): config #5's key space (phase 6's dataset) under a
+    crash script with a checkpoint crash.  The store is not wrapped: the
+    plan has no sink faults, so the native bulk writeback stays."""
+    from streambench_tpu_torch.chaos import FaultPlan, check_at_least_once
+    from streambench_tpu_torch.checkpoint import Checkpointer
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+
+    cfg = data.config(CHAOS_SINK_RETRY)
+    r = data.store()
+    ckpt_dir = os.path.join(data.workdir, "ckpt_chaos")
+
+    def build(inj):
+        eng = AdAnalyticsEngine(cfg, data.mapping, campaigns=data.campaigns,
+                                redis=r, device=device)
+        return eng, StreamRunner(
+            eng, inj.wrap_reader(data.broker.reader(cfg.kafka_topic)),
+            checkpointer=Checkpointer(ckpt_dir))
+
+    plan = FaultPlan(seed=7, crashes=CHAOS_CONFIG5_SCRIPT)
+    st, _, _, _, rec = _chaos_supervise("config5", plan, device, build)
+    t0 = time.perf_counter()
+    v = check_at_least_once(r, data.workdir,
+                            data.broker.topic_path(cfg.kafka_topic),
+                            st.replay_segments, st.carried)
+    rec["verdict"] = _chaos_verdict(v)
+    rec["check_s"] = time.perf_counter() - t0
+    print(f"[chaos_config5] {json.dumps(rec)}", flush=True)
+    if not (v.ok and v.windows > 0):
+        raise AssertionError(f"[chaos_config5] {v.summary()}")
+    if rec["events"] != data.events or rec["dropped"]:
+        raise AssertionError(f"[chaos_config5] folded {rec['events']} of "
+                             f"{data.events}, dropped {rec['dropped']}")
+    if st.crashes < 3 or not any(a["crash_at"] == "checkpoint"
+                                 for a in rec["per_attempt"]):
+        raise AssertionError(f"[chaos_config5] crashes {st.errors}")
+    return rec
+
+
+def _chaos_kafka(events: int, device: str) -> dict:
+    """Phase 14 (d): the in-process fake Kafka, three partitions, broker
+    faults and a crash script under exactly-once."""
+    from streambench_tpu_torch.chaos import (
+        FaultPlan,
+        check_exactly_once,
+        check_kafka_edge,
+    )
+    from streambench_tpu_torch.checkpoint import Checkpointer
+    from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
+    from streambench_tpu_torch.io import fakekafka, kafka
+    from streambench_tpu_torch.metrics import FaultCounters
+
+    workdir = _workdir("smoke_chaos_kafka")
+    try:
+        cfg = _config(workdir, dict(CHAOS_SINK_RETRY, **CHAOS_KAFKA_BATCH,
+                                    **{"jax.sink.exactly_once": True,
+                                       "redis.hashtable": ""}))
+        broker, mapping, campaigns, r, gen_s = _generate(
+            workdir, cfg, events, 45, num_campaigns=cfg.jax_num_campaigns,
+            ads_per_campaign=cfg.jax_ads_per_campaign)
+        values = list(broker.read_all(cfg.kafka_topic))
+        topic = cfg.kafka_topic
+        base = FaultPlan.generate(1234, kafka_produce_rate=0.08,
+                                  kafka_conn_drop_rate=0.12,
+                                  kafka_ops=8_000, kafka_down=((20, 28),))
+        plan = FaultPlan(seed=1234, kafka_faults=base.kafka_faults,
+                         kafka_down=base.kafka_down,
+                         crashes=CHAOS_KAFKA_SCRIPT)
+        counters = FaultCounters()
+        cl = fakekafka.FakeCluster()
+        cl.create_topic(topic, 3)
+        head = len(values) - CHAOS_KAFKA_TAIL
+        for i, v in enumerate(values[:head]):
+            cl.append(topic, i % 3, v)
+        kb = kafka.KafkaBroker(fakekafka.INPROC,
+                               clients=fakekafka.clients(cl),
+                               counters=counters)
+        ckpt_dir = os.path.join(workdir, "ckpt")
+        holder: dict = {}
+
+        def build(inj):
+            if "armed" not in holder:
+                # the tail through the armed cluster, by a real writer:
+                # produce faults and the down window land on it
+                cl.attach_chaos(inj)
+                for p in range(3):
+                    w = kafka.KafkaWriter(
+                        fakekafka.INPROC, topic, p,
+                        clients=fakekafka.clients(cl), counters=counters,
+                        retry_base_ms=0.01, retry_cap_ms=0.05)
+                    w.append_many(values[head + p::3])
+                    w.flush()
+                    w.close()
+                holder["armed"] = True
+                if cl.total_records() != len(values):
+                    raise AssertionError("the broker lost acked records")
+            eng = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
+                                    redis=r, device=device)
+            return eng, StreamRunner(eng, kb.multi_reader(topic),
+                                     checkpointer=Checkpointer(ckpt_dir))
+
+        st, inj, _, _, rec = _chaos_supervise("kafka", plan, device, build)
+        rec["generate_s"] = gen_s
+        v = check_exactly_once(r, workdir)
+        rec["verdict"] = _chaos_verdict(v)
+        replayed = sum(sum(hi) - sum(lo) for lo, hi in st.replay_segments)
+        kv = check_kafka_edge(counters, sent=len(values) + replayed,
+                              require_redeliveries=True, windows=v)
+        snap = counters.snapshot()
+        rec["ledger"] = {"produced": snap.get("kafka_produced", 0),
+                         "acked_records": len(values),
+                         "replayed_records": replayed,
+                         "consumed": kv.consumed,
+                         "delivered": kv.delivered,
+                         "redelivered": kv.redelivered,
+                         "produce_retries": kv.produce_retries,
+                         "consume_retries": kv.consume_retries,
+                         "broker_down_ms": kv.broker_down_ms,
+                         "violations": kv.violations,
+                         "cluster": cl.counters.snapshot()}
+        print(f"[chaos_kafka] {json.dumps(rec)}", flush=True)
+        if not (kv.ok and v.exact == v.windows > 0):
+            raise AssertionError(f"[chaos_kafka] {kv.summary()}")
+        if rec["events"] != events or rec["dropped"] or st.crashes < 1:
+            raise AssertionError(f"[chaos_kafka] folded {rec['events']} "
+                                 f"of {events}, dropped {rec['dropped']}, "
+                                 f"{st.crashes} crashes")
+        return rec
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_chaos(config5: Config5Data, events: int = CHAOS_EVENTS,
+                kafka_events: int = CHAOS_KAFKA_EVENTS,
+                device: str = "cuda") -> dict:
+    """Phase 14: supervised chaos (see the module doc).  ``device`` and
+    the sizes are arguments so the phase can be rehearsed on the CPU at a
+    small size; the smoke runs it on ``cuda`` at full size."""
+    t0 = time.perf_counter()
+    out = _chaos_journal_runs(events, device)
+    out["config5"] = _chaos_config5(config5, device)
+    out["kafka"] = _chaos_kafka(kafka_events, device)
+    out["phase_s"] = time.perf_counter() - t0
+    summary = []
+    for k in CHAOS_RUNS:
+        recover = [a["recover"]["total_ms"] for a in out[k]["per_attempt"]
+                   if a.get("recover")]
+        summary.append(f"{k}: {out[k]['crashes']} crashes, time to recover "
+                       f"ms {recover}")
+    print(f"[chaos] {'; '.join(summary)}; {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--events", type=int, default=10_000_000,
@@ -1754,7 +2321,8 @@ def main(argv: list[str] | None = None) -> int:
     decode_cases = phase_decode_kernels(floor)
     methods = phase_method_table()
     e2e, (C, W), steps, pipelined, decode = phase_end_to_end(args.events)
-    large = phase_large_key_space(LARGE_EVENTS)
+    config5 = Config5Data(LARGE_EVENTS)
+    large = phase_large_key_space(config5)
     xo = phase_exactly_once_resume(LARGE_EVENTS)
     paced = phase_paced("paced", PACED_LOAD)
     kafka = phase_paced("kafka", KAFKA_LOAD, KAFKA_FAKE="1",
@@ -1762,6 +2330,10 @@ def main(argv: list[str] | None = None) -> int:
     obs = phase_paced("obs", OBS_LOAD, check=check_obs, **OBS_ENV)
     paced_decode = phase_paced("paced_decode", PACED_LOAD,
                                DECODE_DEVICE="on")
+    try:
+        chaos = phase_chaos(config5)
+    finally:
+        config5.remove()
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -1815,7 +2387,9 @@ def main(argv: list[str] | None = None) -> int:
             "decode_catchup": decode["serial"]["count_cells_launches"],
             "decode_catchup_pipelined":
                 decode["pipelined"]["count_cells_launches"],
-            "paced_ysb_decode": paced_decode["count_cells_launches"]},
+            "paced_ysb_decode": paced_decode["count_cells_launches"],
+            **{f"supervised_chaos_{k}": chaos[k]["count_cells_launches"]
+               for k in CHAOS_RUNS}},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -1841,7 +2415,9 @@ def main(argv: list[str] | None = None) -> int:
             "decode_catchup": decode["serial"]["decode_rows_launches"],
             "decode_catchup_pipelined":
                 decode["pipelined"]["decode_rows_launches"],
-            "paced_ysb_decode": paced_decode["decode_rows_launches"]},
+            "paced_ysb_decode": paced_decode["decode_rows_launches"],
+            "supervised_chaos_decode":
+                chaos["decode"]["decode_rows_launches"]},
         "shape": main_decode["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in decode_cases),
         "ms": main_decode["kernel_ms"],
@@ -1862,6 +2438,7 @@ def main(argv: list[str] | None = None) -> int:
                        "fake_kafka": kafka, "paced_ysb_obs": obs,
                        "decode_catchup": decode,
                        "paced_ysb_decode": paced_decode,
+                       "supervised_chaos": chaos,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,6 +36,7 @@ import dataclasses
 import queue
 import sys
 import threading
+import weakref
 from collections import defaultdict
 
 import numpy as np
@@ -136,7 +137,12 @@ class _RedisWriter:
                  epoch: int | None = None, start_seq: int = 0) -> None:
         self._redis = redis
         self._tracer = tracer
-        self._on_written = on_written   # (rows, stamp) latency bookkeeping
+        # (rows, stamp) latency bookkeeping: a bound method of the engine,
+        # held weakly.  An engine abandoned without close() (a supervised
+        # crash) leaves this thread draining its queue, as the reference's
+        # zombie writer does; a strong reference would pin the dead
+        # engine's device state for as long as the thread lives.
+        self._on_written = weakref.WeakMethod(on_written)
         self._faults = faults if faults is not None else FaultCounters()
         self._retry_base_ms = max(int(retry_base_ms), 1)
         self._retry_cap_ms = max(int(retry_cap_ms), self._retry_base_ms)
@@ -254,7 +260,7 @@ class _RedisWriter:
                         self._faults.inc("dedup_suppressed_flushes")
                         self._seq_acked = self._last_attempt_seq
                         self._consec_failures = 0
-                        self._on_written(payload, stamp)
+                        self._written(payload, stamp)
                     else:
                         self._on_failure(payload.to_rows() if arrays
                                          else payload, e)
@@ -265,9 +271,15 @@ class _RedisWriter:
                     if self._xo:
                         self._seq_acked = self._last_attempt_seq
                     # latency bookkeeping only for rows that actually landed
-                    self._on_written(payload, stamp)
+                    self._written(payload, stamp)
             finally:
                 self._q.task_done()
+
+    def _written(self, payload, stamp: int) -> None:
+        """Hand landed rows to the engine's bookkeeping, if it lives."""
+        on_written = self._on_written()
+        if on_written is not None:
+            on_written(payload, stamp)
 
     # -- exactly-once fence protocol -----------------------------------
     def _apply_fenced(self, rows: list, stamp: int, absolute: bool) -> bool:

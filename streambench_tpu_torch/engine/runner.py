@@ -29,8 +29,12 @@ operating policies are the reference engines':
   spans; ``flush_hooks`` run on the host loop after every periodic
   flush (the triggered profiler capture and the device-memory census,
   which must touch torch from this thread only).
-
-Not ported yet: chaos points.
+- **chaos points** — with a crash scheduler (``crash_points``, the
+  chaos layer's ``CrashScheduler``) the loops pass a ``batch`` point
+  after each committed fold, a ``flush`` point after each flush (before
+  its checkpoint check) and a ``checkpoint`` point after each save, the
+  reference runner's boundaries; the scheduler raises the scripted
+  ``EngineCrash`` there.
 """
 
 from __future__ import annotations
@@ -82,6 +86,7 @@ class StreamRunner:
                  checkpointer: Checkpointer | None = None,
                  checkpoint_interval_ms: int | None = None,
                  ingest_pipeline: str | None = None,
+                 crash_points=None,
                  flightrec=None, spans=None):
         cfg = engine.cfg
         self.engine = engine
@@ -112,6 +117,11 @@ class StreamRunner:
                 else cfg.jax_ingest_pipeline)
         self.ingest_mode = (mode or "off").strip().lower()
         self._pipeline: ingest.IngestPipeline | None = None
+        # Chaos hook (chaos.plan.CrashScheduler or None): the loops call
+        # point(kind) at every batch/flush/checkpoint boundary, which
+        # raises the simulated EngineCrash where the script says.  None
+        # (the default) keeps the loops as they are.
+        self.crash_points = crash_points
         if cfg.jax_decode_device == "auto":
             # auto device decode follows the A/B of the mode resolved here
             engine.settle_decode(self._pipeline_on())
@@ -130,6 +140,10 @@ class StreamRunner:
 
     def stop(self) -> None:
         self._stop = True
+
+    def _chaos_point(self, kind: str) -> None:
+        if self.crash_points is not None:
+            self.crash_points.point(kind)
 
     # ------------------------------------------------------------------
     # crash flight recorder (obs.flightrec)
@@ -207,6 +221,12 @@ class StreamRunner:
         add("dlq_lines", int(enc.dlq_lines))
         add("journal_corrupt_skipped",
             int(getattr(self.reader, "corrupt_records", 0)))
+        # a chaos-wrapped reader's injector counters (journal faults,
+        # sink faults, crashes injected so far)
+        chaos_counts = getattr(self.reader, "fault_counters", None)
+        if chaos_counts is not None:
+            for k, v in chaos_counts.snapshot().items():
+                add(k, v)
         self.stats.faults = f
 
     def _reader_position(self) -> int | list[int]:
@@ -257,6 +277,7 @@ class StreamRunner:
             self.flightrec.record("checkpoint", offset=off,
                                   events=self.engine.events_processed)
         self._last_ckpt = now
+        self._chaos_point("checkpoint")
 
     def _checkpoint_due(self, now: float) -> bool:
         return (self.checkpointer is not None and
@@ -264,7 +285,9 @@ class StreamRunner:
 
     def _flush(self, now: float) -> None:
         """The periodic flush, its stall tick, the flight tick, the flush
-        hooks and the checkpoint cadence."""
+        hooks, the flush crash point and the checkpoint cadence.  The
+        crash point sits between the flush and its checkpoint: the
+        replay window the at-least-once bound covers."""
         st = self.stats
         st.windows_written += self.engine.flush()
         st.flushes += 1
@@ -272,6 +295,7 @@ class StreamRunner:
         self._flight_tick()
         for hook in self.flush_hooks:
             hook()
+        self._chaos_point("flush")
         if self._checkpoint_due(now):
             self._checkpoint_now(now)
 
@@ -281,6 +305,7 @@ class StreamRunner:
         st.windows_written += self.engine.flush(final=True)
         st.flushes += 1
         self._flight_tick()   # short runs still leave ring context
+        self._chaos_point("flush")
         if self.checkpointer is not None:
             self._checkpoint_now(time.monotonic())
 
@@ -321,6 +346,7 @@ class StreamRunner:
         st.events += self.engine.fold_batches(item.batches)
         st.batches += 1
         self._pipeline.commit(item)
+        self._chaos_point("batch")
 
     def _flush_cycle(self, now: float, last_flush: float) -> float:
         """The 1 Hz flush + stall tick + checkpoint cadence of the
@@ -453,6 +479,7 @@ class StreamRunner:
             pending_n = 0
             pending_since = None
             last_data = time.monotonic()  # processing isn't idleness
+            self._chaos_point("batch")
 
         while not self._stop:
             now = time.monotonic()
@@ -563,6 +590,7 @@ class StreamRunner:
                 self.engine.process_chunk(lines)
             st.events += self.engine.events_processed - before
             st.batches += 1
+            self._chaos_point("batch")
             if max_events and st.events >= max_events:
                 break
             now = time.monotonic()

@@ -370,8 +370,8 @@ def op_stop_redis() -> None:
     _stop_or_leave("redis")
 
 
-#: KAFKA_FAULT_* env -> io.fakekafka CLI fault flags (the port's broker
-#: refuses them until the chaos package is ported)
+#: KAFKA_FAULT_* env -> io.fakekafka CLI fault flags (seeded broker
+#: faults from the chaos package's FaultPlan)
 _KAFKA_FAULT_FLAGS = (
     ("KAFKA_FAULT_SEED", "--fault-seed"),
     ("KAFKA_FAULT_PRODUCE_RATE", "--fault-produce-rate"),

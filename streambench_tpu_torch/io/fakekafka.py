@@ -31,11 +31,10 @@ Delivery model:
   batch it *returned* — un-checkpointed records arrive twice (Kafka's
   at-least-once shape); the hardened reader counts and filters the
   redelivery;
-- broker faults come from an injector attached to the cluster (any
-  object with ``kafka_fault() -> kind | None``).  The seeded fault plans
-  of the chaos package are not ported yet, so the CLI refuses its
-  ``--fault-*`` flags; with no injector every op is an exact
-  pass-through.
+- broker faults are drawn from a seeded ``chaos.plan.FaultPlan`` via
+  ``chaos.inject.FaultInjector.kafka_fault()`` attached to the cluster
+  (the CLI's ``--fault-*`` flags build one): same plan, same faults, and
+  with no injector, or a rate-0 plan, every op is an exact pass-through.
 """
 
 from __future__ import annotations
@@ -46,7 +45,6 @@ import json
 import signal
 import socket
 import socketserver
-import sys
 import threading
 import time
 
@@ -155,11 +153,11 @@ class FakeConnectionDropped(ConnectionError):
 class FakeCluster:
     """Broker state shared by every client (in-process or via TCP).
 
-    ``attach_chaos(injector)`` arms broker-surface faults: every
+    ``attach_chaos(injector)`` arms seeded broker-surface faults: every
     append/fetch asks ``injector.kafka_fault()`` for this op's fault
     kind (``None`` almost always).  Kinds not applicable to the op are
     ignored — the draw is consumed either way, so fault placement is a
-    pure function of the injector and the op sequence.
+    pure function of the plan and the op sequence.
     """
 
     def __init__(self, chaos=None):
@@ -770,11 +768,27 @@ def ping(host: str, port: int, timeout_s: float = 1.0) -> bool:
         return False
 
 
-#: the seeded broker-fault flags of the reference's CLI: the chaos
-#: package behind them is not ported, so a non-zero value is refused
-FAULT_FLAGS = ("fault_seed", "fault_produce_rate", "fault_consume_rate",
-               "fault_conn_drop_rate", "fault_dr_fail_rate", "fault_ops",
-               "fault_down")
+def _build_chaos(ns):
+    """Seeded broker faults for a server process (CLI knobs -> plan), or
+    None when no rate and no down window is set."""
+    if not (ns.fault_produce_rate or ns.fault_consume_rate
+            or ns.fault_conn_drop_rate or ns.fault_dr_fail_rate
+            or ns.fault_down):
+        return None
+    from streambench_tpu_torch.chaos import FaultInjector, FaultPlan
+
+    down = ()
+    if ns.fault_down:
+        lo, _, hi = ns.fault_down.partition(":")
+        down = ((int(lo), int(hi)),)
+    plan = FaultPlan.generate(
+        ns.fault_seed,
+        kafka_produce_rate=ns.fault_produce_rate,
+        kafka_consume_rate=ns.fault_consume_rate,
+        kafka_conn_drop_rate=ns.fault_conn_drop_rate,
+        kafka_dr_fail_rate=ns.fault_dr_fail_rate,
+        kafka_ops=ns.fault_ops, kafka_down=down)
+    return FaultInjector(plan)
 
 
 def main(argv=None) -> int:
@@ -791,15 +805,14 @@ def main(argv=None) -> int:
     ap.add_argument("--fault-down", default="",
                     help="broker-down op window as LO:HI")
     ns = ap.parse_args(argv)
-    armed = [f"--{f.replace('_', '-')}" for f in FAULT_FLAGS
-             if getattr(ns, f)]
-    if armed:
-        print("error: broker faults are not ported to the PyTorch port "
-              "yet (they need the chaos package): " + ", ".join(armed),
-              file=sys.stderr, flush=True)
-        return 2
 
     srv = FakeKafkaServer(ns.host, ns.port)
+    chaos = _build_chaos(ns)
+    if chaos is not None:
+        srv.cluster.attach_chaos(chaos)
+        print(f"chaos armed: seed={ns.fault_seed} "
+              f"plan={'zero' if chaos.plan.is_zero else 'nonzero'}",
+              flush=True)
     srv.start()
     print(f"ready {srv.host}:{srv.port}", flush=True)
 

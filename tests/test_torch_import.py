@@ -22,6 +22,7 @@ FORBIDDEN = {"jax", "jaxlib", "streambench_tpu"}
 OBS_MODULES = ("__main__", "capture", "devmem", "flightrec", "httpd",
                "lifecycle", "occupancy", "registry", "regress", "report",
                "sampler", "slo", "spans", "xfer")
+CHAOS_MODULES = ("inject", "plan", "supervisor", "verify")
 
 CHILD = r"""
 import json, pkgutil, subprocess, sys
@@ -78,7 +79,8 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.ops.methodbench",
                 "streambench_tpu_torch.native",
                 "streambench_tpu_torch.datagen.gen"} | {
-                    f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES}
+                    f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES} | {
+                    f"streambench_tpu_torch.chaos.{m}" for m in CHAOS_MODULES}
     assert expected <= set(got["modules"])
     assert got["jax"] == []
     assert got["cuda_initialized"] is False
@@ -137,3 +139,40 @@ def test_obs_package_imports_no_jax_and_not_even_torch():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
         "loaded": []}
+
+
+CHAOS_CHILD = r"""
+import json, subprocess, sys
+
+def no_builds(*a, **kw):
+    raise AssertionError(f"a process was started at import: {a!r}")
+
+subprocess.Popen.__init__ = no_builds
+
+import streambench_tpu_torch.chaos
+for m in sys.argv[1:]:
+    __import__("streambench_tpu_torch.chaos." + m)
+import torch
+from streambench_tpu_torch.chaos import FaultPlan
+FaultPlan.generate(1, sink_rate=0.5, sink_ops=10, crashes=2)
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "streambench_tpu")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_chaos_package_imports_no_jax_and_initialises_no_cuda():
+    """The chaos layer is host code: importing it (and rolling a plan)
+    loads nothing of JAX or the JAX package, starts no process and
+    touches no CUDA context."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", CHAOS_CHILD,
+                           *CHAOS_MODULES], capture_output=True, text=True,
+                          timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "jax": [], "cuda_initialized": False}

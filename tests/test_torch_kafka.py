@@ -12,6 +12,7 @@ JAX engine on the same cluster contents; the CLI and harness process
 stories; and the refusal of the broker's ``--fault-*`` flags.
 """
 
+import json
 import os
 import random
 import signal
@@ -447,15 +448,72 @@ def test_cli_broker_process_roundtrip_and_stop():
             proc.communicate()
 
 
+#: each fault flag with what it needs to arm a nonzero plan (a rate draws
+#: nothing without --fault-ops) and the cluster counter its fault bumps
+FAULT_CASES = {
+    "--fault-seed": (["--fault-consume-rate", "0.5", "--fault-ops", "200"],
+                     "fake_kafka_consume"),
+    "--fault-produce-rate": (["--fault-ops", "200"], "fake_kafka_produce"),
+    "--fault-conn-drop-rate": (["--fault-ops", "200"],
+                               "fake_kafka_conn_drop"),
+    "--fault-down": ([], "fake_kafka_down"),
+}
+
+
 @pytest.mark.parametrize("flag,value", [
-    ("--fault-seed", "7"), ("--fault-produce-rate", "0.1"),
-    ("--fault-conn-drop-rate", "0.2"), ("--fault-down", "2:6")])
-def test_fault_flags_are_refused_not_ignored(flag, value, capsys):
-    """The broker's seeded faults need the chaos package, not ported:
-    a non-zero ``--fault-*`` exits 2 with "not ported" before serving."""
-    assert fakekafka.main(["--port", "0", flag, value]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and flag in err
+    ("--fault-seed", "7"), ("--fault-produce-rate", "0.5"),
+    ("--fault-conn-drop-rate", "0.5"), ("--fault-down", "2:6")])
+def test_fault_flags_are_refused_not_ignored(flag, value):
+    """A ``--fault-*`` flag is never ignored: the broker process arms the
+    seeded plan it describes (``chaos armed:`` with a nonzero plan) and
+    the fault shows in the cluster's counters after traffic."""
+    extra, counter = FAULT_CASES[flag]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "streambench_tpu_torch.io.fakekafka",
+         "--host", "127.0.0.1", "--port", "0", flag, value, *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO)
+    try:
+        armed = proc.stdout.readline()
+        seed = value if flag == "--fault-seed" else "0"
+        assert armed.strip() == f"chaos armed: seed={seed} plan=nonzero"
+        host, port = _read_ready_line(proc)
+        counters = FaultCounters()
+        b = kafka.KafkaBroker(f"{host}:{port}", clients=fakekafka.clients(),
+                              counters=counters)
+        b.create_topic("t", partitions=1)
+        w = kafka.KafkaWriter(f"{host}:{port}", "t",
+                              clients=fakekafka.clients(),
+                              counters=counters, retry_base_ms=0.01,
+                              retry_cap_ms=0.05)
+        values = [b"v%02d" % i for i in range(30)]
+        w.append_many(values)
+        w.flush()
+        w.close()
+        r = kafka.KafkaReader(f"{host}:{port}", "t",
+                              clients=fakekafka.clients(),
+                              counters=counters, retry_base_ms=0.01,
+                              retry_cap_ms=0.05)
+        got = []
+        for _ in range(400):
+            if len(got) >= len(values):
+                break
+            try:
+                got.extend(r.poll(max_records=4))
+            except fakekafka.FakeKafkaException:
+                pass            # retries exhausted on an empty batch
+        r.close()
+        assert sorted(got) == sorted(values)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=20)
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith("stopping:"))
+        faults = json.loads(line.split("faults=", 1)[1])
+        assert faults.get(counter, 0) > 0, line
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def _harness(verb, env):
@@ -511,12 +569,33 @@ def test_start_kafka_adopts_external_broker(tmp_path):
 
 
 def test_start_kafka_with_fault_flags_fails(tmp_path):
-    """``KAFKA_FAULT_*`` reaches the broker, which refuses it: the op
-    fails instead of serving a broker without the faults asked for."""
-    env = _harness_env(tmp_path, _free_port(), KAFKA_FAULT_SEED="3",
-                       KAFKA_FAULT_CONSUME_RATE="0.1")
+    """``KAFKA_FAULT_*`` reaches the broker, which serves with the seeded
+    faults armed: a broker-down window on the first ops is absorbed by
+    the writer's backoff, counted by the cluster, and named in the log."""
+    port = _free_port()
+    env = _harness_env(tmp_path, port, KAFKA_FAULT_SEED="3",
+                       KAFKA_FAULT_DOWN="0:4")
     p = _harness("START_KAFKA", env)
-    assert p.returncode != 0
-    assert "died during startup" in p.stdout + p.stderr
+    assert p.returncode == 0, p.stdout + p.stderr
+    try:
+        counters = FaultCounters()
+        b = kafka.KafkaBroker(f"127.0.0.1:{port}",
+                              clients=fakekafka.clients(), counters=counters)
+        b.create_topic("h", partitions=1)
+        w = kafka.KafkaWriter(f"127.0.0.1:{port}", "h",
+                              clients=fakekafka.clients(),
+                              counters=counters, retry_base_ms=0.01,
+                              retry_cap_ms=0.05)
+        w.append_many([b"hello", b"world"])
+        w.flush()
+        w.close()
+        r = b.reader("h")
+        assert r.poll_blocking(timeout_s=5.0) == [b"hello", b"world"]
+        r.close()
+        assert counters.get("kafka_produce_retries") > 0
+    finally:
+        p = _harness("STOP_KAFKA", env)
+    assert p.returncode == 0, p.stdout + p.stderr
     log = (tmp_path / "logs" / "kafka.log").read_text()
-    assert "not ported" in log
+    assert "chaos armed: seed=3 plan=nonzero" in log
+    assert '"fake_kafka_down": 4' in log
