@@ -157,22 +157,51 @@ result line) when any phase fails:
    restart, it may exceed the live engine's by at most one crashed
    engine's.
 
-Each kernel's launches are counted over each of phases 4, 6-14, from 0
+15. Sketch engines: BASELINE configs #2 and #3 on one generated journal
+   of 1,000,000 events of the stock topology (seed 61, the in-process
+   store): (a) ``HLLDistinctEngine`` (R = 128): its windows are the
+   golden's (exact distinct users per campaign and 10 s window over
+   views), the estimates' mean relative error under 0.1, none dropped,
+   no K1 launch; and against the same engine run on the CPU over the
+   same journal, every Redis row within 1 and the registers left after
+   ``close()`` bit-identical, window by window; (b)
+   ``SlidingTDigestEngine`` (10 s windows, 1 s slide, a 2048-slot ring)
+   with the sliced fold, K1 counting into the ``[1000, 2048]`` class
+   plane, its host clock held 1 s past the journal's last view so that
+   real latencies reach the digest: every window equal to the golden
+   (each view in the 10 windows covering it), none dropped, K1 launched,
+   the latency quantiles positive and ordered, the digest's weight the
+   views folded, 300 ``_quantiles`` fields, and against the same engine
+   on the CPU under the same clock, the digest's weight per campaign
+   equal and the quantiles within one histogram bin (2^-5); (c) the
+   same with ``jax.sliding.sliced: off``, its windows equal to (b)'s,
+   its quantiles held as (b)'s; (d) per family, an engine that
+   snapshots after every flush is abandoned at 500,000 events and a
+   fresh one resumes on the same store, its windows equal to (a)'s and
+   (b)'s.  Each run's ev/s (and with ``close()``), its spans, the host
+   ms of the fold per batch, K1's launches.  Phase 3 holds K1 on the
+   sliced plane (a half batch with a quarter of its rows masked and
+   negative, and a full batch).
+
+Each kernel's launches are counted over each of phases 4, 6-15, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--events N] [--out FILE]
+    python3 chip_smoke.py --only-sketches  # phases 1-3 and 15 alone
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
 import random
+import re
 import shutil
 import socket
 import subprocess
@@ -305,7 +334,19 @@ CASES = (
     ("misaligned views, 3 rows in", 4096, 100, 16, "offset3"),
     ("bandwidth (not a main-path shape): 16.7M rows, 151 MB of input",
      16_777_216, 100, 16, "zipf"),
+    # the sliced sliding fold's plane (BASELINE #3: C = 100, S = 10,
+    # W = 2048): rows campaign * S + lateness class
+    ("sliced sliding plane [C*S, W] = [1000, 2048], half batch: a "
+     "quarter of the rows masked, with negative rows", 4096, 1000, 2048,
+     "sliced_masked"),
+    ("sliced sliding plane [1000, 2048], one full micro-batch", 8192,
+     1000, 2048, "sliced"),
 )
+# the phase 15 dataset: the stock topology (conf/benchmarkConf.yaml),
+# 1,000,000 events 10 ms apart, its own seed (run (d) crashes half way)
+SKETCH_EVENTS = 1_000_000
+SKETCH_SEED = 61
+SLIDE_CLASSES = 10                 # S = 10 s / 1 s
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -426,6 +467,23 @@ def _inputs(rng, B: int, C: int, W: int, kind: str):
         t0 = int(rng.integers(0, 10_000_000))
         slot = ((t0 + 10 * np.arange(n)) // 10_000 % W).astype(np.int32)
         return camp, slot, rng.random(n) < 1 / 3, offset
+    elif kind.startswith("sliced"):
+        # generator rows 10 ms apart: 1 s buckets on the 2048-slot ring,
+        # lateness class S - 1 but for a tenth of the rows; a third are
+        # views.  "sliced_masked": a quarter of the rows are not counted
+        # and carry campaign -1, so a negative row, as the fold makes it
+        S = SLIDE_CLASSES
+        camp = rng.integers(0, C // S, n).astype(np.int32)
+        d = np.where(rng.random(n) < 0.9, S - 1,
+                     rng.integers(0, S, n)).astype(np.int32)
+        t0 = int(rng.integers(0, 10_000_000))
+        slot = ((t0 + 10 * np.arange(n)) // 1_000 % W).astype(np.int32)
+        if kind == "sliced_masked":
+            mask = rng.random(n) >= 0.25
+            camp = np.where(mask, camp, -1).astype(np.int32)
+        else:
+            mask = rng.random(n) < 1 / 3
+        return (camp * S + d).astype(np.int32), slot, mask, offset
     else:
         camp = ((rng.zipf(1.2, n) - 1) % C).astype(np.int32)
         slot = rng.integers(0, W, n, dtype=np.int32)
@@ -2283,12 +2341,512 @@ def phase_chaos(config5: Config5Data, events: int = CHAOS_EVENTS,
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the sketch engines (BASELINE configs #2 and #3) on the card.
+
+# a view in the generator's wire format: its user, ad and event time
+_VIEW_RE = re.compile(rb'"user_id": "([^"]*)"[^}]*?"ad_id": "([^"]*)"[^}]*?'
+                      rb'"event_type": "view", "event_time": "(-?\d+)"')
+
+
+def _journal_views(data: Config5Data):
+    """``(campaign index, event time ms, user index)`` numpy columns of
+    every view in the dataset's journal (the generator's own copy), by
+    one regex pass over its bytes; and the campaign names."""
+    import numpy as np
+
+    from streambench_tpu_torch.datagen import gen
+
+    with open(os.path.join(data.workdir, gen.KAFKA_JSON_FILE), "rb") as f:
+        blob = f.read()
+    names = data.campaigns
+    index = {c: i for i, c in enumerate(names)}
+    ad_campaign = {a.encode(): index[c] for a, c in data.mapping.items()}
+    users: dict = {}
+    camp, t, user = [], [], []
+    for u, ad, ts in _VIEW_RE.findall(blob):
+        camp.append(ad_campaign[ad])
+        t.append(int(ts))
+        user.append(users.setdefault(u, len(users)))
+    if not camp:
+        raise AssertionError("no view found in the sketch journal")
+    return (np.asarray(camp, np.int64), np.asarray(t, np.int64),
+            np.asarray(user, np.int64), names)
+
+
+def _golden_distinct(views) -> dict:
+    """Exact distinct users per (campaign, 10 s window) over views."""
+    import numpy as np
+
+    camp, t, user, names = views
+    triples = np.unique(np.stack([camp, t // 10_000, user], 1), axis=0)
+    cw, n = np.unique(triples[:, :2], axis=0, return_counts=True)
+    return {(names[int(c)], int(w) * 10_000): int(k)
+            for (c, w), k in zip(cw, n)}
+
+
+def _golden_sliding(views) -> dict:
+    """Each view counted in the 10 sliding windows (10 s, 1 s slide)
+    covering it: ``(campaign, window start ms) -> views``."""
+    import numpy as np
+
+    camp, t, _, names = views
+    starts = (t[:, None] // 1000 - np.arange(10)[None, :]) * 1000
+    pairs = np.stack([np.repeat(camp, 10), starts.reshape(-1)], 1)
+    uk, n = np.unique(pairs, axis=0, return_counts=True)
+    return {(names[int(c)], int(w)): int(k) for (c, w), k in zip(uk, n)}
+
+
+def _sketch_engine(kind: str, cfg, data: Config5Data, r, device: str):
+    from streambench_tpu_torch.engine.sketches import (
+        HLLDistinctEngine,
+        SlidingTDigestEngine,
+    )
+
+    cls = HLLDistinctEngine if kind == "hll" else SlidingTDigestEngine
+    return cls(cfg, data.mapping, campaigns=data.campaigns, redis=r,
+               device=device)
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sketch_catchup(tag: str, kind: str, data: Config5Data, device: str,
+                    keys: dict | None = None) -> tuple:
+    """One timed catchup of the dataset through a fresh sketch engine on
+    the card, after a warm engine ran every device path once (as the
+    CLI does).  Returns (result, store, engine)."""
+    from streambench_tpu_torch.engine import StreamRunner
+    from streambench_tpu_torch.ops.count import count_cells
+
+    cfg = data.config(keys)
+    warm = _sketch_engine(kind, cfg, data, None, device)
+    warm.warmup()
+    warm.close()
+    del warm
+    r = data.store()
+    engine = _sketch_engine(kind, cfg, data, r, device)
+    reader = data.broker.reader(cfg.kafka_topic)
+    _sync(device)
+    count_cells.launches = 0              # this path starts here
+    t0 = time.perf_counter()
+    stats = StreamRunner(engine, reader).run_catchup()
+    run_s = time.perf_counter() - t0
+    engine.close()
+    _sync(device)
+    total_s = time.perf_counter() - t0
+    launches = count_cells.launches       # this path ends here
+    reader.close()
+    stages = engine.tracer.as_dict()
+    fold_ms = sum(stages.get(k, {}).get("total_ms", 0.0)
+                  for k in ("device_step", "device_scan"))
+    steps = -(-stats.events // engine.batch_size)
+    result = {
+        "engine": type(engine).__name__, "events": stats.events,
+        "flushes": stats.flushes, "windows_written": stats.windows_written,
+        "dropped": engine.dropped, "run_catchup_s": run_s,
+        "catchup_with_close_s": total_s,
+        "events_per_s": stats.events / run_s,
+        "events_per_s_with_close": stats.events / total_s,
+        "count_cells_launches": launches, "stages": stages,
+        "window_slots": engine.W, "batch_size": engine.batch_size,
+        "fold_host_ms_per_batch": fold_ms / max(steps, 1),
+    }
+    if kind != "hll":
+        result["sliced"] = engine.sliced
+    print(f"[sketch_{tag}] {json.dumps(result)}", flush=True)
+    if stats.events != data.events or engine.dropped:
+        raise AssertionError(f"[sketch_{tag}] folded {stats.events} of "
+                             f"{data.events}, dropped {engine.dropped}")
+    return result, r, engine
+
+
+def _sketch_resume(tag: str, kind: str, data: Config5Data,
+                   device: str) -> tuple:
+    """Phase 15 (d): engine A catches up half the journal with
+    a snapshot after every flush (its run ends with a flush and a
+    snapshot that covers it) and is abandoned without ``close()``;
+    engine B resumes from the newest snapshot on the same store and
+    finishes.  Returns (result, store)."""
+    from streambench_tpu_torch.checkpoint import Checkpointer
+    from streambench_tpu_torch.engine import StreamRunner
+    from streambench_tpu_torch.ops.count import count_cells
+
+    cfg = data.config()
+    ckdir = os.path.join(data.workdir, f"ckpt_{tag}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    r = data.store()
+    count_cells.launches = 0              # this path starts here
+    t0 = time.perf_counter()
+    a = _sketch_engine(kind, cfg, data, r, device)
+    reader = data.broker.reader(cfg.kafka_topic)
+    StreamRunner(a, reader, checkpointer=Checkpointer(ckdir),
+                 checkpoint_interval_ms=0).run_catchup(
+                     max_events=data.events // 2)
+    a.drain_writes()
+    crashed_at = a.events_processed
+    reader.close()
+    del a                                 # the crash: no close()
+    gc.collect()
+    b = _sketch_engine(kind, cfg, data, r, device)
+    reader = data.broker.reader(cfg.kafka_topic)
+    runner = StreamRunner(b, reader, checkpointer=Checkpointer(ckdir),
+                          checkpoint_interval_ms=0)
+    t1 = time.perf_counter()
+    if not runner.resume():
+        raise AssertionError(f"[sketch_{tag}] no snapshot to resume from")
+    resume_ms = (time.perf_counter() - t1) * 1e3
+    resumed_at = b.events_processed
+    stats = runner.run_catchup()
+    b.close()
+    reader.close()
+    launches = count_cells.launches       # this path ends here
+    result = {"crashed_at_events": crashed_at,
+              "resumed_at_events": resumed_at, "resume_ms": resume_ms,
+              "events_after_resume": stats.events,
+              "events": b.events_processed, "dropped": b.dropped,
+              "count_cells_launches": launches,
+              "run_s": time.perf_counter() - t0}
+    print(f"[sketch_{tag}] {json.dumps(result)}", flush=True)
+    if (resumed_at != crashed_at or b.events_processed != data.events
+            or b.dropped or not stats.events):
+        raise AssertionError(f"[sketch_{tag}] resume: {result}")
+    return result, r
+
+
+def _windows_equal(tag: str, got: dict, want: dict, what: str) -> None:
+    if got != want:
+        diff = [k for k in set(got) | set(want) if got.get(k) != want.get(k)]
+        raise AssertionError(
+            f"[sketch_{tag}] windows differ from {what} at {len(diff)} of "
+            f"{len(want)}: {[(k, got.get(k), want.get(k)) for k in diff[:3]]}")
+
+
+@contextlib.contextmanager
+def _sketch_clock(ms: int):
+    """The sketch engines' host clock (``engine.sketches.now_ms``, which
+    the latency samples read) held at ``ms``."""
+    from streambench_tpu_torch.engine import sketches
+
+    real = sketches.now_ms
+    sketches.now_ms = lambda: ms
+    try:
+        yield
+    finally:
+        sketches.now_ms = real
+
+
+def _hll_end_state(engine) -> dict:
+    """An HLL engine's state after ``close()``: each open window's
+    ``[C, R]`` registers by window id (which slot a window claims depends
+    on when the wall-clock flushes freed slots), the watermark and
+    ``dropped``."""
+    st = engine.state
+    regs = st.registers.cpu().numpy()
+    wids = st.window_ids.cpu().numpy()
+    return {"registers": {int(w): regs[:, i] for i, w in enumerate(wids)
+                          if w >= 0},
+            "watermark": int(st.watermark), "dropped": int(st.dropped)}
+
+
+def _hll_against_cpu(got: dict, end: dict, ref: dict, ref_end: dict
+                     ) -> dict:
+    """Run (a) against the same engine on the CPU: the same Redis rows,
+    each within 1 (a float32 estimate may truncate to the next integer),
+    and the same registers, watermark and ``dropped``."""
+    import numpy as np
+
+    if set(got) != set(ref):
+        raise AssertionError(f"[sketch_hll] windows {len(got)} != the CPU "
+                             f"run's {len(ref)}")
+    diff = np.asarray([abs(got[k] - ref[k]) for k in ref])
+    if diff.max() > 1:
+        k = max(ref, key=lambda k: abs(got[k] - ref[k]))
+        raise AssertionError(f"[sketch_hll] {k}: {got[k]} against the CPU "
+                             f"run's {ref[k]}")
+    regs, ref_regs = end["registers"], ref_end["registers"]
+    if (set(regs) != set(ref_regs)
+            or not all(np.array_equal(regs[w], ref_regs[w]) for w in regs)
+            or end["watermark"] != ref_end["watermark"]
+            or end["dropped"] != ref_end["dropped"]):
+        raise AssertionError(
+            f"[sketch_hll] state after close() differs from the CPU run's:"
+            f" windows {sorted(regs)} vs {sorted(ref_regs)}, watermark "
+            f"{end['watermark']} vs {ref_end['watermark']}")
+    return {"cpu_rows_max_abs_diff": int(diff.max()),
+            "cpu_rows_differing": int((diff > 0).sum()),
+            "cpu_open_windows_equal": len(regs),
+            "cpu_registers_set": int(sum((r > 0).sum()
+                                         for r in regs.values()))}
+
+
+def _quantiles_against_cpu(tag: str, q, weights, ref_q, ref_w) -> float:
+    """Quantiles within one histogram bin (2^-5 relative) of the CPU
+    run's, and the digest's weight per campaign equal."""
+    import numpy as np
+
+    err = float(np.max(np.abs(q - ref_q) / np.maximum(np.abs(ref_q), 1e-3)))
+    if not np.array_equal(weights, ref_w) or err > 2.0 ** -5:
+        raise AssertionError(
+            f"[sketch_{tag}] quantiles off the CPU run's by {err}; weights "
+            f"{weights.sum()} vs {ref_w.sum()}")
+    return err
+
+
+def _sketch_ops_check(device: str) -> dict:
+    """The sketch ops on ``device`` against the same ops on the CPU, on
+    one seeded input: HLL steps (negative user ids, unknown ads, masked
+    and late rows) with registers and ring bit-identical and estimates
+    within rtol 1e-6; sliced sliding steps and drains (K1 on the card)
+    bit-identical; the t-digest's histogram fold, absorb, per-batch
+    update and quantiles on lognormal latency-like values, weights exact
+    and quantiles within 2^-5."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.ops import hll, sliding, tdigest
+
+    rng = np.random.default_rng(SKETCH_SEED)
+    C, W, R, B, N = 100, 16, 128, 4096, 8
+    jt = np.concatenate([np.arange(C * 10) % C, [-1]]).astype(np.int32)
+    out: dict = {}
+
+    def both(fn):
+        return fn("cpu"), fn(device)
+
+    def hll_run(dev):
+        st = hll.init_state(C, W, R, device=dev)
+        g = np.random.default_rng(1)
+        for k in range(N):
+            cols = (g.integers(-2, jt.size + 2, B).astype(np.int32),
+                    g.integers(-2**31, 2**31, B).astype(np.int32),
+                    g.integers(-1, 3, B).astype(np.int32),
+                    (k * 20_000 + g.integers(-70_000, 20_000, B)
+                     ).astype(np.int32), g.random(B) < 0.9)
+            st = hll.step(st, torch.from_numpy(jt).to(dev),
+                          *(torch.from_numpy(c).to(dev) for c in cols))
+        est, wids, st = hll.flush(st)
+        return [t.cpu().numpy() for t in (*st, est, wids)]
+
+    a, b = both(hll_run)
+    if not all(np.array_equal(x, y) for x, y in zip(a[:4], b[:4])):
+        raise AssertionError("[sketch_ops] HLL state differs from the CPU's")
+    est_err = float(np.max(np.abs(a[4] - b[4]) / np.maximum(a[4], 1e-6)))
+    if est_err > 1e-6:
+        raise AssertionError(f"[sketch_ops] HLL estimates off by {est_err}")
+    out["hll"] = {"registers_equal": True, "estimate_max_rel_err": est_err,
+                  "registers_set": int((a[0] > 0).sum())}
+
+    def sliced_run(dev):
+        S, Ws = SLIDE_CLASSES, 2048
+        st = sliding.init_sliced(C, Ws, S, device=dev)
+        g = np.random.default_rng(2)
+        outs = []
+        method = "kernel" if dev != "cpu" else "scatter"
+        for k in range(N):
+            cols = (g.integers(-2, jt.size + 2, B).astype(np.int32),
+                    g.integers(-1, 3, B).astype(np.int32),
+                    (k * 40_000 + g.integers(-75_000, 5_000, B)
+                     ).astype(np.int32), g.random(B) < 0.9)
+            st = sliding.step_sliced(
+                st, torch.from_numpy(jt).to(dev),
+                *(torch.from_numpy(c).to(dev) for c in cols), method=method)
+            if k % 3 == 2:
+                win, wid, st = sliding.flush_sliced(st)
+                outs += [win.cpu().numpy(), wid.cpu().numpy()]
+        return outs + [t.cpu().numpy() for t in st]
+
+    a, b = both(sliced_run)
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("[sketch_ops] sliced fold differs from the "
+                             "CPU's")
+    out["sliced"] = {"equal": True, "dropped": int(a[-1]),
+                     "drained_views": int(sum(x.sum() for x in a[0:-4:2]))}
+
+    def digest_run(dev):
+        g = np.random.default_rng(3)
+        d = tdigest.init_state(C, 64, device=dev)
+        hn, hw = tdigest.hist_init(C, device=dev)
+        for _ in range(N):
+            key = torch.from_numpy(g.integers(-1, C + 1, B).astype(
+                np.int32)).to(dev)
+            val = torch.from_numpy((g.lognormal(7.0, 1.0, B) - 100.0
+                                    ).astype(np.float32)).to(dev)
+            m = torch.from_numpy(g.random(B) < 0.8).to(dev)
+            d = tdigest.update(d, key, val, m)
+            hn, hw = tdigest.fold_hist(hn, hw, key, val,
+                                       m.to(torch.float32), C)
+        d = tdigest.absorb_hist(d, hn, hw)
+        q = tdigest.quantile(d, torch.tensor([0.5, 0.9, 0.99]))
+        return d.weights.cpu().numpy(), q.cpu().numpy()
+
+    (wa, qa), (wb, qb) = both(digest_run)
+    q_err = float(np.max(np.abs(qa - qb) / np.maximum(np.abs(qa), 1e-3)))
+    if not np.array_equal(wa.sum(1), wb.sum(1)) or q_err > 2.0 ** -5:
+        raise AssertionError(f"[sketch_ops] t-digest: weights "
+                             f"{wa.sum()} vs {wb.sum()}, quantiles off by "
+                             f"{q_err}")
+    out["tdigest"] = {"weight_total": float(wb.sum()),
+                      "quantile_max_rel_err": q_err,
+                      "p50_p90_p99_median_ms": np.median(qb, 0).tolist()}
+    print(f"[sketch_ops] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_sketches(events: int = SKETCH_EVENTS,
+                   device: str = "cuda") -> dict:
+    """Phase 15: BASELINE configs #2 and #3 on the card (module doc).
+    ``device`` and the size are arguments so the phase can be rehearsed
+    on the CPU at a small size; the smoke runs it on ``cuda``."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out: dict = {"ops": _sketch_ops_check(device)}
+    data = Config5Data(events, keys={}, name="smoke_sketch",
+                       seed=SKETCH_SEED)
+    out.update(events=events, generate_s=data.gen_s)
+    try:
+        views = _journal_views(data)
+        out["views"] = int(views[0].size)
+
+        # (a) BASELINE #2: HLL distinct users per (campaign, 10 s window)
+        hll_res, r, hll_eng = _sketch_catchup("hll", "hll", data, device)
+        t1 = time.perf_counter()
+        golden = _golden_distinct(views)
+        got = _store_windows(r)
+        if set(got) != set(golden):
+            raise AssertionError(
+                f"[sketch_hll] windows {len(got)} != golden {len(golden)}")
+        err = np.asarray([abs(got[k] - n) / n for k, n in golden.items()])
+        hll_res.update(windows=len(got), mean_rel_err=float(err.mean()),
+                       max_rel_err=float(err.max()),
+                       check_s=time.perf_counter() - t1,
+                       registers=hll_eng.registers)
+        if not err.mean() < 0.1:
+            raise AssertionError(f"[sketch_hll] mean relative error "
+                                 f"{err.mean()} >= 0.1")
+        if hll_res["count_cells_launches"] != 0:
+            raise AssertionError("[sketch_hll] K1 launched on the HLL path")
+        ref_res, ref_r, ref_eng = _sketch_catchup("hll_cpu", "hll", data,
+                                                  "cpu")
+        t1 = time.perf_counter()
+        hll_res.update(_hll_against_cpu(
+            got, _hll_end_state(hll_eng), _store_windows(ref_r),
+            _hll_end_state(ref_eng)),
+            cpu_catchup_with_close_s=ref_res["catchup_with_close_s"],
+            cpu_check_s=time.perf_counter() - t1)
+        out["hll"] = hll_res
+        hll_windows = got
+        del hll_eng, r, ref_eng, ref_r
+
+        # (b) BASELINE #3, the sliced fold (K1 on the [C*S, W] plane),
+        # and (c) the same with jax.sliding.sliced: off (S claims a
+        # batch), both behind a host clock 1 s past the last view
+        clock = int(views[1].max()) + 1_000
+        with _sketch_clock(clock):
+            ref_res, _, ref_eng = _sketch_catchup("sliced_cpu", "sliding",
+                                                  data, "cpu")
+            ref_q = ref_eng.quantiles()
+            ref_w = ref_eng.digest.weights.sum(1).cpu().numpy()
+            del ref_eng
+            sl_res, r, sl_eng = _sketch_catchup("sliced", "sliding", data,
+                                                 device)
+        t1 = time.perf_counter()
+        golden = _golden_sliding(views)
+        got = _store_windows(r)
+        _windows_equal("sliced", got, golden, "the sliding golden")
+        q = sl_eng.quantiles()
+        table = r.hgetall(f"{sl_eng.cfg.redis_hashtable}_quantiles")
+        weights = sl_eng.digest.weights.sum(1).cpu().numpy()
+        weight = float(weights.sum())
+        sl_res.update(
+            windows=len(got), check_s=time.perf_counter() - t1,
+            quantile_fields=len(table), digest_weight=weight,
+            max_latency_ms=clock - int(views[1].min()),
+            quantiles_ms={"p50_median": float(np.median(q[:, 0])),
+                          "p90_median": float(np.median(q[:, 1])),
+                          "p99_median": float(np.median(q[:, 2])),
+                          "p50_min": float(q[:, 0].min()),
+                          "p99_max": float(q[:, 2].max())},
+            cpu_quantile_max_rel_err=_quantiles_against_cpu(
+                "sliced", q, weights, ref_q, ref_w),
+            cpu_catchup_with_close_s=ref_res["catchup_with_close_s"],
+            counts_plane=list(sl_eng.state.counts.shape))
+        if not sl_eng.sliced or (device == "cuda"
+                                 and sl_res["count_cells_launches"] <= 0):
+            raise AssertionError(f"[sketch_sliced] sliced={sl_eng.sliced}, "
+                                 f"K1 launches "
+                                 f"{sl_res['count_cells_launches']}")
+        if not ((q[:, 0] > 0).all() and (q[:, 0] <= q[:, 1] + 1e-3).all()
+                and (q[:, 1] <= q[:, 2] + 1e-3).all()):
+            raise AssertionError("[sketch_sliced] quantiles not positive "
+                                 "or out of order")
+        if weight != views[0].size or len(table) != 3 * len(data.campaigns):
+            raise AssertionError(
+                f"[sketch_sliced] digest weight {weight} against "
+                f"{views[0].size} views; {len(table)} quantile fields")
+        out["sliced"] = sl_res
+        sliced_windows = got
+        del sl_eng, r, golden
+
+        with _sketch_clock(clock):
+            un_res, r, un_eng = _sketch_catchup(
+                "unsliced", "sliding", data, device,
+                {"jax.sliding.sliced": "off"})
+        t1 = time.perf_counter()
+        _windows_equal("unsliced", _store_windows(r), sliced_windows,
+                       "run (b)'s")
+        un_res.update(
+            check_s=time.perf_counter() - t1,
+            cpu_quantile_max_rel_err=_quantiles_against_cpu(
+                "unsliced", un_eng.quantiles(),
+                un_eng.digest.weights.sum(1).cpu().numpy(), ref_q, ref_w))
+        if un_eng.sliced:
+            raise AssertionError("[sketch_unsliced] ran the sliced fold")
+        out["unsliced"] = un_res
+        del un_eng, r
+
+        # (d) checkpoint resume, one per family
+        res_h, r = _sketch_resume("hll_resume", "hll", data, device)
+        _windows_equal("hll_resume", _store_windows(r), hll_windows,
+                       "run (a)'s")
+        res_s, r = _sketch_resume("sliced_resume", "sliding", data,
+                                  device)
+        _windows_equal("sliced_resume", _store_windows(r), sliced_windows,
+                       "run (b)'s")
+        if device == "cuda" and res_s["count_cells_launches"] <= 0:
+            raise AssertionError("[sketch_sliced_resume] K1 never launched")
+        out["resume"] = {"hll": res_h, "sliced": res_s}
+    finally:
+        data.remove()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[sketch] ev/s: hll {out['hll']['events_per_s']}, sliced "
+          f"{out['sliced']['events_per_s']} (K1 "
+          f"{out['sliced']['count_cells_launches']} launches), unsliced "
+          f"{out['unsliced']['events_per_s']}; fold host ms a batch sliced "
+          f"{out['sliced']['fold_host_ms_per_batch']}, unsliced "
+          f"{out['unsliced']['fold_host_ms_per_batch']}; HLL mean rel err "
+          f"{out['hll']['mean_rel_err']}, rows off the CPU run's by at most "
+          f"{out['hll']['cpu_rows_max_abs_diff']}; quantiles off the CPU "
+          f"run's by {out['sliced']['cpu_quantile_max_rel_err']}; "
+          f"{out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--events", type=int, default=10_000_000,
                     help="catchup events for the end-to-end phase")
     ap.add_argument("--out", help="also write every phase's result to "
                     "this JSON file")
+    ap.add_argument("--only-sketches", action="store_true",
+                    help="a diagnostic: the device, the build, the kernel "
+                    "cases and phase 15 alone (no result line)")
     args = ap.parse_args(argv)
 
     try:
@@ -2318,6 +2876,14 @@ def main(argv: list[str] | None = None) -> int:
     smi = phase_device()
     ptxas = phase_build()
     cases, floor = phase_kernels()
+    if args.only_sketches:
+        sketch = phase_sketches()
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "sketches": sketch,
+                           "nvidia_smi": smi}, f, indent=1)
+        print(smi, flush=True)
+        return 0
     decode_cases = phase_decode_kernels(floor)
     methods = phase_method_table()
     e2e, (C, W), steps, pipelined, decode = phase_end_to_end(args.events)
@@ -2334,6 +2900,7 @@ def main(argv: list[str] | None = None) -> int:
         chaos = phase_chaos(config5)
     finally:
         config5.remove()
+    sketch = phase_sketches()
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -2389,7 +2956,15 @@ def main(argv: list[str] | None = None) -> int:
                 decode["pipelined"]["count_cells_launches"],
             "paced_ysb_decode": paced_decode["count_cells_launches"],
             **{f"supervised_chaos_{k}": chaos[k]["count_cells_launches"]
-               for k in CHAOS_RUNS}},
+               for k in CHAOS_RUNS},
+            "hll_catchup": sketch["hll"]["count_cells_launches"],
+            "sliding_sliced_catchup":
+                sketch["sliced"]["count_cells_launches"],
+            "sliding_unsliced_catchup":
+                sketch["unsliced"]["count_cells_launches"],
+            "hll_resume": sketch["resume"]["hll"]["count_cells_launches"],
+            "sliding_sliced_resume":
+                sketch["resume"]["sliced"]["count_cells_launches"]},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -2439,6 +3014,7 @@ def main(argv: list[str] | None = None) -> int:
                        "decode_catchup": decode,
                        "paced_ysb_decode": paced_decode,
                        "supervised_chaos": chaos,
+                       "sketches": sketch,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,10 @@
-"""Engine process CLI for the PyTorch port — exact count only.
+"""Engine process CLI for the PyTorch port.
 
-Loads the config, builds the ``AdAnalyticsEngine`` on the requested device
-(``--device``, default ``cuda``), tails the broker topic, flushes the
+Loads the config, builds the engine ``--engine`` names on the requested
+device (``--device``, default ``cuda``): ``exact`` (default), the exact
+count of BASELINE config #1; ``hll``, HLL distinct users per window
+(config #2); ``sliding``, sliding-window counts with t-digest latency
+quantiles (config #3).  It tails the broker topic, flushes the
 canonical Redis window schema, and at the end (catchup drained, duration,
 idle timeout, or SIGTERM) closes the engine and prints the same JSON stats
 line as ``python -m streambench_tpu.engine``.  Any key space the config
@@ -32,11 +35,13 @@ an SLO breach, SIGUSR2 or a one-shot) and ``jax.slo.*``; ``--traceDir``
 profiles the whole run.
 
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
-        --workdir RUN_DIR --catchup [--device cuda|cpu] [--checkpointDir D]
+        --workdir RUN_DIR --catchup [--engine exact|hll|sliding] \
+        [--device cuda|cpu] [--checkpointDir D]
 
 Options and config keys that need parts of the JAX engine not ported yet
-(other engines, sharding, the fork's micro-batch mode, tenants, the
-reach query, fleet and shard observability) are refused with exit 2.
+(the session, reach and hllx engines, sharding with any engine, the
+fork's micro-batch mode, tenants, the reach query, fleet and shard
+observability) are refused with exit 2.
 """
 
 from __future__ import annotations
@@ -52,6 +57,10 @@ from streambench_tpu_torch.config import ConfigError, find_and_read_config_file
 from streambench_tpu_torch.datagen import gen
 from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.engine.runner import StreamRunner
+from streambench_tpu_torch.engine.sketches import (
+    HLLDistinctEngine,
+    SlidingTDigestEngine,
+)
 from streambench_tpu_torch.io.fakeredis import make_store
 from streambench_tpu_torch.io.kafka import make_broker
 from streambench_tpu_torch.io.redis_schema import as_redis
@@ -96,25 +105,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--traceDir", default=None,
                    help="capture a torch.profiler trace of the whole run "
                         "into DIR/trace.json")
+    p.add_argument("--engine", default="exact",
+                   help="aggregation engine: exact window counts "
+                        "(default), hll (HLL distinct users) or sliding "
+                        "(sliding-window counts + t-digest latency "
+                        "quantiles): BASELINE configs #1-#3")
     # flags of the JAX CLI whose machinery is not ported yet: accepted
     # only to refuse them with a clear message
     p.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--engine", default="exact", help=argparse.SUPPRESS)
     p.add_argument("--microbatch", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--tenants", default=None, help=argparse.SUPPRESS)
     return p
 
 
+#: engines the port runs, by ``--engine`` name
+ENGINES = {"exact": AdAnalyticsEngine, "hll": HLLDistinctEngine,
+           "sliding": SlidingTDigestEngine}
+
+
 def unsupported(args, cfg) -> list[str]:
-    """What this run asks for beyond what the port runs: the exact-count
-    engine on one device, at any key space, with checkpoint/resume, the
-    exactly-once sink, the staged ingest pipeline, the encode pool, the
-    dead-letter queue, the Kafka source, device decode and the
-    single-engine observability layer."""
+    """What this run asks for beyond what the port runs: the exact-count,
+    HLL and sliding engines on one device, at any key space, with
+    checkpoint/resume, the exactly-once sink, the staged ingest pipeline,
+    the encode pool, the dead-letter queue, the Kafka source, device
+    decode (exact engine) and the single-engine observability layer."""
     out = []
     for flag, on in (("--sharded", args.sharded),
-                     ("--engine " + str(args.engine), args.engine != "exact"),
+                     ("--engine " + str(args.engine),
+                      args.engine not in ENGINES),
                      ("--microbatch", args.microbatch),
                      ("--tenants", args.tenants)):
         if on:
@@ -155,10 +174,11 @@ def main(argv: list[str] | None = None) -> int:
     missing = unsupported(args, cfg)
     if missing:
         print("error: not ported to the PyTorch engine yet (it runs the "
-              "exact count with checkpoints, the exactly-once sink, the "
-              "ingest pipeline, the encode pool, the dead-letter queue, "
-              "the Kafka source and the single-engine observability "
-              "layer): " + ", ".join(missing), file=sys.stderr)
+              "exact, hll and sliding engines with checkpoints, the "
+              "exactly-once sink, the ingest pipeline, the encode pool, "
+              "the dead-letter queue, the Kafka source and the "
+              "single-engine observability layer): " + ", ".join(missing),
+              file=sys.stderr)
         return 2
 
     mapping, campaigns = load_mapping(cfg, args.workdir)
@@ -166,8 +186,9 @@ def main(argv: list[str] | None = None) -> int:
         redis = as_redis(make_store())
     else:
         redis = RespClient(cfg.redis_host, cfg.redis_port)
-    engine = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
-                               redis=redis, device=args.device)
+    engine_cls = ENGINES[args.engine]
+    engine = engine_cls(cfg, mapping, campaigns=campaigns, redis=redis,
+                        device=args.device)
 
     broker = make_broker(cfg.kafka_bootstrap_servers,
                          args.brokerDir
@@ -225,8 +246,8 @@ def main(argv: list[str] | None = None) -> int:
     # Build the kernels and run every device path once on a throwaway
     # engine before announcing readiness, so the load phase never waits
     # on a compiler.
-    warm = AdAnalyticsEngine(cfg, mapping, campaigns=campaigns,
-                             device=args.device)
+    warm = engine_cls(cfg, mapping, campaigns=campaigns,
+                      device=args.device)
     warm.settle_decode(runner._pipeline_on())
     warm.warmup()
     warm.close()
@@ -342,7 +363,8 @@ def main(argv: list[str] | None = None) -> int:
     count_cells.launches = 0
     decode_rows.launches = 0
 
-    print(f"engine up: topic={cfg.kafka_topic} redis={cfg.redis_host}:"
+    print(f"engine up: engine={args.engine} topic={cfg.kafka_topic} "
+          f"redis={cfg.redis_host}:"
           f"{cfg.redis_port} batch={engine.batch_size} "
           f"device={engine.device} method={engine.method} "
           f"pipeline={'on' if runner._pipeline_on() else 'off'} "

@@ -28,6 +28,13 @@ device, and the same window fold (K1) counts them.
 Observability (``obs/``) attaches through ``attach_obs``; until then the
 engine carries ``None`` attributes and one None check per dispatch,
 flush and write.
+
+The sketch engines (``engine.sketches``: HLL, sliding + t-digest)
+subclass this one through the JAX engine's hooks: ``absolute_counts``
+(HSET estimates), the encoder's id mode (``HASHED_IDS`` /
+``NEEDS_INTERNED_IDS``), ``SCAN_SUPPORTED``, ``PACKED_EXTRA_COLS``,
+``STEP_PACKS``, ``_materialize_custom`` and ``_check_geometry``'s
+``extra``.
 """
 
 from __future__ import annotations
@@ -131,11 +138,15 @@ class _RedisWriter:
 
     def __init__(self, redis: RedisLike, tracer: Tracer,
                  on_written, faults: "FaultCounters | None" = None,
+                 absolute: bool = False,
                  retry_base_ms: int = 100, retry_cap_ms: int = 5000,
                  dirty_cap_rows: int = 1 << 18,
                  exactly_once: bool = False, fence_key: str = "",
                  epoch: int | None = None, start_seq: int = 0) -> None:
         self._redis = redis
+        # HSET absolute values (sketch estimates) instead of HINCRBY
+        # deltas, unless a submit says otherwise
+        self._absolute = bool(absolute)
         self._tracer = tracer
         # (rows, stamp) latency bookkeeping: a bound method of the engine,
         # held weakly.  An engine abandoned without close() (a supervised
@@ -208,14 +219,18 @@ class _RedisWriter:
         self._wake.clear()
 
     def _coalesce_failed_locked(self) -> None:
-        """Merge the retained batches by (campaign, window); deltas sum.
+        """Merge the retained batches by (campaign, window): deltas sum,
+        absolute values keep the freshest (batch order is write order).
         Called with the lock held, past the high-water mark only.  (In
         exactly-once mode a failed batch only taints its windows, so its
         values are never written back.)"""
         merged: dict[tuple, int] = {}
         for batch in self._failed:
             for camp, ts, n in batch:
-                merged[(camp, ts)] = merged.get((camp, ts), 0) + n
+                if self._absolute:
+                    merged[(camp, ts)] = n
+                else:
+                    merged[(camp, ts)] = merged.get((camp, ts), 0) + n
         rows = [(c, ts, n) for (c, ts), n in merged.items()]
         before = self._failed_rows
         self._failed = [rows]
@@ -233,6 +248,8 @@ class _RedisWriter:
                     return
                 payload, stamp, absolute = item
                 stamp = now_ms() if stamp is None else stamp
+                if absolute is None:
+                    absolute = self._absolute
                 arrays = not isinstance(payload, list)
                 fenced_out = False
                 try:
@@ -247,7 +264,8 @@ class _RedisWriter:
                             blob, off, store = payload.table
                             store.write_windows_arrays(
                                 blob, off, payload.ci, payload.ts,
-                                payload.cnt, str(stamp), absolute=False)
+                                payload.cnt, str(stamp),
+                                absolute=self._absolute)
                         else:
                             write_windows_pipelined(
                                 self._redis, payload, time_updated=stamp,
@@ -347,10 +365,11 @@ class _RedisWriter:
         return failed
 
     def submit(self, rows, stamp: int | None,
-               absolute: bool = False) -> None:
+               absolute: bool | None = None) -> None:
         """Queue one writeback payload (rows list or ``_ArrayRows``).
-        ``absolute`` HSETs the counts instead of HINCRBY: the
-        exactly-once ledger's reconcile writes."""
+        ``absolute`` HSETs the counts instead of HINCRBY (the
+        exactly-once ledger's reconcile writes); None keeps the writer's
+        own mode."""
         self._q.put((rows, stamp, absolute))
 
     def drain(self) -> None:
@@ -394,6 +413,9 @@ class AdAnalyticsEngine:
     ``device`` defaults to ``"cuda"``; without CUDA the constructor
     raises unless the caller passes ``device="cpu"``."""
 
+    # Subclasses whose pending values are absolute (sketch estimates,
+    # not deltas) set this: the writer HSETs instead of HINCRBY.
+    absolute_counts = False
     # Checkpoint compatibility class, as in the JAX engine: restore
     # refuses a snapshot of another family.
     ENGINE_FAMILY = "exact"
@@ -416,8 +438,10 @@ class AdAnalyticsEngine:
                              divisor_ms=self.divisor,
                              lateness_ms=self.lateness,
                              use_native=cfg.jax_use_native_encoder)
-            # the exact count never reads the user/page columns
-            e.set_intern_ids(False)
+            if self.HASHED_IDS:
+                e.set_hash_ids(True)
+            elif not self.NEEDS_INTERNED_IDS:
+                e.set_intern_ids(False)
             return e
 
         self.encoder = _new_encoder()
@@ -540,8 +564,25 @@ class AdAnalyticsEngine:
     # Engines whose device state is keyed by interned ids must keep one
     # consistent intern table and clear this (encode.parallel).
     PARALLEL_ENCODE_OK = True
+    # Whether process_chunk folds groups of scan_batches through
+    # _device_scan / _device_scan_packed; False folds batch by batch
+    # (drains stay deferred either way).
+    SCAN_SUPPORTED = True
     # the encoded columns the unpacked wire ships, in scan order
     SCAN_COLUMNS = ("ad_idx", "event_type", "event_time", "valid")
+    # Extra columns a packed scan ships between the packed word and
+    # event_time (HLL's user ids).
+    PACKED_EXTRA_COLS: tuple = ()
+    # Whether the fold reads the interned user/page columns; when False
+    # the encoder skips interning (two hash probes an event).
+    NEEDS_INTERNED_IDS = False
+    # Stateless crc32 id columns instead of intern indices (wins over
+    # NEEDS_INTERNED_IDS), for folds that only need a well-mixed
+    # identity (HLL): the same across pool workers and restarts.
+    HASHED_IDS = False
+    # Whether _device_step ships the packed word when _pack_ok (the
+    # sketch steps ship separate columns); read by the transfer ledger.
+    STEP_PACKS = True
 
     # ------------------------------------------------------------------
     def _maybe_device_decoder(self, mode: str, pipelined: bool = False):
@@ -564,6 +605,11 @@ class AdAnalyticsEngine:
         if not (type(self)._device_step is AdAnalyticsEngine._device_step
                 and type(self)._device_scan
                 is AdAnalyticsEngine._device_scan):
+            if mode == "on":
+                print(f"device decode requested but the "
+                      f"{self.ENGINE_FAMILY!r} engine's fold reads columns "
+                      f"the decode kernel does not build; host encode",
+                      file=sys.stderr, flush=True)
             return None
         if self._track_dirty_rows():
             return None
@@ -599,7 +645,7 @@ class AdAnalyticsEngine:
         zb = self.encoder.encode([], self.batch_size)
         with self.tracer.span("warmup"):
             self._device_step(zb)
-            if self.scan_batches > 1:
+            if self.SCAN_SUPPORTED and self.scan_batches > 1:
                 self._fold_stack([zb, zb])
             if self._devdecode is not None:
                 self.state = self._devdecode.warmup(self.state,
@@ -656,7 +702,7 @@ class AdAnalyticsEngine:
         run: list = []
 
         def flush_run() -> None:
-            if K <= 1:
+            if not self.SCAN_SUPPORTED or K <= 1:
                 for b in run:
                     self._fold(b)
             else:
@@ -717,9 +763,11 @@ class AdAnalyticsEngine:
         """Ship ``batches`` as [K, B] stacks and fold them with one scan
         call.  Returns the host stacks shipped."""
         if self._pack_ok:
-            stacks = [np.stack([wc.pack_columns(b.ad_idx, b.event_type,
-                                                b.valid) for b in batches]),
-                      np.stack([b.event_time for b in batches])]
+            stacks = ([np.stack([wc.pack_columns(b.ad_idx, b.event_type,
+                                                 b.valid) for b in batches])]
+                      + [np.stack([getattr(b, c) for b in batches])
+                         for c in self.PACKED_EXTRA_COLS]
+                      + [np.stack([b.event_time for b in batches])])
             self._device_scan_packed(*map(self._to_device, stacks))
             return stacks
         stacks = [np.stack([getattr(b, name) for b in batches])
@@ -925,8 +973,11 @@ class AdAnalyticsEngine:
         batch: the column buffers at their wire dtypes, with
         ``batch.ad_idx`` standing in for the packed word (same int32
         ``[B]`` shape)."""
-        if self._pack_ok:
-            return "packed", [batch.ad_idx, batch.event_time]
+        if self._pack_ok and self.STEP_PACKS:
+            return "packed", ([batch.ad_idx]
+                              + [getattr(batch, c)
+                                 for c in self.PACKED_EXTRA_COLS]
+                              + [batch.event_time])
         return "unpacked", [getattr(batch, c) for c in self.SCAN_COLUMNS]
 
     def _note_xfer(self, fmt: str, events: int, cols) -> None:
@@ -1026,7 +1077,10 @@ class AdAnalyticsEngine:
                 and self._device_compacts())
 
     def _track_dirty_rows(self) -> bool:
-        return (self.state.counts.shape[0] * self.state.counts.shape[1]
+        counts = getattr(self.state, "counts", None)
+        if counts is None:  # sketch states keep no dense [C, W] block
+            return False
+        return (counts.shape[0] * counts.shape[1]
                 >= self.COMPACT_DRAIN_MIN_CELLS)
 
     def _note_batch_campaigns(self, batches) -> None:
@@ -1108,7 +1162,7 @@ class AdAnalyticsEngine:
         buffers, on the stream that ran the steps, so they see every step
         before the drain) behind one CUDA event; the dense fallback of a
         compact drain stays on the card."""
-        self.drain_stats[parked[0]] += 1
+        self.drain_stats[parked[0]] = self.drain_stats.get(parked[0], 0) + 1
         done = None
         if self.device.type == "cuda":
             skip = self._FALLBACK.get(parked[0])
@@ -1166,7 +1220,10 @@ class AdAnalyticsEngine:
                 ci, si = np.nonzero(deltas)
                 vals = deltas[ci, si]
             else:
-                raise ValueError(f"unknown parked drain tag {tag!r}")
+                # an engine's own parked drain (the HLL estimate block):
+                # the subclass absorbs it, still in dispatch order
+                self._materialize_custom(parked)
+                continue
             if ci.size == 0:
                 continue
             wid = _to_numpy(wids_t)[si]
@@ -1178,6 +1235,11 @@ class AdAnalyticsEngine:
                     (ci.astype(np.int64),
                      base + wid.astype(np.int64) * self.divisor,
                      vals.astype(np.int64)))
+
+    def _materialize_custom(self, parked: tuple) -> None:
+        """Hook for engines that park drains under their own tag (see
+        ``_materialize_drains``); this engine parks none."""
+        raise ValueError(f"unknown parked drain tag {parked[0]!r}")
 
     def _decode_compact(self, idx_t, vals_t, nnz_t, fallback):
         """Decode one cap-compacted drain: ``(row_idx, slot, vals)`` from
@@ -1197,10 +1259,16 @@ class AdAnalyticsEngine:
 
     def _fold_pending_arrays(self) -> None:
         """Merge ``_pending_np`` array triples into the ``_pending`` dict
-        (snapshots and the exactly-once ledger need the dict view)."""
+        (snapshots and the exactly-once ledger need the dict view).
+        Absolute engines (HLL) replace: list order is recency, so the
+        freshest estimate of a cell wins, as in write order."""
         for ci, ts, cnt in self._pending_np:
-            for c, t, n in zip(ci.tolist(), ts.tolist(), cnt.tolist()):
-                self._pending[(c, t)] += n
+            if self.absolute_counts:
+                for c, t, n in zip(ci.tolist(), ts.tolist(), cnt.tolist()):
+                    self._pending[(c, t)] = n
+            else:
+                for c, t, n in zip(ci.tolist(), ts.tolist(), cnt.tolist()):
+                    self._pending[(c, t)] += n
         self._pending_np.clear()
 
     def pending_counts(self) -> dict[tuple[int, int], int]:
@@ -1235,6 +1303,19 @@ class AdAnalyticsEngine:
         rows = [(campaigns[c], ts, n)
                 for (c, ts), n in self._pending.items()]
         self._pending.clear()
+        if self.absolute_counts and len(self._pending_np) > 1:
+            # several drains between flushes re-estimate the same
+            # open-window cells: write only the freshest value of each
+            ci = np.concatenate([t[0] for t in self._pending_np])
+            ts_a = np.concatenate([t[1] for t in self._pending_np])
+            cnt = np.concatenate([t[2] for t in self._pending_np])
+            order = np.lexsort((np.arange(len(ci)), ts_a, ci))
+            ci_s, ts_s = ci[order], ts_a[order]
+            last = np.concatenate(
+                [(ci_s[1:] != ci_s[:-1]) | (ts_s[1:] != ts_s[:-1]),
+                 [True]])
+            keep = np.sort(order[last])  # freshest per cell, stable order
+            self._pending_np = [(ci[keep], ts_a[keep], cnt[keep])]
         arrays = None
         table = self._native_table()
         if table is not None and self._pending_np:
@@ -1279,6 +1360,7 @@ class AdAnalyticsEngine:
             self._writer = _RedisWriter(
                 self.redis, self.tracer,
                 self._note_written, faults=self.faults,
+                absolute=self.absolute_counts,
                 retry_base_ms=self.cfg.jax_sink_retry_base_ms,
                 retry_cap_ms=self.cfg.jax_sink_retry_cap_ms,
                 dirty_cap_rows=self.cfg.jax_sink_dirty_cap_rows,
@@ -1350,7 +1432,10 @@ class AdAnalyticsEngine:
             return 0
         totals = self._sink_totals
         for key, n in self._pending.items():
-            totals[key] = totals.get(key, 0) + n
+            if self.absolute_counts:
+                totals[key] = n        # absolute engines: freshest wins
+            else:
+                totals[key] = totals.get(key, 0) + n
         if self._reconcile_all:
             abs_keys = self._taint | set(self._pending)
             delta_keys: list = []
@@ -1378,7 +1463,8 @@ class AdAnalyticsEngine:
             if rows_abs:
                 writer.submit(rows_abs, time_updated, absolute=True)
             if rows_delta:
-                writer.submit(rows_delta, time_updated)
+                writer.submit(rows_delta, time_updated,
+                              absolute=self.absolute_counts)
         else:
             stamp = now_ms() if time_updated is None else time_updated
             if rows_abs:
@@ -1452,7 +1538,12 @@ class AdAnalyticsEngine:
                                    for camp, ts, _ in batch)
                 continue
             for camp, ts, n in batch:
-                self._pending[(idx[camp], ts)] += n
+                if self.absolute_counts:
+                    # a fresher re-drained estimate already pending
+                    # supersedes the stale failed one
+                    self._pending.setdefault((idx[camp], ts), n)
+                else:
+                    self._pending[(idx[camp], ts)] += n
 
     # ------------------------------------------------------------------
     # live telemetry (obs/): pull-oriented — the sampler thread polls
@@ -1517,8 +1608,9 @@ class AdAnalyticsEngine:
         open, from the host watermark mirror (no device pull): a window
         starting at ``ws`` is closed once ``ws + divisor + lateness <=
         watermark``.  Conservative — it may point at a window that
-        already closed, never past one still open.  Its reader in the
-        JAX package is the sketch engines, which are not ported yet."""
+        already closed, never past one still open.  Read by the HLL
+        engine, whose drains keep open windows' registers on the
+        device."""
         if self._host_wm is None:
             return None
         base = self.encoder.base_time_ms or 0
@@ -1594,9 +1686,11 @@ class AdAnalyticsEngine:
             sorted(self._taint), np.int64).reshape(-1, 2)
         return snap
 
-    def _check_geometry(self, snap: Snapshot) -> None:
+    def _check_geometry(self, snap: Snapshot,
+                        extra: dict[str, int] | None = None) -> None:
         """Family + ring-geometry validation: window ids are relative to
-        divisor and base, slots to W, so a mismatch is a hard error."""
+        divisor and base, slots to W, so a mismatch is a hard error;
+        ``extra`` adds an engine's own meta keys (sketch geometry)."""
         fam = snap.meta.get("engine_family", "exact")
         if fam != self.ENGINE_FAMILY:
             raise ValueError(
@@ -1607,6 +1701,7 @@ class AdAnalyticsEngine:
                       divisor_ms=self.divisor,
                       lateness_ms=self.lateness,
                       window_slots=self.W)
+        checks.update(extra or {})
         for key, mine in checks.items():
             if int(snap.meta[key]) != mine:
                 raise ValueError(

@@ -20,10 +20,13 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``ENCODE_WORKERS``, ``SCAN_BATCHES``, ``WINDOW_SLOTS``, ``EXACTLY_ONCE``,
 ``BROKER_DIR`` (the file journal; default ``WORKDIR/broker``), and
 ``DEVICE`` (``cuda`` by default, passed to the engine as ``--device``;
-``cpu`` only when asked for).  ``VERIFY=1`` makes ``TORCH_TEST`` hold
-every window in Redis against the generator's oracle over the journal the
-load wrote (``VERIFY``, before the services stop) and record the result in
-``WORKDIR/verify.json``.
+``cpu`` only when asked for), ``ENGINE`` (``exact`` by default, ``hll``
+or ``sliding``; passed to the engine as ``--engine``).  ``VERIFY=1``
+makes ``TORCH_TEST`` hold every window in Redis against the generator's
+oracle over the journal the load wrote (``VERIFY``, before the services
+stop) and record the result in ``WORKDIR/verify.json``; the oracle counts
+exact views per tumbling window, so SETUP refuses it with any ``ENGINE``
+but ``exact``.
 
 Observability knobs, under the JAX harness's names and all default-off:
 ``METRICS_INTERVAL_MS`` (``WORKDIR/metrics.jsonl``), ``OBS_LIFECYCLE``
@@ -79,6 +82,8 @@ STOP_STATS_GRACE_S = float(os.environ.get("STOP_STATS_GRACE", "2.5"))
 CHECKPOINT_DIR = os.environ.get("CHECKPOINT_DIR", "")
 # the torch device the engine folds on: the card unless asked otherwise
 DEVICE = os.environ.get("DEVICE", "cuda")
+# the aggregation engine: exact | hll | sliding (BASELINE configs #1-#3)
+ENGINE = os.environ.get("ENGINE", "exact")
 # Fake Kafka as a standalone TCP broker process (START_KAFKA/STOP_KAFKA):
 # the generator produces and the engine consumes over a real socket.
 # KAFKA_BROKERS picks the address (default 127.0.0.1:9092); naming one
@@ -243,6 +248,11 @@ def op_setup() -> None:
     if refused:
         raise SystemExit("not ported to the PyTorch harness yet: "
                          + ", ".join(refused))
+    if VERIFY and ENGINE != "exact":
+        # gen.dostats counts exact views per tumbling window: it has no
+        # answer for distinct-user estimates or sliding windows
+        raise SystemExit(f"VERIFY holds exact tumbling counts against the "
+                         f"journal; it does not apply to ENGINE={ENGINE}")
     os.makedirs(WORKDIR, exist_ok=True)
     # Start from a fresh journal — except on a checkpoint-resume run (the
     # snapshot's offsets index THIS journal) or in a directory the user
@@ -438,6 +448,8 @@ def op_start_torch_processing() -> None:
     global _ENGINE_LOG_START
     args = ["--confPath", CONF_FILE, "--workdir", WORKDIR,
             "--brokerDir", BROKER_DIR, "--device", DEVICE]
+    if ENGINE != "exact":
+        args += ["--engine", ENGINE]
     if CHECKPOINT_DIR:
         args += ["--checkpointDir", CHECKPOINT_DIR]
     if running_pid("engine") is not None:

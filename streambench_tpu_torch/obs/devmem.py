@@ -12,7 +12,8 @@ the hot path, under the reference's metric names:
   shared memory per block (``smem_bytes``) and argument bytes.  Field by
   field against XLA's analysis: ``argument_bytes`` are the three
   ``[B]`` row columns the launch reads plus the plan struct;
-  ``output_bytes`` the ``[C, W]`` counts plane it adds into, IN PLACE,
+  ``output_bytes`` the ``[C, W]`` counts plane it adds into (the
+  sliding engine's sliced fold: its ``[C*S, W]`` bucket plane), IN PLACE,
   so ``alias_bytes`` equals it; ``temp_bytes`` is 0, as shared memory
   is on-chip and the kernel allocates nothing in device memory; and
   ``code_bytes`` has no counterpart (the kernel's code lives in its
@@ -20,7 +21,7 @@ the hot path, under the reference's metric names:
   per-engine **peak-footprint estimate** is the reference's: persistent
   state bytes + the largest single kernel's (argument + output + temp).
   A CPU engine launches no kernel (its count is the plain version), so
-  its kernel table is empty.
+  its kernel table is empty; so is the HLL engine's, on any device.
 
 - **live-block census** — the reference walks ``jax.live_arrays()``;
   the port reads the CUDA caching allocator: the active blocks of
@@ -144,7 +145,9 @@ class DeviceMemoryLedger:
         """Record every kernel ``engine`` launches (its
         ``_devmem_kernels()`` hook) and the persistent state footprint."""
         self.device = engine.device
-        self.state_bytes = state_nbytes(engine.state)
+        # the sliding engine's t-digest lives beside its window state
+        self.state_bytes = state_nbytes(
+            (engine.state, getattr(engine, "digest", ())))
         for name, rep in engine._devmem_kernels():
             self.note_kernel(name, rep)
         if self._g_peak is not None:

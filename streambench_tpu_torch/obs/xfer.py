@@ -7,7 +7,9 @@ The port of ``streambench_tpu/obs/xfer.py``.
   every dispatch's host->device payload is accounted EXACTLY (bytes
   computed from the dispatched numpy buffers' dtypes and shapes), keyed
   by wire format — ``packed`` (the int32 wire word + the int32 time,
-  8 B per shipped row), ``unpacked`` (the separate columns; ``valid``
+  8 B per shipped row; 12 B on the HLL engine's scans, whose int32 user
+  ids ride between them; the sketch engines' single-batch steps ship
+  ``unpacked``), ``unpacked`` (the separate columns; ``valid``
   ships as 1-byte bools, so 13 B per row), ``devdecode`` (the raw-bytes
   format of device decode: each journal block's padded byte buffer, once,
   plus the int32 start and length of every row).  The bytes are those of the

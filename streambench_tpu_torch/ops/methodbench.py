@@ -1,6 +1,7 @@
-"""The measured method table: the four counting arms of ``apply_count``.
+"""The measured method table: the counting arms of the window folds.
 
-The port of the tumbling part of ``streambench_tpu/ops/methodbench.py``.
+The port of the tumbling and sliding parts of
+``streambench_tpu/ops/methodbench.py``.
 It times ``windowcount.apply_count`` per method at one geometry (C
 campaigns, W ring slots, B rows) on a synthetic batch, after checking
 that every arm it times gives the same counts, and caches the table.
@@ -15,6 +16,18 @@ card stays K1 (``engine.pipeline.default_method``).  The same cache file
 carries the device-decode A/B winner under ``<device type>/devdecode``
 (``ops.devdecode.auto_enabled``).
 
+The sliding family (``measure_sliding``) times one whole sliding fold
+step per arm: ``scatter`` and ``matmul``, the unsliced fold (S ring
+claims) with that membership landing, and ``sliced``, one claim and one
+count into the ``[C*S, W]`` bucket plane with the engine's method (K1 on
+the card).  It runs at the ring the sliding engine sizes for C
+(``sliding.ring_slots``: 2048 slots at C = 100), and ``--window-slots``
+sizes only the count family.  Its winner, under
+``<device type>/sliding/S<S>``, is what ``jax.sliding.sliced: auto``
+reads (``engine.sketches._sliced_auto``), and only at the ``[C, W]`` it
+was measured at.
+The count-min family waits for the session + CMS engine.
+
 The cache is one JSON file of the port's own
 (``$STREAMBENCH_TORCH_METHOD_CACHE``, default
 ``~/.cache/streambench_tpu_torch/method_bench.json``), keyed by the torch
@@ -23,7 +36,7 @@ device type and the campaign count's power-of-two bucket
 
     python -m streambench_tpu_torch.ops.methodbench [--device cuda|cpu]
         [--campaigns C] [--window-slots W] [--batch B] [--smoke]
-        [--no-record]
+        [--no-record] [--family count|sliding|all]
 
 On the card every arm is timed with CUDA events; on the CPU (only when
 asked for, as the tests do) with the host clock.
@@ -38,6 +51,7 @@ import time
 import numpy as np
 
 METHODS = ("scatter", "kernel", "onehot", "matmul")
+SLIDING_METHODS = ("scatter", "matmul", "sliced")
 # Operand bytes an arm may allocate per call before the table skips it.
 MAX_OPERAND_BYTES = 2 << 30
 _DEFAULT_CACHE = os.path.join(
@@ -240,6 +254,181 @@ def measure_and_record(num_campaigns: int = 100, window_slots: int = 16,
     return res
 
 
+# ----------------------------------------------------------------------
+# Sliding family: one whole sliding fold step per arm.
+
+def sliding_key(device_type: str, memberships: int) -> str:
+    return f"{device_type}/sliding/S{int(memberships)}"
+
+
+def sliding_winner(device_type: str, memberships: int,
+                   num_campaigns: int | None = None,
+                   window_slots: int | None = None) -> str | None:
+    """The measured sliding-family winner for this device type and S, or
+    None when nothing was measured, or when the entry was measured at
+    another ``[C, W]`` than the one given (``jax.sliding.sliced: auto``
+    then takes the sliced fold wherever its plane fits)."""
+    entry = cached_value(sliding_key(device_type, memberships))
+    if entry is None:
+        return None
+    for key, want in (("num_campaigns", num_campaigns),
+                      ("window_slots", window_slots)):
+        if want is not None and entry.get(key, want) != want:
+            return None
+    winner = entry.get("winner")
+    return winner if winner in SLIDING_METHODS else None
+
+
+def _sliding_windows(state, sliced: bool, size_ms: int,
+                     slide_ms: int) -> dict:
+    """``(campaign, window id) -> count`` of a fold's drained windows."""
+    from streambench_tpu_torch.ops import sliding
+    from streambench_tpu_torch.ops import windowcount as wc
+
+    if sliced:
+        win, wid, _ = sliding.flush_sliced(state, size_ms=size_ms,
+                                           slide_ms=slide_ms)
+    else:
+        win, wid, _ = wc.flush_deltas(
+            state, divisor_ms=slide_ms,
+            lateness_ms=sliding.effective_lateness(size_ms, slide_ms,
+                                                   60_000))
+    win, wid = win.cpu().numpy(), wid.cpu().numpy()
+    ci, si = np.nonzero(win)
+    return {(int(c), int(wid[s])): int(win[c, s]) for c, s in zip(ci, si)
+            if wid[s] >= 0}
+
+
+def measure_sliding(num_campaigns: int = 100,
+                    window_slots: int | None = None,
+                    batch_size: int = 8192, size_ms: int = 10_000,
+                    slide_ms: int = 1_000, iters: int = 20,
+                    methods: tuple = SLIDING_METHODS,
+                    device: str = "cuda", time_budget_s: float = 5.0,
+                    seed: int = 0) -> dict:
+    """Time one sliding fold step per arm at one geometry; the ring is
+    the engine's (``sliding.ring_slots``) unless ``window_slots`` is
+    given.
+
+    A synthetic batch of ``B`` views, uniform campaigns, event times on
+    ``W - S`` slides in order.  Every arm first folds it into a fresh
+    state, and its drained windows must equal the first arm's (an arm
+    that differs is recorded with an error and takes no part in the
+    ranking); then a warm step and up to ``iters`` timed steps, between
+    CUDA events on the card, by the host clock on the CPU."""
+    import torch
+
+    from streambench_tpu_torch.engine.pipeline import default_method
+    from streambench_tpu_torch.ops import sliding
+    from streambench_tpu_torch.ops import windowcount as wc
+    from streambench_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    C, B = int(num_campaigns), int(batch_size)
+    W = int(window_slots or sliding.ring_slots(C, size_ms, slide_ms))
+    S = int(size_ms) // int(slide_ms)
+    join_table = torch.from_numpy(np.concatenate(
+        [np.arange(C, dtype=np.int32), np.array([-1], np.int32)])).to(dev)
+    cols = [torch.from_numpy(c).to(dev) for c in (
+        rng.integers(0, C, B).astype(np.int32),
+        np.zeros(B, np.int32),
+        np.sort(rng.integers(0, max(W - S, 1), B).astype(np.int32)
+                * np.int32(slide_ms)),
+        np.ones(B, bool))]
+    bucket_method = default_method(dev)
+    cuda = dev.type == "cuda"
+    out: dict = {
+        "device_type": dev.type,
+        "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "num_campaigns": C, "window_slots": W, "batch_size": B,
+        "size_ms": int(size_ms), "slide_ms": int(slide_ms),
+        "memberships": S, "sliced_count_method": bucket_method,
+        "iters": int(iters), "methods": {},
+    }
+    per_budget = time_budget_s / max(len(methods), 1)
+    want = None
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    for method in methods:
+        sliced = method == "sliced"
+
+        def run(st, method=method, sliced=sliced):
+            if sliced:
+                return sliding.step_sliced(
+                    st, join_table, *cols, size_ms=size_ms,
+                    slide_ms=slide_ms, method=bucket_method)
+            return sliding.step(st, join_table, *cols, size_ms=size_ms,
+                                slide_ms=slide_ms, method=method)
+
+        def fresh(sliced=sliced):
+            return (sliding.init_sliced(C, W, S, device=dev) if sliced
+                    else wc.init_state(C, W, dev))
+
+        try:
+            got = _sliding_windows(run(fresh()), sliced, size_ms, slide_ms)
+            if want is None:
+                want = got
+            if got != want:
+                out["methods"][method] = {
+                    "error": f"windows differ from the {methods[0]} arm's"}
+                continue
+            st = fresh()
+            sync()
+            t0 = time.perf_counter()
+            st = run(st)
+            sync()
+            warm_s = time.perf_counter() - t0
+            n = (1 if warm_s > per_budget
+                 else max(1, min(iters, int(per_budget / max(warm_s,
+                                                             1e-7)))))
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n):
+                    st = run(st)
+                end.record()
+                end.synchronize()
+                per_call_ms = start.elapsed_time(end) / n
+            else:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    st = run(st)
+                per_call_ms = (time.perf_counter() - t0) * 1e3 / n
+            out["methods"][method] = {
+                "ms_per_step": per_call_ms,
+                "ns_per_event": per_call_ms * 1e6 / B,
+                "timed_iters": n,
+            }
+        except Exception as e:  # a broken arm must not kill the table
+            out["methods"][method] = {"error": repr(e)}
+    ranked = sorted(
+        (m for m, v in out["methods"].items() if "ns_per_event" in v),
+        key=lambda m: out["methods"][m]["ns_per_event"])
+    out["winner"] = ranked[0] if ranked else None
+    return out
+
+
+def measure_and_record_sliding(num_campaigns: int = 100,
+                               window_slots: int | None = None,
+                               batch_size: int = 8192,
+                               size_ms: int = 10_000,
+                               slide_ms: int = 1_000, **kw) -> dict:
+    """Measure + persist under ``<device type>/sliding/S<S>``, the key
+    ``jax.sliding.sliced: auto`` reads; re-measuring overwrites."""
+    res = measure_sliding(num_campaigns=num_campaigns,
+                          window_slots=window_slots,
+                          batch_size=batch_size, size_ms=size_ms,
+                          slide_ms=slide_ms, **kw)
+    if res.get("winner"):
+        record(sliding_key(res["device_type"], res["memberships"]), res)
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -256,15 +445,28 @@ def main(argv=None) -> int:
                          "path end to end)")
     ap.add_argument("--no-record", action="store_true",
                     help="print the table without touching the cache")
+    ap.add_argument("--family", default="all",
+                    choices=("count", "sliding", "all"),
+                    help="which fold family to measure")
     args = ap.parse_args(argv)
     if args.smoke:
         args.campaigns, args.window_slots = 8, 4
         args.batch, args.iters = 128, 2
-    fn = measure_methods if args.no_record else measure_and_record
-    res = {"count": fn(num_campaigns=args.campaigns,
-                       window_slots=args.window_slots,
-                       batch_size=args.batch, iters=args.iters,
-                       device=args.device)}
+    res = {}
+    if args.family in ("count", "all"):
+        fn = measure_methods if args.no_record else measure_and_record
+        res["count"] = fn(num_campaigns=args.campaigns,
+                          window_slots=args.window_slots,
+                          batch_size=args.batch, iters=args.iters,
+                          device=args.device)
+    if args.family in ("sliding", "all"):
+        # at the ring the engine sizes for these campaigns, the geometry
+        # jax.sliding.sliced: auto reads the winner for
+        fn = (measure_sliding if args.no_record
+              else measure_and_record_sliding)
+        res["sliding"] = fn(num_campaigns=args.campaigns,
+                            batch_size=args.batch, iters=args.iters,
+                            device=args.device)
     print(json.dumps(res, indent=1, sort_keys=True))
     return 0 if all(v.get("winner") for v in res.values()) else 1
 

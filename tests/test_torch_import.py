@@ -78,7 +78,11 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.ops.devdecode",
                 "streambench_tpu_torch.ops.methodbench",
                 "streambench_tpu_torch.native",
-                "streambench_tpu_torch.datagen.gen"} | {
+                "streambench_tpu_torch.datagen.gen",
+                "streambench_tpu_torch.engine.sketches",
+                "streambench_tpu_torch.ops.hll",
+                "streambench_tpu_torch.ops.sliding",
+                "streambench_tpu_torch.ops.tdigest"} | {
                     f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES} | {
                     f"streambench_tpu_torch.chaos.{m}" for m in CHAOS_MODULES}
     assert expected <= set(got["modules"])
