@@ -5,8 +5,8 @@ Drives the port's main path on one CUDA card and fails (non-zero exit, no
 result line) when any phase fails:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
-2. Build: the two CUDA kernel libraries (``nvcc``, one per source) and
-   the native host library (``g++``), all from the sources in this
+2. Build: the three CUDA kernel libraries (``nvcc``, one per source)
+   and the native host library (``g++``), all from the sources in this
    checkout, in parallel.
 3. Kernels: the count kernel K1 (``csrc/count_cells.cu``) against its
    plain PyTorch version and a numpy count on the card, exact equality, at
@@ -40,9 +40,22 @@ result line) when any phase fails:
    method table (``ops.methodbench``): the four ``apply_count`` arms
    timed with CUDA events at config #1's geometry (C = 100, W = 16; B =
    4096 and 8192) and config #5's (C = 1e6, W = 64, B = 8192), the arms
-   whose operands would not fit marked as skipped.
+   whose operands would not fit marked as skipped.  Then the count-min
+   kernel K3 (``csrc/cms_rows.cu``): its four entry points (update,
+   query, the two-stage refresh, the hashed columns) against their plain
+   PyTorch versions on the card, exactly, in the cases of ``CMS_CASES``
+   (the session engine's step, D = 4, Wd = 2048, 8192 rows of Zipf(1.1)
+   keys with a third masked; keys -1 and past 2^28; the two-stage refresh
+   at Ws = 256; a bandwidth case, 2^22 rows, D = 8, Wd = 2^20), each with
+   its device time over CUDA-graph replays, eager time, the plain
+   version's device time, the byte bound (9 B a row in, 8 B a touched
+   cell for the update, 4 B a gathered cell for the query) and the launch
+   floor, and ``index_add_`` over precomputed columns as the update's
+   yardstick (the scatter alone: no PyTorch call hashes); then the CMS
+   method table at Wd = 2048 (``methodbench.measure_cms``: flat, rowloop,
+   twostage, salsa).
 4. End to end: BASELINE config #1 (``conf/benchmarkConf.yaml`` with the
-   in-process Redis store): generate the catchup journal (10,000,000
+   in-process Redis store): generate the catchup journal (5,000,000
    events by default), run ``AdAnalyticsEngine(device="cuda")`` under
    ``StreamRunner.run_catchup``, and require the generator's oracle
    (``gen.check_correct``) to find every window exact and the count
@@ -124,7 +137,7 @@ result line) when any phase fails:
    and phase 8's pipelined (``$STREAMBENCH_TORCH_METHOD_CACHE``, here a
    file under ``build/``).
 13. Paced decode: phase 9's composite with ``DECODE_DEVICE=on``, 100,000
-   ev/s for 30 s, ``VERIFY=1``; the window latency beside phase 9's and
+   ev/s for 15 s, ``VERIFY=1``; the window latency beside phase 9's and
    K2's launches from the engine's stats line.
 
 14. Supervised chaos: the chaos layer (``streambench_tpu_torch.chaos``) on
@@ -183,7 +196,39 @@ result line) when any phase fails:
    sliced plane (a half batch with a quarter of its rows masked and
    negative, and a full batch).
 
-Each kernel's launches are counted over each of phases 4, 6-15, from 0
+16. BASELINE config #4, session windows + count-min heavy hitters, as
+   the reference benchmark deploys it (``bench.py:1199-1214``) at its
+   paced 100,000 ev/s: a 5 s gap, 400,000 users (max(50,000, 4 x rate)),
+   a 2^20-user session state (12 MB on the card), CMS D = 4, Wd = 2048,
+   top 16 from a 128-slot ring.  Its journal is 3,000,000 events of the
+   stock topology, 100 to a millisecond (30 s of the stream), written
+   with the generator's ``EventSource`` over ``make_ids(400,000)``, then
+   a tail of 20,000 events of 2,000 new users from gap + lateness + 1 s
+   past the body, whose watermark expires every session of the body; the
+   engines' host clock is held 1 s past its last event.  (a)
+   ``SessionCMSEngine(device="cuda")`` with the fixed sketch under
+   ``StreamRunner.run_catchup``, draining only where the catchup ends:
+   that drain closes each body user's last session by time expiry, each
+   in the latency bin the journal gives; every click of a user within
+   capacity in a closed session (after ``close()``), ``dropped`` = the
+   journal's overflow, each reported heavy hitter's estimate at least its
+   exact clicks, ``<hashtable>_hh`` holding the report, K3's update and
+   query launched, K1 not; and against the same engine on the CPU over
+   the same journal, drained at the same point, the session arrays,
+   sketch, ring, counters and latency histogram bit-identical and the
+   heavy hitters equal.  (b) ``jax.cms.mode: salsa``, held as (a), and
+   its plane widened somewhere (``salsa.stats`` merged pairs).  (c)
+   ``jax.cms.stages: 2`` on the first 1,000,000 events: every user's
+   small-stage estimate at least its exact clicks.  (d) An engine that
+   drains each second of wall clock and snapshots after every drain is
+   abandoned half way; a fresh one resumes, its drains expire what (a)'s
+   did, and its state equals (a)'s.  Each run's
+   ev/s (with ``close()`` and without), spans, host ms of the fold a
+   batch and K3's launches per entry point; one run under
+   ``torch.profiler`` gives the device operations one eager batch
+   launches (X5).
+
+Each kernel's launches are counted over each of phases 4, 6-16, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -191,6 +236,7 @@ is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--events N] [--out FILE]
     python3 chip_smoke.py --only-sketches  # phases 1-3 and 15 alone
+    python3 chip_smoke.py --only-session   # phases 1-3 and 16 alone
 """
 
 from __future__ import annotations
@@ -220,9 +266,10 @@ LARGE_EVENTS = 1_000_000           # config #5's dataset, bench.py:1227-1230
 CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
            "jax.batch.size": 8192, "jax.num.campaigns": 1_000_000,
            "jax.ads.per.campaign": 1}
-# phases 9 and 10: (rate ev/s, seconds) of the paced load
+# phases 9, 10 and 13: (rate ev/s, seconds) of the paced load
 PACED_LOAD = (100_000, 30)
 KAFKA_LOAD = (10_000, 15)
+PACED_DECODE_LOAD = (100_000, 15)
 # phase 11: the paced load and the harness's obs knobs
 OBS_LOAD = (100_000, 30)
 OBS_ENV = {"METRICS_INTERVAL_MS": "1000", "OBS_LIFECYCLE": "1",
@@ -347,6 +394,36 @@ CASES = (
 SKETCH_EVENTS = 1_000_000
 SKETCH_SEED = 61
 SLIDE_CLASSES = 10                 # S = 10 s / 1 s
+# K3's cases: (label, rows, D, Wd, Ws of the two-stage refresh or None,
+# keys); "zipf" = measure_cms's Zipf(1.1) keys capped at 2^28, "edge" =
+# the same with a third of the keys -1 and a third past 2^28 (up to the
+# int32 end); weights 1-7 and a third of the rows masked in every case
+CMS_CASES = (
+    ("main path: the session engine's step, D = 4, Wd = 2048, 8192 rows",
+     8192, 4, 2048, None, "zipf"),
+    ("keys -1 and past 2^28", 8192, 4, 2048, None, "edge"),
+    ("the two-stage refresh, Ws = 256", 8192, 4, 2048, 256, "zipf"),
+    ("bandwidth (not a main-path shape): 2^22 rows, D = 8, Wd = 2^20",
+     1 << 22, 8, 1 << 20, None, "zipf"),
+)
+CMS_METHOD_WIDTH = 2048            # the CMS method table's plane
+# phase 16: BASELINE #4 as bench.py:1199-1214 deploys it at its paced
+# rate of 100,000 ev/s: a 5 s gap, max(50,000, 4 x rate) users, the
+# session state sized 1 << max(16, bit_length(2 * users - 1)); the
+# journal holds 30 s of the stream, 100 events a millisecond, then a tail
+# of SESSION_TAIL_EVENTS events of SESSION_TAIL_USERS users not seen
+# before, starting gap + lateness + 1 s past the body, so that every
+# session of the body expires by the watermark inside the run
+SESSION_EVENTS = 3_000_000
+SESSION_TAIL_EVENTS = 20_000
+SESSION_TAIL_USERS = 2_000
+SESSION_RATE = 100_000
+SESSION_USERS = max(50_000, 4 * SESSION_RATE)
+SESSION_GAP_MS = 5_000
+SESSION_SEED = 16
+SESSION_TWO_STAGE_EVENTS = 1_000_000
+SESSION_PROFILE_EVENTS = 200_000
+SESSION_RUNS = ("fixed", "salsa", "two_stage", "resume")
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -384,6 +461,7 @@ def phase_build() -> list[str]:
     threads = [threading.Thread(target=run, args=(n, f)) for n, f in
                (("count kernel K1 (nvcc)", _build.count_cells_lib),
                 ("decode kernel K2 (nvcc)", _build.decode_rows_lib),
+                ("count-min kernel K3 (nvcc)", _build.cms_rows_lib),
                 ("native host library (g++)", native.build))]
     for t in threads:
         t.start()
@@ -397,7 +475,8 @@ def phase_build() -> list[str]:
 
     ptxas = []
     for log in sorted(os.listdir(BUILD_DIR)):
-        if (log.startswith(("libcount_cells", "libdecode_rows"))
+        if (log.startswith(("libcount_cells", "libdecode_rows",
+                            "libcms_rows"))
                 and log.endswith(".log")):
             with open(os.path.join(BUILD_DIR, log)) as f:
                 ptxas += [line.strip() for line in f.read().splitlines()
@@ -497,10 +576,8 @@ def empty_launch() -> None:
 
     from streambench_tpu_torch.ops import _build
 
-    rc = _build.count_cells_lib().sb_empty_launch(
-        torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
-    if rc:
-        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+    _build.launch("empty", _build.count_cells_lib().sb_empty_launch,
+                  torch.cuda.current_device())
 
 
 def _call_ms_in_turns(fns: dict, rounds: int = 5, reps: int = 200) -> dict:
@@ -2838,15 +2915,703 @@ def phase_sketches(events: int = SKETCH_EVENTS,
     return out
 
 
+# ----------------------------------------------------------------------
+# K3: the count-min kernel (phase 3) and BASELINE #4 (phase 16)
+
+def _cms_inputs(rng, B: int, kind: str):
+    """numpy (keys, weights, mask) of one K3 case (see CMS_CASES): the
+    method table's batch (``methodbench.cms_batch``), then the case's
+    edge keys and mask."""
+    from streambench_tpu_torch.ops.methodbench import cms_batch
+
+    keys, weights = cms_batch(rng, B)
+    if kind == "edge":
+        keys[::3] = -1
+        keys[1::3] = rng.integers(2**28 + 1, 2**31, keys[1::3].size)
+    return keys, weights, rng.random(B) >= 1 / 3
+
+
+def _distinct(flat) -> int:
+    """Distinct values of an index tensor (on the card)."""
+    import torch
+
+    return int(torch.unique(flat).numel())
+
+
+def _cms_case(label: str, B: int, D: int, Wd: int, Ws, kind: str,
+              seed: int, floor: dict) -> dict:
+    """K3's four entry points against their plain versions on the card,
+    exactly (and the update against a numpy count where the case is
+    small); device times over CUDA-graph replays, eager times, the byte
+    bounds of this data, the launch floor, and ``index_add_`` over
+    precomputed columns as the update's yardstick (the scatter alone: no
+    PyTorch call hashes)."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.ops import cmsrows
+    from streambench_tpu_torch.ops.salsa import oracle_cols_np
+
+    rng = np.random.default_rng(seed)
+    keys_np, w_np, m_np = _cms_inputs(rng, B, kind)
+    base_np = rng.integers(0, 50, (D, Wd)).astype(np.int32)
+    k, w, m = (torch.from_numpy(a).cuda() for a in (keys_np, w_np, m_np))
+    base = torch.from_numpy(base_np).cuda()
+    diffs = {}
+
+    # update: the kernel and the plain version from one plane
+    tk, totk = base.clone(), torch.tensor(7, dtype=torch.int32,
+                                          device="cuda")
+    tp, totp = base.clone(), totk.clone()
+    cmsrows.cms_update(tk, totk, k, w, m)
+    cmsrows.cms_update_plain(tp, totp, k, w, m)
+    diffs["update"] = max(int((tk.long() - tp.long()).abs().max()),
+                          abs(int(totk) - int(totp)))
+    if B <= 8192:
+        want = base_np.astype(np.int64)
+        cols_np = oracle_cols_np(keys_np, D, Wd)
+        for d in range(D):
+            np.add.at(want[d], cols_np[d][m_np], w_np[m_np])
+        diffs["update_numpy"] = int(np.abs(tk.cpu().numpy() - want).max())
+    diffs["query"] = int((cmsrows.cms_query(tk, k).long()
+                          - cmsrows.cms_query_plain(tk, k).long())
+                         .abs().max())
+    cols = cmsrows.cms_cols(k, D, Wd)
+    diffs["cols"] = int((cols.long() - cmsrows.row_cols_plain(k, D, Wd)
+                         .long()).abs().max())
+    if Ws:
+        small_np = rng.integers(0, 400, (D, Ws)).astype(np.int32)
+        sk = torch.from_numpy(small_np).cuda()
+        sp = sk.clone()
+        cmsrows.cms_refresh_small(tk, sk, k, m)
+        cmsrows.cms_refresh_small_plain(tk, sp, k, m)
+        diffs["refresh_small"] = int((sk.long() - sp.long()).abs().max())
+    torch.cuda.synchronize()
+
+    # the bytes this data needs: every row's mask byte, the key (and
+    # weight) of an unmasked row only (a masked row adds nothing), each
+    # distinct cell an unmasked row touches read and written once
+    # (update; the fat cells read once and the small ones read and
+    # written once by the refresh), each distinct cell read once (query)
+    rows = torch.arange(D, device="cuda", dtype=torch.int64)[:, None]
+    flat = rows * Wd + cols.long()
+    touched = _distinct(flat[:, m])
+    gathered = _distinct(flat)
+    live = B - int((~m_np).sum())
+    nbytes = {"update": B + 8 * live + 8 * touched + 8,
+              "query": 8 * B + 4 * gathered,
+              "cols": 4 * B + 4 * D * B}
+    if Ws:
+        sflat = rows * Ws + cmsrows.row_cols_plain(k, D, Ws).long()
+        nbytes["refresh_small"] = (B + 4 * live + 4 * touched
+                                   + 8 * _distinct(sflat[:, m]))
+
+    scratch = base.clone()
+    stot = torch.zeros((), dtype=torch.int32, device="cuda")
+    small = torch.zeros((D, Ws or 64), dtype=torch.int32, device="cuda")
+    fns = {
+        "update": (lambda: cmsrows.cms_update(scratch, stot, k, w, m),
+                   lambda: cmsrows.cms_update_plain(scratch, stot, k, w, m)),
+        "query": (lambda: cmsrows.cms_query(scratch, k),
+                  lambda: cmsrows.cms_query_plain(scratch, k)),
+        "cols": (lambda: cmsrows.cms_cols(k, D, Wd),
+                 lambda: cmsrows.row_cols_plain(k, D, Wd)),
+    }
+    if Ws:
+        fns["refresh_small"] = (
+            lambda: cmsrows.cms_refresh_small(scratch, small, k, m),
+            lambda: cmsrows.cms_refresh_small_plain(scratch, small, k, m))
+    lib_flat = torch.where(m[None, :], flat, D * Wd).reshape(-1)
+    lib_w = w.expand(D, -1).reshape(-1).contiguous()
+    padded = torch.zeros(D * Wd + 1, dtype=torch.int32, device="cuda")
+
+    def library():
+        padded.index_add_(0, lib_flat, lib_w)
+
+    reps = max(1, 100 * 8192 // B)
+    entries = {}
+    for name, (kernel, plain) in fns.items():
+        kernel_ms = _device_ms(kernel, reps)
+        entries[name] = {
+            "kernel_ms": kernel_ms,
+            "kernel_call_ms": _call_ms(kernel, max(1, 2 * reps)),
+            "plain_ms": _device_ms(plain, max(1, reps // 10)),
+            "bound_bytes": nbytes[name],
+            "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
+            "max_abs_diff": diffs[name]}
+        entries[name]["bound_share"] = entries[name]["bound_ms"] / kernel_ms
+    library_ms = _device_ms(library, reps)
+    calls = _call_ms_in_turns({"kernel": fns["update"][0],
+                               "library": library}, reps=max(1, 2 * reps))
+    plan = cmsrows.launch_plan(B)
+    case = {
+        "case": label, "shape": {"B": B, "D": D, "Wd": Wd, "Ws": Ws},
+        "inputs": kind, "plan": plan._asdict(), "masked_rows":
+            int((~m_np).sum()), "touched_cells": touched,
+        "gathered_cells": gathered, "entries": entries,
+        "max_abs_diff": max(diffs.values()), "diffs": diffs,
+        "library_ms": library_ms, "library_what": "index_add_ over "
+        "precomputed columns (the scatter alone: no PyTorch call hashes)",
+        "update_call_ms_in_turns": calls["kernel"],
+        "library_call_ms": calls["library"], **floor}
+    print(f"[cms_kernels] {json.dumps(case)}", flush=True)
+    if case["max_abs_diff"]:
+        raise AssertionError(f"K3 disagrees with its plain version at "
+                             f"{label!r}: {diffs}")
+    return case
+
+
+def phase_cms_kernels(floor: dict) -> list[dict]:
+    return [_cms_case(label, B, D, Wd, Ws, kind, 200 + i, floor)
+            for i, (label, B, D, Wd, Ws, kind) in enumerate(CMS_CASES)]
+
+
+def phase_cms_method_table() -> dict:
+    """The count-min method table at Wd = 2048 (``ops.methodbench``, CUDA
+    events): every arm must agree with ``flat`` and time."""
+    from streambench_tpu_torch.ops import methodbench
+
+    t = methodbench.measure_cms(width=CMS_METHOD_WIDTH, device="cuda")
+    print(f"[methods_cms] {json.dumps(t)}", flush=True)
+    bad = {m: v for m, v in t["methods"].items() if "error" in v}
+    if bad or not t["winner"]:
+        raise AssertionError(f"CMS method table: {bad}")
+    return t
+
+
+_SESSION_RE = re.compile(rb'"user_id": "([^"]*)"[^}]*?"event_type": '
+                         rb'"([a-z]+)"')
+
+
+class SessionData:
+    """Phase 16's journal: the stock topology (100 campaigns x 10 ads),
+    ``events`` events of ``users`` users ``rate / 1000`` to a millisecond
+    (the body), then ``tail`` events of ``tail_users`` new users at the
+    same rate from gap + lateness + 1 s past the body's last event (the
+    tail: its watermark expires every session of the body), written with
+    the generator's own pieces (``gen.EventSource`` over ``make_ids``);
+    and its truth: each event's user (by first appearance), time and
+    whether it is a click."""
+
+    def __init__(self, events: int, users: int, rate: int = SESSION_RATE,
+                 seed: int = SESSION_SEED, name: str = "smoke_session",
+                 cms_width: int = 2048, tail: int = SESSION_TAIL_EVENTS,
+                 tail_users: int = SESSION_TAIL_USERS):
+        import numpy as np
+
+        from streambench_tpu_torch.datagen import gen
+        from streambench_tpu_torch.io.journal import FileBroker
+        from streambench_tpu_torch.utils.ids import make_ids
+
+        t0 = time.perf_counter()
+        self.workdir = _workdir(name)
+        self.body, self.events = events, events + tail
+        self.users, self.cms_width = users, cms_width
+        self.capacity = 1 << max(16, (2 * users - 1).bit_length())
+        self.lateness = self.config().jax_allowed_lateness_ms
+        rng = random.Random(seed)
+        self.campaigns = make_ids(100, rng)
+        ads = make_ids(1000, rng)
+        gen.write_ids(self.campaigns, ads, self.workdir)
+        self.mapping = gen.write_ad_mapping_file(self.campaigns, ads,
+                                                 self.workdir)
+        page_ids = make_ids(100, rng)
+        src = gen.EventSource(ads=ads, user_ids=make_ids(users, rng),
+                              page_ids=page_ids, rng=rng)
+        tail_src = gen.EventSource(ads=ads, user_ids=make_ids(tail_users, rng),
+                                   page_ids=page_ids, rng=rng)
+        self.start = 1_700_000_000_000
+        per_ms = rate // 1000
+        self.body_end = self.start + (events - 1) // per_ms
+        tail_start = self.body_end + SESSION_GAP_MS + self.lateness + 1_000
+        self.times = np.concatenate([
+            self.start + np.arange(events, dtype=np.int64) // per_ms,
+            tail_start + np.arange(tail, dtype=np.int64) // per_ms])
+        self.broker = FileBroker(os.path.join(self.workdir, "broker"))
+        path = os.path.join(self.workdir, gen.KAFKA_JSON_FILE)
+        with open(path, "wb") as journal, self.broker.writer(
+                self.config().kafka_topic, append=False) as topic:
+            for lo in range(0, self.events, 100_000):
+                hi = min(lo + 100_000, self.events)
+                for s, e, source in ((lo, min(hi, events), src),
+                                     (max(lo, events), hi, tail_src)):
+                    if s >= e:
+                        continue
+                    ts = self.times[s:e]
+                    blob = source.events_blob_at(ts)
+                    if blob is None:
+                        blob = "".join(source.event_at(int(t)) + "\n"
+                                       for t in ts).encode()
+                    journal.write(blob)
+                    topic.append_bytes(blob)
+        self.end = int(self.times[-1])
+        with open(path, "rb") as f:
+            pairs = _SESSION_RE.findall(f.read())
+        if len(pairs) != self.events:
+            raise AssertionError(f"parsed {len(pairs)} of {self.events} "
+                                 f"events")
+        index: dict = {}
+        self.user = np.fromiter((index.setdefault(u, len(index))
+                                 for u, _ in pairs), np.int64, self.events)
+        self.click = np.fromiter((e == b"click" for _, e in pairs), bool,
+                                 self.events)
+        self.names = list(index)
+        if np.isin(self.user[events:], self.user[:events]).any():
+            raise AssertionError("a tail user was seen in the body")
+        self.gen_s = time.perf_counter() - t0
+        print(f"[session] generated {self.events} events ({events} of the "
+              f"body, {tail} of the tail) of {len(index)} users (capacity "
+              f"{self.capacity}) in {self.gen_s:.2f} s", flush=True)
+
+    def config(self, keys: dict | None = None):
+        return _config(self.workdir, keys)
+
+    def exact_clicks(self, n: int) -> dict:
+        """Exact clicks by user name over the first ``n`` events, users
+        within capacity only."""
+        import numpy as np
+
+        u = self.user[:n][self.click[:n]]
+        counts = np.bincount(u, minlength=len(self.names))
+        return {self.names[i].decode(): int(c)
+                for i, c in enumerate(counts)
+                if c and i < self.capacity}
+
+    def overflow(self, n: int) -> int:
+        """Events of the first ``n`` whose user falls past capacity."""
+        return int((self.user[:n] >= self.capacity).sum())
+
+    def expiry(self, clock: int) -> tuple:
+        """The time-expired closures of a run over the whole journal that
+        drains once the tail is in, under the host clock ``clock``: one
+        for each user of the body within capacity (no such user comes
+        back), ending at the user's last event; its latency is ``clock``
+        less that end + gap + lateness.  Returns (count, histogram over
+        the engine's latency bins)."""
+        import numpy as np
+
+        from streambench_tpu_torch.engine.sketches import (LAT_BIN_MS,
+                                                           LAT_BINS)
+
+        u = self.user[:self.body]
+        last = np.full(len(self.names), -1, np.int64)
+        np.maximum.at(last, u, self.times[:self.body])
+        ends = last[:min(self.capacity, len(last))]
+        ends = ends[ends >= 0]
+        lat = np.maximum(clock - (ends + SESSION_GAP_MS + self.lateness), 0)
+        bins = np.minimum(lat // LAT_BIN_MS, LAT_BINS - 1)
+        return int(ends.size), np.bincount(bins, minlength=LAT_BINS)
+
+    def remove(self) -> None:
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def _session_engine(data: SessionData, cfg, r, device: str):
+    from streambench_tpu_torch.engine.sketches import SessionCMSEngine
+
+    return SessionCMSEngine(cfg, data.mapping, campaigns=data.campaigns,
+                            redis=r, gap_ms=SESSION_GAP_MS,
+                            user_capacity=data.capacity, cms_depth=4,
+                            cms_width=data.cms_width, top_k=16,
+                            device=device)
+
+
+def _session_state(engine) -> dict:
+    """Every piece of a session engine's state, as numpy arrays."""
+    import numpy as np
+    import torch
+
+    def leaves(x):
+        out = []
+        for v in x:
+            out += leaves(v) if isinstance(v, tuple) else [v]
+        return out
+
+    names = (["session_" + f for f in engine.state._fields]
+             + [f"sketch_{i}" for i in range(len(leaves(engine.cms)))]
+             + ["ring_keys", "ring_ests", "lat_hist"])
+    tensors = (list(engine.state) + leaves(engine.cms)
+               + list(engine.topk) + [engine.lat_hist])
+    out = {n: t.cpu().numpy() if isinstance(t, torch.Tensor)
+           else np.asarray(t) for n, t in zip(names, tensors)}
+    out["counters"] = np.asarray([engine.sessions_closed,
+                                  engine.session_clicks], np.int64)
+    return out
+
+
+def _states_equal(tag: str, got: dict, want: dict, what: str) -> int:
+    import numpy as np
+
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or not np.array_equal(got[k], want[k])]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"[session_{tag}] state differs from {what} "
+                             f"in {bad}")
+    return len(want)
+
+
+def _session_run(tag: str, data: SessionData, device: str,
+                 keys: dict | None = None, max_events: int | None = None,
+                 ckdir: str | None = None, resume: bool = False,
+                 close: bool = True,
+                 flush_interval_ms: int | None = None) -> tuple:
+    """One catchup of ``data`` through a fresh session engine (after a warm
+    one ran every device path, as the CLI does), under the fixed clock;
+    K3's launches counted from just before the run to just after
+    ``close()``.  ``flush_interval_ms`` overrides the runner's cadence.
+    Each drain's closures and latency bins are recorded (``drains``: a
+    host read after each).  Returns (result, engine, store)."""
+    from streambench_tpu_torch.checkpoint import Checkpointer
+    from streambench_tpu_torch.engine import StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis
+    from streambench_tpu_torch.ops import cmsrows
+    from streambench_tpu_torch.ops.count import count_cells
+
+    cfg = data.config(keys)
+    warm = _session_engine(data, cfg, None, device)
+    warm.warmup()
+    warm.close()
+    del warm
+    r = as_redis(make_store())
+    engine = _session_engine(data, cfg, r, device)
+    reader = data.broker.reader(cfg.kafka_topic)
+    runner_kw = ({} if ckdir is None else
+                 {"checkpointer": Checkpointer(ckdir),
+                  "checkpoint_interval_ms": 0})
+    if flush_interval_ms is not None:
+        runner_kw["flush_interval_ms"] = flush_interval_ms
+    runner = StreamRunner(engine, reader, **runner_kw)
+    resume_ms = None
+    if resume:
+        t1 = time.perf_counter()
+        if not runner.resume():
+            raise AssertionError(f"[session_{tag}] no snapshot to resume")
+        resume_ms = (time.perf_counter() - t1) * 1e3
+    resumed_at = engine.events_processed
+    drains = _watch_drains(engine)
+    _sync(device)
+    cmsrows.reset_launches()               # this path starts here
+    count_cells.launches = 0
+    t0 = time.perf_counter()
+    stats = runner.run_catchup(max_events=max_events)
+    _sync(device)
+    run_s = time.perf_counter() - t0
+    if close:
+        engine.close()
+    _sync(device)
+    total_s = time.perf_counter() - t0
+    launches = cmsrows.launches()          # this path ends here
+    k1 = count_cells.launches
+    reader.close()
+    stages = engine.tracer.as_dict()
+    fold_ms = sum(stages.get(n, {}).get("total_ms", 0.0)
+                  for n in ("device_step", "device_scan"))
+    steps = -(-stats.events // engine.batch_size)
+    result = {
+        "device": device, "cms_mode": engine.cms_mode,
+        "cms_stages": engine.cms_stages, "events": stats.events,
+        "events_total": engine.events_processed,
+        "resumed_at_events": resumed_at, "resume_ms": resume_ms,
+        "flushes": stats.flushes, "dropped": engine.dropped,
+        "sessions_closed": engine.sessions_closed,
+        "session_clicks": engine.session_clicks,
+        "run_catchup_s": run_s, "catchup_with_close_s": total_s,
+        "events_per_s": stats.events / run_s,
+        "events_per_s_with_close": stats.events / total_s,
+        "fold_host_ms_per_batch": fold_ms / max(steps, 1),
+        "cms_rows_launches": launches,
+        "cms_rows_launches_total": sum(launches.values()),
+        "count_cells_launches": k1, "stages": stages,
+        "drains": len(drains), "expired": sum(c for c, _ in drains),
+        "drains_closing": sum(1 for c, _ in drains if c),
+        "batch_size": engine.batch_size, "scan_batches":
+            engine.scan_batches, "user_capacity": engine.user_capacity}
+    print(f"[session_{tag}] {json.dumps(result)}", flush=True)
+    return result, engine, r
+
+
+def _watch_drains(engine) -> list:
+    """Wrap ``engine._drain_device`` so that each drain appends (sessions
+    it closed, its latency-bin counts) to the returned list, also kept as
+    ``engine.drains``."""
+    inner = engine._drain_device
+    out = engine.drains = []
+
+    def hist():                            # a copy: updated in place
+        return engine.lat_hist.cpu().numpy().astype("int64")
+
+    def drain() -> None:
+        closed, before = engine.sessions_closed, hist()
+        inner()
+        out.append((engine.sessions_closed - closed, hist() - before))
+
+    engine._drain_device = drain
+    return out
+
+
+def _expiry_check(tag: str, data: SessionData, res: dict, engine,
+                  clock: int) -> dict:
+    """The drains of a run over the whole journal closed every session of
+    the body by time expiry, each in the latency bin the journal gives."""
+    import numpy as np
+
+    want, want_hist = data.expiry(clock)
+    got_hist = sum((h for _, h in engine.drains), np.zeros_like(want_hist))
+    same_bins = bool(np.array_equal(got_hist, want_hist))
+    out = {"expired_want": want, "expired_bins_equal": same_bins,
+           "expired_latency_bins": [int(b) for b in
+                                    np.flatnonzero(want_hist)[[0, -1]]]}
+    if want <= 0 or res["expired"] != want or not same_bins:
+        raise AssertionError(f"[session_{tag}] drains closed "
+                             f"{res['expired']} sessions, the journal "
+                             f"expires {want}; bins equal: {same_bins}")
+    return out
+
+
+def _session_checks(tag: str, data: SessionData, res: dict, engine, r,
+                    want_entries: tuple, device: str) -> dict:
+    """The run against the journal: every click of a user within capacity
+    in some closed session, ``dropped`` the journal's overflow, each
+    reported heavy hitter's estimate at least the user's exact clicks,
+    ``_hh`` holding the report; on the card, K3 launched through each of
+    ``want_entries`` and K1 not at all."""
+    n = engine.events_processed
+    exact = data.exact_clicks(n)
+    hh = engine.heavy_hitters()
+    table = r.hgetall(f"{engine.cfg.redis_hashtable}_hh")
+    out = {"journal_clicks": sum(exact.values()),
+           "journal_overflow": data.overflow(n), "heavy_hitters": hh[:5],
+           "hh_rows": len(table),
+           "hh_min_margin": min((est - exact.get(u, 0) for u, est in hh),
+                                default=None)}
+    print(f"[session_{tag}] checks {json.dumps(out)}", flush=True)
+    if res["session_clicks"] != out["journal_clicks"]:
+        raise AssertionError(f"[session_{tag}] clicks {res['session_clicks']}"
+                             f" != the journal's {out['journal_clicks']}")
+    if res["dropped"] != out["journal_overflow"]:
+        raise AssertionError(f"[session_{tag}] dropped {res['dropped']} != "
+                             f"the journal's overflow "
+                             f"{out['journal_overflow']}")
+    if not hh or len(table) != len(hh) or out["hh_min_margin"] < 0:
+        raise AssertionError(f"[session_{tag}] heavy hitters {hh[:5]}, "
+                             f"{len(table)} _hh rows")
+    if {u: str(e) for u, e in hh} != table:
+        raise AssertionError(f"[session_{tag}] _hh rows differ from the "
+                             f"report")
+    if device == "cuda":
+        zero = [e for e in want_entries if res["cms_rows_launches"][e] <= 0]
+        if zero or res["count_cells_launches"]:
+            raise AssertionError(f"[session_{tag}] K3 launches "
+                                 f"{res['cms_rows_launches']}, K1 "
+                                 f"{res['count_cells_launches']}")
+    return out
+
+
+def _session_profile(data: SessionData, device: str) -> dict:
+    """X5's first number: the device operations (kernels, copies, memsets)
+    one eager batch of the session fold launches, from ``torch.profiler``
+    over the first SESSION_PROFILE_EVENTS events (one drain at the end)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from streambench_tpu_torch.engine import StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis
+
+    cfg = data.config()
+    engine = _session_engine(data, cfg, as_redis(make_store()), device)
+    engine.warmup()
+    reader = data.broker.reader(cfg.kafka_topic)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        stats = StreamRunner(engine, reader, flush_interval_ms=10**9
+                             ).run_catchup(max_events=SESSION_PROFILE_EVENTS)
+        _sync(device)
+    reader.close()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda x: -x[1])
+    launch_calls = sum(e.count for e in prof.key_averages()
+                       if e.key in ("cudaLaunchKernel",
+                                    "cudaLaunchKernelExC"))
+    batches = -(-stats.events // engine.batch_size)
+    ops = sum(c for _, c, _ in rows)
+    out = {"events": stats.events, "batches": batches,
+           "device_ops": ops, "device_ops_per_batch": ops / batches,
+           "launch_calls": launch_calls,
+           "launch_calls_per_batch": launch_calls / batches,
+           "k3_device_ops": sum(c for k, c, _ in rows if "cms_" in k),
+           "device_ms": sum(t for _, _, t in rows) / 1e3,
+           "top_device_ops": [{"name": k[:80], "count": c,
+                               "device_ms": t / 1e3}
+                              for k, c, t in rows[:10]]}
+    print(f"[session_profile] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
+                  device: str = "cuda",
+                  two_stage_events: int = SESSION_TWO_STAGE_EVENTS,
+                  cms_width: int = 2048) -> dict:
+    """Phase 16: BASELINE config #4 on the card (module doc).  ``device``,
+    the sizes and the sketch's width are arguments so the phase can be
+    rehearsed on the CPU at a small size (a narrow sketch, so that SALSA
+    widens cells there too); the smoke runs it on ``cuda`` at Wd =
+    2048."""
+    from streambench_tpu_torch.ops import salsa
+
+    t0 = time.perf_counter()
+    data = SessionData(events, users, cms_width=cms_width)
+    out: dict = {"events": data.events, "body_events": events,
+                 "users": users, "user_capacity": data.capacity,
+                 "gap_ms": SESSION_GAP_MS, "generate_s": data.gen_s}
+    # the engines' host clock, 1 s past the journal's last event
+    clock = data.end + 1_000
+    # (a) and (b) drain only where the catchup ends (no wall-clock
+    # drain), on the card and on the CPU alike: that drain expires every
+    # session of the body (the tail's watermark has passed them all)
+    once = 10**9
+    try:
+        with _sketch_clock(clock):
+            # (a) the fixed sketch, on the card and on the CPU
+            res, eng, r = _session_run("fixed", data, device,
+                                       flush_interval_ms=once)
+            res.update(_session_checks("fixed", data, res, eng, r,
+                                       ("cms_update", "cms_query"), device))
+            res.update(_expiry_check("fixed", data, res, eng, clock))
+            state_a, hh_a = _session_state(eng), eng.heavy_hitters()
+            ref, ref_eng, _ = _session_run("fixed_cpu", data, "cpu",
+                                           flush_interval_ms=once)
+            res["cpu_expired"] = ref["expired"]
+            res["cpu_equal_arrays"] = _states_equal(
+                "fixed", state_a, _session_state(ref_eng), "the CPU run's")
+            if ref_eng.heavy_hitters() != hh_a:
+                raise AssertionError("[session_fixed] _hh differs from the "
+                                     "CPU run's")
+            res["cpu_catchup_with_close_s"] = ref["catchup_with_close_s"]
+            out["fixed"] = res
+            del eng, ref_eng
+
+            # (b) jax.cms.mode: salsa, held as (a)
+            keys = {"jax.cms.mode": "salsa"}
+            res, eng, r = _session_run("salsa", data, device, keys,
+                                       flush_interval_ms=once)
+            res.update(_session_checks(
+                "salsa", data, res, eng, r,
+                ("cms_cols",), device), salsa=salsa.stats(eng.cms),
+                sketch_summary=eng.sketch_summary())
+            res.update(_expiry_check("salsa", data, res, eng, clock))
+            ref, ref_eng, _ = _session_run("salsa_cpu", data, "cpu", keys,
+                                           flush_interval_ms=once)
+            res["cpu_equal_arrays"] = _states_equal(
+                "salsa", _session_state(eng), _session_state(ref_eng),
+                "the CPU run's")
+            if ref_eng.heavy_hitters() != eng.heavy_hitters():
+                raise AssertionError("[session_salsa] _hh differs from the "
+                                     "CPU run's")
+            if res["salsa"]["merged_pairs"] <= 0:
+                raise AssertionError(f"[session_salsa] no merge: "
+                                     f"{res['salsa']}")
+            res["cpu_catchup_with_close_s"] = ref["catchup_with_close_s"]
+            out["salsa"] = res
+            del eng, ref_eng
+
+            # (c) jax.cms.stages: 2 on the first events: the small stage
+            # reads at least every user's exact clicks
+            res, eng, r = _session_run(
+                "two_stage", data, device, {"jax.cms.stages": 2},
+                max_events=two_stage_events)
+            res.update(_session_checks(
+                "two_stage", data, res, eng, r,
+                ("cms_update", "cms_refresh_small", "cms_query"), device))
+            res.update(_small_stage_check(data, eng))
+            out["two_stage"] = res
+            del eng
+
+            # (d) resume: abandoned half way, resumed from its snapshot;
+            # both halves drain every second of wall clock, so its state
+            # equal to (a)'s also shows that where a drain falls does not
+            # change the result
+            ckdir = os.path.join(data.workdir, "ckpt")
+            a_res, a, _ = _session_run("resume_a", data, device,
+                                       max_events=events // 2, ckdir=ckdir,
+                                       close=False)
+            a.drain_writes()
+            del a                          # the crash: no close()
+            gc.collect()
+            res, eng, r = _session_run("resume", data, device, ckdir=ckdir,
+                                       resume=True)
+            res["crashed_at_events"] = a_res["events_total"]
+            res["expired_before_crash"] = a_res["expired"]
+            res["equal_arrays"] = _states_equal(
+                "resume", _session_state(eng), state_a, "run (a)'s")
+            if a_res["expired"] + res["expired"] != out["fixed"]["expired"]:
+                raise AssertionError(f"[session_resume] drains expired "
+                                     f"{a_res['expired']} + {res['expired']}"
+                                     f" sessions, (a) "
+                                     f"{out['fixed']['expired']}")
+            if (eng.heavy_hitters() != hh_a
+                    or res["events_total"] != data.events):
+                raise AssertionError(f"[session_resume] {res['events_total']}"
+                                     f" events; heavy hitters differ")
+            out["resume"] = res
+            del eng
+            out["profile"] = _session_profile(data, device)
+    finally:
+        data.remove()
+    out["phase_s"] = time.perf_counter() - t0
+    f, s = out["fixed"], out["salsa"]
+    print(f"[session] ev/s: fixed {f['events_per_s']} "
+          f"({f['events_per_s_with_close']} with close), salsa "
+          f"{s['events_per_s']}, two-stage "
+          f"{out['two_stage']['events_per_s']}; fold host ms a batch "
+          f"{f['fold_host_ms_per_batch']}; K3 launches "
+          f"{f['cms_rows_launches']}; expired by drains {f['expired']} "
+          f"(salsa {s['expired']}); salsa merged pairs "
+          f"{s['salsa']['merged_pairs']}; device ops a batch {out['profile']['device_ops_per_batch']}; "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def _small_stage_check(data: SessionData, engine) -> dict:
+    """Every interned user's small-stage (and fat) estimate is at least
+    its exact clicks over the events folded."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.ops import cms
+
+    exact = data.exact_clicks(engine.events_processed)
+    users, _ = engine.encoder.dump_intern_tables()
+    want = np.asarray([exact.get(u.decode(), 0) for u in users], np.int64)
+    keys = torch.arange(len(users), dtype=torch.int32,
+                        device=engine.device)
+    small = cms.query_small(engine.cms, keys).cpu().numpy()
+    fat = cms.query(engine.cms.fat, keys).cpu().numpy()
+    out = {"users_checked": len(users),
+           "small_min_margin": int((small - want).min()),
+           "fat_min_margin": int((fat - want).min()),
+           "small_over_fat_mean": float((small - fat).mean())}
+    if out["small_min_margin"] < 0 or out["fat_min_margin"] < 0:
+        raise AssertionError(f"[session_two_stage] estimate under exact: "
+                             f"{out}")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--events", type=int, default=10_000_000,
+    ap.add_argument("--events", type=int, default=5_000_000,
                     help="catchup events for the end-to-end phase")
     ap.add_argument("--out", help="also write every phase's result to "
                     "this JSON file")
     ap.add_argument("--only-sketches", action="store_true",
                     help="a diagnostic: the device, the build, the kernel "
                     "cases and phase 15 alone (no result line)")
+    ap.add_argument("--only-session", action="store_true",
+                    help="a diagnostic: phases 1-3 and 16 alone (no result "
+                    "line)")
     args = ap.parse_args(argv)
 
     try:
@@ -2876,6 +3641,22 @@ def main(argv: list[str] | None = None) -> int:
     smi = phase_device()
     ptxas = phase_build()
     cases, floor = phase_kernels()
+    if args.only_session:
+        decode_cases = phase_decode_kernels(floor)
+        cms_cases = phase_cms_kernels(floor)
+        methods = phase_method_table()
+        cms_methods = phase_cms_method_table()
+        session = phase_session()
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "decode_cases":
+                           decode_cases, "cms_cases": cms_cases,
+                           "method_table": methods,
+                           "cms_method_table": cms_methods,
+                           "session": session, "nvidia_smi": smi,
+                           "ptxas": ptxas}, f, indent=1)
+        print(smi, flush=True)
+        return 0
     if args.only_sketches:
         sketch = phase_sketches()
         if args.out:
@@ -2885,7 +3666,9 @@ def main(argv: list[str] | None = None) -> int:
         print(smi, flush=True)
         return 0
     decode_cases = phase_decode_kernels(floor)
+    cms_cases = phase_cms_kernels(floor)
     methods = phase_method_table()
+    cms_methods = phase_cms_method_table()
     e2e, (C, W), steps, pipelined, decode = phase_end_to_end(args.events)
     config5 = Config5Data(LARGE_EVENTS)
     large = phase_large_key_space(config5)
@@ -2894,13 +3677,14 @@ def main(argv: list[str] | None = None) -> int:
     kafka = phase_paced("kafka", KAFKA_LOAD, KAFKA_FAKE="1",
                         KAFKA_BROKERS=f"127.0.0.1:{_free_port()}")
     obs = phase_paced("obs", OBS_LOAD, check=check_obs, **OBS_ENV)
-    paced_decode = phase_paced("paced_decode", PACED_LOAD,
+    paced_decode = phase_paced("paced_decode", PACED_DECODE_LOAD,
                                DECODE_DEVICE="on")
     try:
         chaos = phase_chaos(config5)
     finally:
         config5.remove()
     sketch = phase_sketches()
+    session = phase_session()
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -2964,7 +3748,9 @@ def main(argv: list[str] | None = None) -> int:
                 sketch["unsliced"]["count_cells_launches"],
             "hll_resume": sketch["resume"]["hll"]["count_cells_launches"],
             "sliding_sliced_resume":
-                sketch["resume"]["sliced"]["count_cells_launches"]},
+                sketch["resume"]["sliced"]["count_cells_launches"],
+            **{f"session_{k}": session[k]["count_cells_launches"]
+               for k in SESSION_RUNS}},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -3004,6 +3790,31 @@ def main(argv: list[str] | None = None) -> int:
         "launch_floor_ms": main_decode["launch_floor_ms"],
         "cases": decode_cases,
     })
+    main_cms = cms_cases[0]
+    update = main_cms["entries"]["update"]
+    kernels.append({
+        "name": "cms_rows",
+        "route": "cuda",
+        "source": "streambench_tpu_torch/csrc/cms_rows.cu",
+        # not a Pallas kernel: the XLA program of cms.update (with
+        # _row_cols :43, query :88, update2 :145, query_small :164)
+        "replaces": "streambench_tpu/ops/cms.py:53",
+        "launches": session["fixed"]["cms_rows_launches_total"],
+        "launches_by_path": {
+            f"session_{k}": session[k]["cms_rows_launches"]
+            for k in SESSION_RUNS},
+        "shape": main_cms["shape"],
+        "max_abs_err": max(c["max_abs_diff"] for c in cms_cases),
+        "ms": update["kernel_ms"],
+        "kernel_call_ms": update["kernel_call_ms"],
+        "plain_ms": update["plain_ms"],
+        "bound_ms": update["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main_cms["library_ms"],
+        "library_what": main_cms["library_what"],
+        "launch_floor_ms": main_cms["launch_floor_ms"],
+        "cases": cms_cases,
+    })
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels, "method_table": methods,
@@ -3015,6 +3826,8 @@ def main(argv: list[str] | None = None) -> int:
                        "paced_ysb_decode": paced_decode,
                        "supervised_chaos": chaos,
                        "sketches": sketch,
+                       "cms_method_table": cms_methods,
+                       "session": session,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,12 @@ Loads the config, builds the engine ``--engine`` names on the requested
 device (``--device``, default ``cuda``): ``exact`` (default), the exact
 count of BASELINE config #1; ``hll``, HLL distinct users per window
 (config #2); ``sliding``, sliding-window counts with t-digest latency
-quantiles (config #3).  It tails the broker topic, flushes the
-canonical Redis window schema, and at the end (catchup drained, duration,
+quantiles (config #3); ``session``, session windows of per-user clicks
+feeding a count-min sketch whose top-k heavy hitters go to
+``<hashtable>_hh`` at close (config #4; ``jax.cms.mode``,
+``jax.cms.cell.bits`` and ``jax.cms.stages`` pick the sketch).  It
+tails the broker topic, flushes the canonical Redis window schema, and
+at the end (catchup drained, duration,
 idle timeout, or SIGTERM) closes the engine and prints the same JSON stats
 line as ``python -m streambench_tpu.engine``.  Any key space the config
 names runs (config #5's 1,000,000 campaigns take the large-key-space
@@ -35,11 +39,11 @@ an SLO breach, SIGUSR2 or a one-shot) and ``jax.slo.*``; ``--traceDir``
 profiles the whole run.
 
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
-        --workdir RUN_DIR --catchup [--engine exact|hll|sliding] \
+        --workdir RUN_DIR --catchup [--engine exact|hll|sliding|session] \
         [--device cuda|cpu] [--checkpointDir D]
 
 Options and config keys that need parts of the JAX engine not ported yet
-(the session, reach and hllx engines, sharding with any engine, the
+(the reach and hllx engines, sharding with any engine, the
 fork's micro-batch mode, tenants, the reach query, fleet and shard
 observability) are refused with exit 2.
 """
@@ -59,6 +63,7 @@ from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.engine.runner import StreamRunner
 from streambench_tpu_torch.engine.sketches import (
     HLLDistinctEngine,
+    SessionCMSEngine,
     SlidingTDigestEngine,
 )
 from streambench_tpu_torch.io.fakeredis import make_store
@@ -79,6 +84,7 @@ from streambench_tpu_torch.obs import (
     engine_collector,
     kafka_collector,
 )
+from streambench_tpu_torch.ops import cmsrows
 from streambench_tpu_torch.ops.count import count_cells
 from streambench_tpu_torch.ops.decode import decode_rows
 from streambench_tpu_torch.trace import device_trace
@@ -107,9 +113,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "into DIR/trace.json")
     p.add_argument("--engine", default="exact",
                    help="aggregation engine: exact window counts "
-                        "(default), hll (HLL distinct users) or sliding "
+                        "(default), hll (HLL distinct users), sliding "
                         "(sliding-window counts + t-digest latency "
-                        "quantiles): BASELINE configs #1-#3")
+                        "quantiles) or session (session windows + "
+                        "count-min heavy hitters): BASELINE configs #1-#4")
     # flags of the JAX CLI whose machinery is not ported yet: accepted
     # only to refuse them with a clear message
     p.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
@@ -121,12 +128,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: engines the port runs, by ``--engine`` name
 ENGINES = {"exact": AdAnalyticsEngine, "hll": HLLDistinctEngine,
-           "sliding": SlidingTDigestEngine}
+           "sliding": SlidingTDigestEngine, "session": SessionCMSEngine}
 
 
 def unsupported(args, cfg) -> list[str]:
     """What this run asks for beyond what the port runs: the exact-count,
-    HLL and sliding engines on one device, at any key space, with
+    HLL, sliding and session engines on one device, at any key space, with
     checkpoint/resume, the exactly-once sink, the staged ingest pipeline,
     the encode pool, the dead-letter queue, the Kafka source, device
     decode (exact engine) and the single-engine observability layer."""
@@ -174,8 +181,8 @@ def main(argv: list[str] | None = None) -> int:
     missing = unsupported(args, cfg)
     if missing:
         print("error: not ported to the PyTorch engine yet (it runs the "
-              "exact, hll and sliding engines with checkpoints, the "
-              "exactly-once sink, the ingest pipeline, the encode pool, "
+              "exact, hll, sliding and session engines with checkpoints, "
+              "the exactly-once sink, the ingest pipeline, the encode pool, "
               "the dead-letter queue, the Kafka source and the "
               "single-engine observability layer): " + ", ".join(missing),
               file=sys.stderr)
@@ -362,6 +369,7 @@ def main(argv: list[str] | None = None) -> int:
     # folds take the plain versions and launch nothing
     count_cells.launches = 0
     decode_rows.launches = 0
+    cmsrows.reset_launches()
 
     print(f"engine up: engine={args.engine} topic={cfg.kafka_topic} "
           f"redis={cfg.redis_host}:"
@@ -419,7 +427,8 @@ def main(argv: list[str] | None = None) -> int:
         "dropped": engine.dropped, "wall_s": round(stats.wall_s, 2),
         "faults": stats.faults,
         "kernel_launches": {"count_cells": count_cells.launches,
-                            "decode_rows": decode_rows.launches},
+                            "decode_rows": decode_rows.launches,
+                            "cms_rows": sum(cmsrows.launches().values())},
     }
     if occupancy is not None:
         # the MEASURED busy ratio + the steady-state build invariant

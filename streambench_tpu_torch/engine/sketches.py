@@ -1,7 +1,7 @@
-"""Sketch-aggregation engines: BASELINE configs #2 and #3.
+"""Sketch-aggregation engines: BASELINE configs #2, #3 and #4.
 
-The port of ``streambench_tpu/engine/sketches.py``'s HLL and sliding
-engines.  The host loop, encoder, Redis writer, runner and harness are
+The port of ``streambench_tpu/engine/sketches.py``'s HLL, sliding and
+session engines.  The host loop, encoder, Redis writer, runner and harness are
 the exact engine's (``engine.pipeline.AdAnalyticsEngine``); only the
 device state and its fold change:
 
@@ -15,9 +15,15 @@ device state and its fold change:
   close.  With the sliced fold (``jax.sliding.sliced``: on, or auto
   where the ``[C, S, W]`` plane fits) the count kernel K1 counts every
   batch into the ``[C*S, W]`` view of that plane.
+- ``SessionCMSEngine``: session windows (gap-based) of per-user clicks
+  (``ops.session``); every closed session feeds a count-min sketch keyed
+  by user with its clicks as weight (``ops.cms``: fixed, two-stage, or
+  SALSA, ``ops.salsa``), whose update and point query are the kernel K3
+  on the card; a device-side heavy-hitter ring, whose top-k estimates go
+  to ``<hashtable>_hh`` at close, and a close->absorb latency histogram.
 
 The JAX engines fuse each chunk's fold into one jitted program; here the
-five programs are plain functions that loop over the chunk's batches, as
+six programs are plain functions that loop over the chunk's batches, as
 the exact engine's ``scan_steps`` does, with the same per-chunk clock
 stamp and one t-digest compress per chunk.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
@@ -34,8 +40,15 @@ from streambench_tpu_torch.checkpoint import Snapshot
 from streambench_tpu_torch.config import BenchmarkConfig
 from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine, _to_numpy
 from streambench_tpu_torch.io.redis_schema import RedisLike
+from streambench_tpu_torch.ops import (
+    cms,
+    hll,
+    salsa,
+    session,
+    sliding,
+    tdigest,
+)
 from streambench_tpu_torch.ops import count as count_ops
-from streambench_tpu_torch.ops import hll, sliding, tdigest
 from streambench_tpu_torch.ops import windowcount as wc
 from streambench_tpu_torch.utils.ids import now_ms
 
@@ -537,3 +550,430 @@ class SlidingTDigestEngine(_SketchEngineBase):
                     for c, name in enumerate(self.encoder.campaigns)
                     for j, qq in enumerate(self.QUANTILES)]
             self.redis.pipeline_execute(cmds)
+
+
+# ----------------------------------------------------------------------
+# BASELINE #4: session windows + count-min heavy hitters
+
+def _cms_auto(device_type: str, width: int) -> str:
+    """``jax.cms.mode: auto``: the SALSA plane where the cms-family winner
+    of this device type measured at this width (``ops.methodbench``,
+    ``<device type>/cms/W<Wd>``) is its update; fixed otherwise (auto picks
+    by speed; a memory-motivated deployment sets ``salsa``)."""
+    try:
+        from streambench_tpu_torch.ops import methodbench
+
+        winner = methodbench.cms_winner(device_type, width)
+    except Exception:
+        winner = None
+    return "salsa" if winner == "salsa" else "fixed"
+
+
+# The close->absorb latency histogram: 250 ms bins to 120 s and one
+# overflow bin.  A histogram keeps the hot path free of host syncs;
+# quantiles are read from it at report time.
+LAT_BIN_MS = 250
+LAT_BINS = 481
+
+
+def _hist_scalar(hist: torch.Tensor, lat: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """All rows share one latency (their closure was decided by this
+    batch): one clipped bin, one add, in place."""
+    b = torch.clamp(torch.div(lat, LAT_BIN_MS, rounding_mode="floor"), 0,
+                    LAT_BINS - 1)
+    hist.index_add_(0, b.reshape(1).to(torch.int64),
+                    valid.sum(dtype=torch.int32).reshape(1))
+    return hist
+
+
+def _hist_rows(hist: torch.Tensor, lat: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """Per-row latencies (time-expired closures), in place: a row that is
+    not valid adds 0 to its bin (the reference drops it)."""
+    b = torch.clamp(torch.div(lat, LAT_BIN_MS, rounding_mode="floor"), 0,
+                    LAT_BINS - 1)
+    hist.index_add_(0, b.to(torch.int64), valid.to(torch.int32))
+    return hist
+
+
+def _det_lat(now_rel: int, event_time: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+    """The latency of closures this batch decided: the host stamp at
+    dispatch less the batch's newest event time, in int32 as the
+    reference computes it (it may wrap for an all-invalid batch, whose
+    closures are none)."""
+    newest = torch.where(valid, event_time, wc.NEG).max()
+    return torch.clamp(now_rel - newest, min=0)
+
+
+def _absorb_closed(cm, ck_acc, closed: session.ClosedSessions):
+    """Fold closed sessions into the sketch and the device counters."""
+    cm = cms.sk_update(cm, closed.user, closed.clicks, closed.valid)
+    n = closed.valid.sum(dtype=torch.int32)
+    c = torch.where(closed.valid, closed.clicks, 0).sum(dtype=torch.int32)
+    return cm, (ck_acc[0] + n, ck_acc[1] + c)
+
+
+def _session_cms_scan(sess_state, cms_state, topk_state, closed_n,
+                      clicks_n, lat_hist, now_rel: int, salt: int,
+                      user_idx, event_type, event_time, valid, *,
+                      gap_ms: int, lateness_ms: int):
+    """The session + CMS + heavy-hitter fold over ``[N, B]`` batches: per
+    batch the session step, then for each closed set the sketch update,
+    the counters, the latency bin and the candidate fold; the candidate
+    table merges into the ring once, after the loop.  No host sync.
+
+    ``salt`` must differ chunk to chunk (the engine passes a sequence
+    number), so a hash collision in the candidate table never shadows the
+    same pair of keys twice.  Returns (session state, sketch, ring,
+    closed count, click count, histogram)."""
+    M2 = 1 << (4 * topk_state.keys.shape[0] - 1).bit_length()
+    ckeys, cests = cms.init_candidates(M2, device=lat_hist.device)
+    st, cm, acc, hist = sess_state, cms_state, (closed_n, clicks_n), lat_hist
+    for k in range(user_idx.shape[0]):
+        v, t = valid[k], event_time[k]
+        st, in_batch, carried = session.step(
+            st, user_idx[k], event_type[k], t, v, gap_ms=gap_ms,
+            lateness_ms=lateness_ms)
+        det_lat = _det_lat(now_rel, t, v)
+        for closed in (in_batch, carried):
+            cm, acc = _absorb_closed(cm, acc, closed)
+            hist = _hist_scalar(hist, det_lat, closed.valid)
+            ckeys, cests = cms.fold_candidates(
+                ckeys, cests, closed.user, cms.point_query(cm, closed.user),
+                closed.valid, salt)
+    tk = cms.update_topk(cm, topk_state, ckeys, ckeys >= 0)
+    return st, cm, tk, acc[0], acc[1], hist
+
+
+class SessionCMSEngine(_SketchEngineBase):
+    """Per-user session click aggregation + count-min heavy hitters:
+    BASELINE config #4 ("session-window per-user click aggregation
+    (gap=30s) with count-min heavy-hitter sketch").
+
+    Closed sessions (in a batch, carried, or expired by the watermark)
+    feed the sketch keyed by user with the session's clicks as weight;
+    ``close()`` writes the top-k user estimates to
+    ``<redis.hashtable>_hh``.  The sketch family follows
+    ``jax.cms.mode`` (fixed, salsa, auto), ``jax.cms.cell.bits`` and
+    ``jax.cms.stages`` (2: the two-stage sketch; not with salsa).  No
+    window rows are written: ``flush`` drains expired sessions and
+    returns 0."""
+
+    ENGINE_FAMILY = "session_cms"
+    SCAN_SUPPORTED = True
+    SCAN_COLUMNS = ("user_idx", "event_type", "event_time", "valid")
+
+    def __init__(self, cfg: BenchmarkConfig, ad_to_campaign: dict[str, str],
+                 campaigns: list[str] | None = None,
+                 redis: RedisLike | None = None,
+                 gap_ms: int = 30_000, user_capacity: int = 1 << 16,
+                 cms_depth: int = 4, cms_width: int = 2048,
+                 top_k: int = 16, candidate_capacity: int | None = None,
+                 cms_mode: str | None = None,
+                 cms_stages: int | None = None,
+                 cms_cell_bits: int | None = None,
+                 method: str | None = None,
+                 device: torch.device | str | None = None):
+        super().__init__(cfg, ad_to_campaign, campaigns=campaigns,
+                         redis=redis, method=method, device=device)
+        # the fold reads unpacked columns (user ids among them): no
+        # packed wire word on this engine
+        self._pack_ok = False
+        self.gap_ms = gap_ms
+        self.user_capacity = user_capacity
+        self.top_k = top_k
+        self.state = session.init_state(user_capacity, device=self.device)
+        mode = str(cms_mode if cms_mode is not None
+                   else getattr(cfg, "jax_cms_mode", "fixed")
+                   ).strip().lower()
+        if mode not in ("fixed", "salsa", "auto"):
+            raise ValueError(f"cms_mode must be fixed/salsa/auto: {mode!r}")
+        stages = int(cms_stages if cms_stages is not None
+                     else getattr(cfg, "jax_cms_stages", 1))
+        bits = int(cms_cell_bits if cms_cell_bits is not None
+                   else getattr(cfg, "jax_cms_cell_bits", 8))
+        if mode == "auto":
+            mode = _cms_auto(self.device.type, cms_width)
+        if mode == "salsa" and stages == 2:
+            raise ValueError(
+                "jax.cms.mode=salsa does not compose with "
+                "jax.cms.stages=2: the SF small stage refreshes from "
+                "fat-stage estimates, pick one counter design")
+        self.cms_mode = mode
+        self.cms_stages = stages
+        self.cms_cell_bits = bits
+        if mode == "salsa":
+            self.cms = salsa.init_state(depth=cms_depth, width=cms_width,
+                                        cell_bits=bits, device=self.device)
+        elif stages == 2:
+            self.cms = cms.init_two_stage(depth=cms_depth, width=cms_width,
+                                          device=self.device)
+        else:
+            self.cms = cms.init_state(depth=cms_depth, width=cms_width,
+                                      device=self.device)
+        # the device-side candidate ring: report cost O(ring), not
+        # O(interned users)
+        self.topk = cms.init_topk(candidate_capacity or max(8 * top_k, 128),
+                                  device=self.device)
+        self.sessions_closed = 0
+        self.session_clicks = 0
+        self.lat_hist = torch.zeros(LAT_BINS, dtype=torch.int32,
+                                    device=self.device)
+        # no window ring: the span guard would only send wide catchup
+        # groups down the per-batch path
+        self._span_guard = 2**31 - 1
+        # the candidate table's per-chunk salt: a sequence number
+        self._scan_seq = 0
+
+    # counters live on the device: absorbing never blocks, reading does
+    @property
+    def sessions_closed(self) -> int:
+        return int(self._closed_dev)
+
+    @sessions_closed.setter
+    def sessions_closed(self, v: int) -> None:
+        self._closed_dev = torch.tensor(v, dtype=torch.int32,
+                                        device=self.device)
+
+    @property
+    def session_clicks(self) -> int:
+        return int(self._clicks_dev)
+
+    @session_clicks.setter
+    def session_clicks(self, v: int) -> None:
+        self._clicks_dev = torch.tensor(v, dtype=torch.int32,
+                                        device=self.device)
+
+    def _device_scan(self, user_idx, event_type, event_time, valid) -> None:
+        self._scan_seq += 1
+        (self.state, self.cms, self.topk, self._closed_dev,
+         self._clicks_dev, self.lat_hist) = _session_cms_scan(
+            self.state, self.cms, self.topk, self._closed_dev,
+            self._clicks_dev, self.lat_hist, self._now_rel(),
+            self._scan_seq, user_idx, event_type, event_time, valid,
+            gap_ms=self.gap_ms, lateness_ms=self.lateness)
+
+    def _cms_shape(self) -> tuple[int, int]:
+        """[D, Wd] of the primary counter plane, any family."""
+        t = (self.cms.fat.table if isinstance(self.cms, cms.CMS2State)
+             else self.cms.table)
+        return int(t.shape[0]), int(t.shape[1])
+
+    def snapshot(self, offset) -> Snapshot:
+        self._snapshot_sync()
+        meta = self._snapshot_meta()
+        depth, width = self._cms_shape()
+        meta.update(gap_ms=self.gap_ms, user_capacity=self.user_capacity,
+                    cms_depth=depth, cms_width=width,
+                    cms_total=int(cms.sk_total(self.cms)),
+                    cms_mode=self.cms_mode, cms_stages=self.cms_stages,
+                    sessions_closed=self.sessions_closed,
+                    session_clicks=self.session_clicks,
+                    # the candidate salt's sequence, so a resumed run
+                    # salts its chunks as the uninterrupted one does
+                    scan_seq=self._scan_seq)
+        if self.cms_mode == "salsa":
+            sketch = {"cms_table": self.cms.table, "cms_m1": self.cms.m1,
+                      "cms_m2": self.cms.m2}
+        elif self.cms_stages == 2:
+            sketch = {"cms_table": self.cms.fat.table,
+                      "cms_small": self.cms.small}
+        else:
+            sketch = {"cms_table": self.cms.table}
+        arrays = {"sess_last": self.state.last_time,
+                  "sess_start": self.state.sess_start,
+                  "sess_clicks": self.state.clicks, **sketch,
+                  "hh_keys": self.topk.keys, "hh_ests": self.topk.ests,
+                  "lat_hist": self.lat_hist}
+        # copies: the sketch and histogram are updated in place
+        extra = {k: v.cpu().numpy().copy() for k, v in arrays.items()}
+        return self._xo_decorate(Snapshot(
+            offset=offset, meta=meta,
+            counts=np.zeros((0, 0), np.int32),
+            window_ids=np.zeros((0,), np.int32),     # no window ring
+            watermark=int(self.state.watermark),
+            dropped=int(self.state.dropped),
+            extra={**extra, **self._intern_extra()},
+        ))
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(self.device)
+
+    def restore(self, snap: Snapshot) -> None:
+        depth, width = self._cms_shape()
+        self._check_geometry(snap, extra=dict(
+            gap_ms=self.gap_ms, user_capacity=self.user_capacity,
+            cms_depth=depth, cms_width=width,
+            cms_stages=self.cms_stages))
+        # legacy snapshots predate the mode key: they are "fixed"
+        snap_mode = str(snap.meta.get("cms_mode", "fixed"))
+        if snap_mode != self.cms_mode:
+            raise ValueError(
+                f"checkpoint cms_mode={snap_mode!r} != engine "
+                f"{self.cms_mode!r}; restart with the original "
+                "jax.cms.mode or discard the checkpoint")
+        x = snap.extra
+        i32 = np.int32
+
+        def scalar(v) -> torch.Tensor:
+            return torch.tensor(int(v), dtype=torch.int32,
+                                device=self.device)
+
+        self.state = session.SessionState(
+            last_time=self._tensor(x["sess_last"], i32),
+            sess_start=self._tensor(x["sess_start"], i32),
+            clicks=self._tensor(x["sess_clicks"], i32),
+            watermark=scalar(snap.watermark), dropped=scalar(snap.dropped))
+        total = scalar(snap.meta["cms_total"])
+        if self.cms_mode == "salsa":
+            self.cms = salsa.SalsaState(
+                table=self._tensor(x["cms_table"], np.uint8),
+                m1=self._tensor(x["cms_m1"], np.uint8),
+                m2=self._tensor(x["cms_m2"], np.uint8), total=total)
+        elif self.cms_stages == 2:
+            self.cms = cms.CMS2State(
+                fat=cms.CMSState(table=self._tensor(x["cms_table"], i32),
+                                 total=total),
+                small=self._tensor(x["cms_small"], i32))
+        else:
+            self.cms = cms.CMSState(table=self._tensor(x["cms_table"], i32),
+                                    total=total)
+        self.sessions_closed = int(snap.meta["sessions_closed"])
+        self.session_clicks = int(snap.meta["session_clicks"])
+        # absent from the reference's snapshots, whose resume restarts it
+        self._scan_seq = int(snap.meta.get("scan_seq", 0))
+        self.lat_hist = (self._tensor(x["lat_hist"], i32)
+                         if "lat_hist" in x
+                         else torch.zeros(LAT_BINS, dtype=torch.int32,
+                                          device=self.device))
+        self._restore_interns(snap)
+        self._restore_host(snap)
+        if "hh_keys" in x:
+            self.topk = cms.TopKState(keys=self._tensor(x["hh_keys"], i32),
+                                      ests=self._tensor(x["hh_ests"], i32))
+        else:
+            # a snapshot from before the candidate ring: seed the ring
+            # once from the restored intern universe, or the pre-crash
+            # heavy hitters would vanish until they reappeared
+            self._seed_topk_from_universe()
+
+    def _seed_topk_from_universe(self, chunk: int = 8192) -> None:
+        n = self.encoder.num_interned_users()
+        for off in range(0, n, chunk):
+            width = min(chunk, n - off)
+            keys = np.zeros(chunk, np.int32)
+            keys[:width] = np.arange(off, off + width, dtype=np.int32)
+            mask = np.zeros(chunk, bool)
+            mask[:width] = True
+            self.topk = cms.update_topk(self.cms, self.topk,
+                                        self._to_device(keys),
+                                        self._to_device(mask))
+
+    def _absorb(self, closed: session.ClosedSessions) -> None:
+        self.cms, (self._closed_dev, self._clicks_dev) = _absorb_closed(
+            self.cms, (self._closed_dev, self._clicks_dev), closed)
+        self.topk = cms.update_topk(self.cms, self.topk, closed.user,
+                                    closed.valid)
+
+    def _device_step(self, batch) -> None:
+        valid = self._to_device(batch.valid)
+        tm = self._to_device(batch.event_time)
+        self.state, in_batch, carried = session.step(
+            self.state, self._to_device(batch.user_idx),
+            self._to_device(batch.event_type), tm, valid,
+            gap_ms=self.gap_ms, lateness_ms=self.lateness)
+        det_lat = _det_lat(self._now_rel(), tm, valid)
+        for closed in (in_batch, carried):
+            self._absorb(closed)
+            self.lat_hist = _hist_scalar(self.lat_hist, det_lat,
+                                         closed.valid)
+
+    def _drain_device(self) -> None:
+        self.state, expired = session.flush(
+            self.state, gap_ms=self.gap_ms, lateness_ms=self.lateness)
+        self._absorb(expired)
+        # a time-expired closure became decidable when the watermark
+        # passed end + gap + lateness: its latency is the stamp less that
+        due = expired.end + (self.gap_ms + self.lateness)
+        self.lat_hist = _hist_rows(
+            self.lat_hist, torch.clamp(self._now_rel() - due, min=0),
+            expired.valid)
+        self._span_start = None
+
+    def flush(self, time_updated: int | None = None, *,
+              final: bool = False) -> int:
+        self._drain_device()
+        return 0    # sessions write no canonical window rows
+
+    def latency_quantile(self, qs) -> tuple[list[float], int]:
+        """Close->absorb latency quantiles (ms) from the histogram,
+        linearly interpolated within 250 ms bins; the overflow bin
+        reports its lower edge.  Returns ``(values, sessions sampled)``."""
+        hist = self.lat_hist.cpu().numpy().astype(np.int64)
+        total = int(hist.sum())
+        if total == 0:
+            return [], 0
+        cum = np.cumsum(hist)
+        out = []
+        for q in qs:
+            target = q * total
+            b = min(int(np.searchsorted(cum, target, side="left")),
+                    LAT_BINS - 1)
+            prev = int(cum[b - 1]) if b else 0
+            frac = ((target - prev) / max(int(hist[b]), 1)
+                    if b < LAT_BINS - 1 else 0.0)
+            out.append((b + min(max(frac, 0.0), 1.0)) * LAT_BIN_MS)
+        return out, total
+
+    def heavy_hitters(self) -> list[tuple[str, int]]:
+        """Top-k (user, estimated clicks), estimates > 0 only: the ring's
+        keys re-queried against the final sketch; only the winners are
+        looked up by name."""
+        ring_keys = self.topk.keys.cpu().numpy()
+        cand = ring_keys[ring_keys >= 0]
+        if cand.size == 0:
+            return []
+        vals, idx = cms.heavy_hitters(self.cms, self._to_device(cand),
+                                      k=min(self.top_k, int(cand.size)))
+        out = []
+        for v, i in zip(vals.cpu().numpy(), idx.cpu().numpy()):
+            if v > 0:
+                u = self.encoder.user_key(int(cand[int(i)]))
+                out.append((u.decode() if isinstance(u, bytes) else u,
+                            int(v)))
+        return out
+
+    def _write_heavy_hitters(self) -> None:
+        """Top-k estimates -> the Redis hash ``<redis.hashtable>_hh``."""
+        if self.redis is not None and self.cfg.redis_hashtable:
+            table = f"{self.cfg.redis_hashtable}_hh"
+            cmds = [("HSET", table, user, str(est))
+                    for user, est in self.heavy_hitters()]
+            if cmds:
+                self.redis.pipeline_execute(cmds)
+
+    def close(self) -> None:
+        self.state, final = session.flush(
+            self.state, gap_ms=self.gap_ms, lateness_ms=self.lateness,
+            force=True)
+        self._absorb(final)
+        self._write_heavy_hitters()
+
+    def sketch_summary(self, merges: bool = False) -> dict:
+        """Sketch-memory census for the stats line and the obs report:
+        family and state bytes (host-side reads, no device sync); with
+        ``merges=True`` (close-time callers only: it waits for the card)
+        SALSA's widened-counter counts."""
+        from streambench_tpu_torch.obs.devmem import state_nbytes
+
+        out = {"mode": self.cms_mode, "stages": self.cms_stages,
+               "state_bytes": state_nbytes(self.cms)}
+        if merges and self.cms_mode == "salsa":
+            out.update(salsa.stats(self.cms))
+        return out
+
+    @property
+    def dropped(self) -> int:
+        return int(self.state.dropped)

@@ -20,8 +20,9 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``ENCODE_WORKERS``, ``SCAN_BATCHES``, ``WINDOW_SLOTS``, ``EXACTLY_ONCE``,
 ``BROKER_DIR`` (the file journal; default ``WORKDIR/broker``), and
 ``DEVICE`` (``cuda`` by default, passed to the engine as ``--device``;
-``cpu`` only when asked for), ``ENGINE`` (``exact`` by default, ``hll``
-or ``sliding``; passed to the engine as ``--engine``).  ``VERIFY=1``
+``cpu`` only when asked for), ``ENGINE`` (``exact`` by default, ``hll``,
+``sliding`` or ``session``; passed to the engine as ``--engine``).
+``VERIFY=1``
 makes ``TORCH_TEST`` hold every window in Redis against the generator's
 oracle over the journal the load wrote (``VERIFY``, before the services
 stop) and record the result in ``WORKDIR/verify.json``; the oracle counts
@@ -82,7 +83,8 @@ STOP_STATS_GRACE_S = float(os.environ.get("STOP_STATS_GRACE", "2.5"))
 CHECKPOINT_DIR = os.environ.get("CHECKPOINT_DIR", "")
 # the torch device the engine folds on: the card unless asked otherwise
 DEVICE = os.environ.get("DEVICE", "cuda")
-# the aggregation engine: exact | hll | sliding (BASELINE configs #1-#3)
+# the aggregation engine: exact | hll | sliding | session (BASELINE
+# configs #1-#4)
 ENGINE = os.environ.get("ENGINE", "exact")
 # Fake Kafka as a standalone TCP broker process (START_KAFKA/STOP_KAFKA):
 # the generator produces and the engine consumes over a real socket.
@@ -250,7 +252,7 @@ def op_setup() -> None:
                          + ", ".join(refused))
     if VERIFY and ENGINE != "exact":
         # gen.dostats counts exact views per tumbling window: it has no
-        # answer for distinct-user estimates or sliding windows
+        # answer for distinct-user estimates, sliding windows or sessions
         raise SystemExit(f"VERIFY holds exact tumbling counts against the "
                          f"journal; it does not apply to ENGINE={ENGINE}")
     os.makedirs(WORKDIR, exist_ok=True)
@@ -564,17 +566,41 @@ def op_torch_test() -> None:
             op_stop_kafka()
         op_stop_redis()
     # a composite test that produced load but measured NOTHING is a
-    # failure (a stale or hung engine), not a quiet success
-    try:
-        with open(os.path.join(WORKDIR, "seen.txt")) as f:
-            n_windows = sum(1 for _ in f)
-    except OSError:
-        n_windows = 0
-    if n_windows <= 0:
+    # failure (a stale or hung engine), not a quiet success.  The session
+    # engine writes no window rows: its evidence is the final stats line
+    # of this run's engine, as in the reference harness
+    if ENGINE == "session":
+        evidence, what = _engine_stats_line(), "events"
+        ok = evidence != "" and '"events": 0' not in evidence
+    else:
+        what = "window rows"
+        try:
+            with open(os.path.join(WORKDIR, "seen.txt")) as f:
+                n_windows = sum(1 for _ in f)
+        except OSError:
+            n_windows = 0
+        ok = n_windows > 0
+        evidence = f"{n_windows} rows"
+    if not ok:
         raise SystemExit(
-            "TORCH_TEST measured no window rows — the engine processed "
+            f"TORCH_TEST measured no {what} — the engine processed "
             "nothing (stale/hung engine process? check logs/engine.log)")
-    log(f"TORCH_TEST evidence: {n_windows} rows")
+    log(f"TORCH_TEST evidence: {evidence}")
+
+
+def _engine_stats_line() -> str:
+    """The last stats line (the JSON with ``"events"``) this run's engine
+    wrote to ``logs/engine.log``, or ""."""
+    line = ""
+    try:
+        with open(os.path.join(LOG_DIR, "engine.log")) as f:
+            f.seek(_ENGINE_LOG_START)        # only THIS run's lines
+            for ln in f:
+                if '"events"' in ln:
+                    line = ln.strip()
+    except OSError:
+        pass
+    return line
 
 
 def op_stop_all() -> None:

@@ -111,6 +111,16 @@ def engine_collector(engine, reader=None, runner=None, registry=None):
                 reg.gauge("streambench_sink_fence_seq",
                           "last committed exactly-once flush seq"
                           ).set(tel["sink_fence"]["seq"])
+        # sketch-memory census: engines with a counter-plane family (the
+        # session engine's fixed, SALSA or two-stage sketch) publish the
+        # mode, the state bytes and (at close) the merge counts, read by
+        # the ``obs report`` sketch rows
+        sk = getattr(engine, "sketch_summary", None)
+        if sk is not None:
+            try:
+                rec["sketch"] = sk()
+            except Exception:
+                pass
         if reader is not None:
             bb = getattr(reader, "backlog_bytes", None)
             rec["backlog_bytes"] = bb() if bb is not None else None

@@ -16,7 +16,6 @@ against on the card.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -210,14 +209,8 @@ def count_cells(counts: torch.Tensor, campaign: torch.Tensor,
     # held while the launch reads it: the cache may drop it meanwhile
     plan = _cached_plan(B, *counts.shape,
                         (ptrs[1] % 16, ptrs[2] % 16, ptrs[3] % 16), index)
-    lib = _build.count_cells_lib()
-    with (contextlib.nullcontext() if index == torch.cuda.current_device()
-          else torch.cuda.device(index)):
-        rc = lib.sb_count_cells(*ptrs, ctypes.addressof(plan),
-                                torch._C._cuda_getCurrentRawStream(index))
-    if rc != 0:
-        raise RuntimeError(f"count_cells kernel launch failed: CUDA error "
-                           f"{rc}")
+    _build.launch("count_cells", _build.count_cells_lib().sb_count_cells,
+                  index, *ptrs, ctypes.addressof(plan))
     count_cells.launches += 1
     return counts
 

@@ -28,7 +28,6 @@ probe (``native/encoder.cpp:sb_probe_block``) validates row by row.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -317,35 +316,31 @@ def decode_rows(buf: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
     if starts.numel() == 0:
         return campaign, is_view, rel, valid
     index = buf.get_device()
-    with (contextlib.nullcontext() if index == torch.cuda.current_device()
-          else torch.cuda.device(index)):
-        _launch(buf, starts, lens, keys, meta, probes, base_hi, base_lo,
-                (campaign, is_view, rel, valid),
-                torch._C._cuda_getCurrentRawStream(index),
-                # the plan reads cap only as cap >= 16: one cache entry
-                # serves every block's buffer
-                _cached_plan(keys.shape[0], min(buf.shape[0], 16),
-                             buf.data_ptr() % 16, starts.numel(), index))
+    _launch(buf, starts, lens, keys, meta, probes, base_hi, base_lo,
+            (campaign, is_view, rel, valid), index,
+            # the plan reads cap only as cap >= 16: one cache entry serves
+            # every block's buffer
+            _cached_plan(keys.shape[0], min(buf.shape[0], 16),
+                         buf.data_ptr() % 16, starts.numel(), index))
     return campaign, is_view, rel, valid
 
 
 def _launch(buf, starts, lens, keys, meta, probes: int, base_hi: int,
-            base_lo: int, outs, stream: int, plan: _PlanArgs) -> None:
-    """One launch of K2 on ``stream`` with ``plan`` into the four
-    ``outs``; raises when the library cannot be built or the launch is
-    refused, and counts only a launch that was made."""
+            base_lo: int, outs, index: int, plan: _PlanArgs) -> None:
+    """One launch of K2 on CUDA device ``index``'s current stream with
+    ``plan`` into the four ``outs``; raises when the library cannot be
+    built or the launch is refused, and counts only a launch that was
+    made."""
     lib = _build.decode_rows_lib()
     campaign, is_view, rel, valid = outs
     # the plan is held while the launch reads it (the cache may drop it)
-    rc = lib.sb_decode_rows(
+    _build.launch(
+        "decode_rows", lib.sb_decode_rows, index,
         buf.data_ptr(), buf.shape[0], starts.data_ptr(), lens.data_ptr(),
         starts.numel(), keys.data_ptr(), meta.data_ptr(), keys.shape[0],
         int(probes), int(base_hi), int(base_lo), campaign.data_ptr(),
         is_view.data_ptr(), rel.data_ptr(), valid.data_ptr(),
-        ctypes.addressof(plan), stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_rows kernel launch failed: CUDA error "
-                           f"{rc}")
+        ctypes.addressof(plan))
     decode_rows.launches += 1
 
 

@@ -1,6 +1,7 @@
-"""The measured method table: the counting arms of the window folds.
+"""The measured method table: the counting arms of the window folds and
+the count-min sketch.
 
-The port of the tumbling and sliding parts of
+The port of the tumbling, sliding and count-min parts of
 ``streambench_tpu/ops/methodbench.py``.
 It times ``windowcount.apply_count`` per method at one geometry (C
 campaigns, W ring slots, B rows) on a synthetic batch, after checking
@@ -26,7 +27,17 @@ sizes only the count family.  Its winner, under
 ``<device type>/sliding/S<S>``, is what ``jax.sliding.sliced: auto``
 reads (``engine.sketches._sliced_auto``), and only at the ``[C, W]`` it
 was measured at.
-The count-min family waits for the session + CMS engine.
+
+The count-min family (``measure_cms``) times one sketch update of a
+Zipf-keyed batch per arm: ``flat`` (K3's update on the card), ``rowloop``
+(D scatters, one a row, over K3's columns; bit-identical to ``flat``),
+``twostage`` (the fat update and the small-stage refresh, two K3
+launches) and ``salsa`` (K3's columns, then decode, scatter, settle and
+re-encode as torch ops).  Every arm first folds the batch into a fresh
+sketch and must give ``flat``'s counts (SALSA: the state
+``salsa.oracle_encode_np`` derives from them).  Its winner, under
+``<device type>/cms/W<Wd>``, is what ``jax.cms.mode: auto`` reads
+(``engine.sketches._cms_auto``).
 
 The cache is one JSON file of the port's own
 (``$STREAMBENCH_TORCH_METHOD_CACHE``, default
@@ -36,7 +47,7 @@ device type and the campaign count's power-of-two bucket
 
     python -m streambench_tpu_torch.ops.methodbench [--device cuda|cpu]
         [--campaigns C] [--window-slots W] [--batch B] [--smoke]
-        [--no-record] [--family count|sliding|all]
+        [--no-record] [--family count|sliding|cms|all]
 
 On the card every arm is timed with CUDA events; on the CPU (only when
 asked for, as the tests do) with the host clock.
@@ -52,6 +63,7 @@ import numpy as np
 
 METHODS = ("scatter", "kernel", "onehot", "matmul")
 SLIDING_METHODS = ("scatter", "matmul", "sliced")
+CMS_METHODS = ("flat", "rowloop", "twostage", "salsa")
 # Operand bytes an arm may allocate per call before the table skips it.
 MAX_OPERAND_BYTES = 2 << 30
 _DEFAULT_CACHE = os.path.join(
@@ -429,6 +441,158 @@ def measure_and_record_sliding(num_campaigns: int = 100,
     return res
 
 
+# ----------------------------------------------------------------------
+# Count-min family: one sketch update per arm.
+
+def cms_key(device_type: str, width: int) -> str:
+    return f"{device_type}/cms/W{int(width)}"
+
+
+def cms_winner(device_type: str, width: int) -> str | None:
+    """The measured cms-family winner for this device type and width, or
+    None when nothing was measured (``jax.cms.mode: auto`` then resolves
+    fixed)."""
+    entry = cached_value(cms_key(device_type, width))
+    if entry is None:
+        return None
+    winner = entry.get("winner")
+    return winner if winner in CMS_METHODS else None
+
+
+def _cms_arm(method: str, depth: int, width: int, dev):
+    """(fresh state, update function) of one arm."""
+    from streambench_tpu_torch.ops import cms, salsa
+
+    if method == "salsa":
+        return salsa.init_state(depth, width, device=dev), salsa.update
+    if method == "twostage":
+        return cms.init_two_stage(depth, width, device=dev), cms.update2
+    fn = cms.update_rowloop if method == "rowloop" else cms.update
+    return cms.init_state(depth, width, device=dev), fn
+
+
+def _cms_counts(method: str, state) -> "np.ndarray":
+    """An arm's counter plane after one fold, comparable across arms:
+    the fat table of the two-stage sketch, the encoded SALSA plane."""
+    from streambench_tpu_torch.ops import cms
+
+    if method == "salsa":
+        return np.concatenate([state.table.cpu().numpy().reshape(-1),
+                               state.m1.cpu().numpy().reshape(-1),
+                               state.m2.cpu().numpy().reshape(-1)])
+    table = (state.fat.table if isinstance(state, cms.CMS2State)
+             else state.table)
+    return table.cpu().numpy()
+
+
+def cms_batch(rng, B: int) -> tuple:
+    """numpy (keys, weights) of one sketch batch: Zipf(1.1) keys capped
+    at 2^28, int32 weights 1-7 (the heavy-hitter shape the session engine
+    feeds the sketch)."""
+    keys = np.minimum(rng.zipf(1.1, B), 2**28).astype(np.int32)
+    return keys, rng.integers(1, 8, B).astype(np.int32)
+
+
+def measure_cms(width: int = 2048, depth: int = 4, batch_size: int = 8192,
+                iters: int = 20, methods: tuple = CMS_METHODS,
+                device: str = "cuda", time_budget_s: float = 5.0,
+                seed: int = 0) -> dict:
+    """Time one sketch update per arm at one geometry.
+
+    Zipf(1.1) keys (capped at 2^28) with weights 1-7, every row counted:
+    the heavy-hitter shape the session engine feeds the sketch.  Every
+    arm first folds the batch into a fresh sketch and must agree with
+    ``flat`` (an arm that differs is recorded with an error and takes no
+    part in the ranking); then a warm update and up to ``iters`` timed
+    updates, between CUDA events on the card, by the host clock on the
+    CPU."""
+    import torch
+
+    from streambench_tpu_torch.ops import salsa
+    from streambench_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    B = int(batch_size)
+    keys, weights = cms_batch(rng, B)
+    cols = [torch.from_numpy(c).to(dev)
+            for c in (keys, weights, np.ones(B, bool))]
+    cuda = dev.type == "cuda"
+    out: dict = {
+        "device_type": dev.type,
+        "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "depth": int(depth), "width": int(width), "batch_size": B,
+        "iters": int(iters), "methods": {},
+    }
+    per_budget = time_budget_s / max(len(methods), 1)
+    flat_counts = None
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    for method in methods:
+        try:
+            state, fn = _cms_arm(method, depth, width, dev)
+            got = _cms_counts(method, fn(state, *cols))
+            if flat_counts is None:
+                st, f = _cms_arm("flat", depth, width, dev)
+                flat_counts = _cms_counts("flat", f(st, *cols))
+            want = (np.concatenate([a.reshape(-1) for a in
+                                    salsa.oracle_encode_np(
+                                        flat_counts.astype(np.int64))])
+                    if method == "salsa" else flat_counts)
+            if not np.array_equal(got, want):
+                out["methods"][method] = {
+                    "error": "counts differ from the flat arm's"}
+                continue
+            st, _ = _cms_arm(method, depth, width, dev)
+            sync()
+            t0 = time.perf_counter()
+            st = fn(st, *cols)
+            sync()
+            warm_s = time.perf_counter() - t0
+            n = (1 if warm_s > per_budget
+                 else max(1, min(iters, int(per_budget / max(warm_s,
+                                                             1e-7)))))
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n):
+                    st = fn(st, *cols)
+                end.record()
+                end.synchronize()
+                per_call_ms = start.elapsed_time(end) / n
+            else:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    st = fn(st, *cols)
+                per_call_ms = (time.perf_counter() - t0) * 1e3 / n
+            out["methods"][method] = {
+                "ms_per_step": per_call_ms,
+                "ns_per_event": per_call_ms * 1e6 / B,
+                "timed_iters": n,
+            }
+        except Exception as e:  # a broken arm must not kill the table
+            out["methods"][method] = {"error": repr(e)}
+    ranked = sorted(
+        (m for m, v in out["methods"].items() if "ns_per_event" in v),
+        key=lambda m: out["methods"][m]["ns_per_event"])
+    out["winner"] = ranked[0] if ranked else None
+    return out
+
+
+def measure_and_record_cms(width: int = 2048, depth: int = 4,
+                           batch_size: int = 8192, **kw) -> dict:
+    """Measure + persist under ``<device type>/cms/W<Wd>``, the key
+    ``jax.cms.mode: auto`` reads; re-measuring overwrites."""
+    res = measure_cms(width=width, depth=depth, batch_size=batch_size, **kw)
+    if res.get("winner"):
+        record(cms_key(res["device_type"], width), res)
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -446,7 +610,7 @@ def main(argv=None) -> int:
     ap.add_argument("--no-record", action="store_true",
                     help="print the table without touching the cache")
     ap.add_argument("--family", default="all",
-                    choices=("count", "sliding", "all"),
+                    choices=("count", "sliding", "cms", "all"),
                     help="which fold family to measure")
     args = ap.parse_args(argv)
     if args.smoke:
@@ -467,6 +631,13 @@ def main(argv=None) -> int:
         res["sliding"] = fn(num_campaigns=args.campaigns,
                             batch_size=args.batch, iters=args.iters,
                             device=args.device)
+    if args.family in ("cms", "all"):
+        # the session engine's plane (D = 4, Wd = 2048); the smoke's is
+        # narrow
+        fn = measure_cms if args.no_record else measure_and_record_cms
+        res["cms"] = fn(width=256 if args.smoke else 2048,
+                        batch_size=args.batch, iters=args.iters,
+                        device=args.device)
     print(json.dumps(res, indent=1, sort_keys=True))
     return 0 if all(v.get("winner") for v in res.values()) else 1
 

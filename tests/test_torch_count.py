@@ -133,4 +133,4 @@ def test_kernel_build_targets_hopper_and_stays_lazy(monkeypatch):
     cmd = _build._nvcc(_build.COUNT_CELLS_SRC)("out.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and cmd[-1] == _build.COUNT_CELLS_SRC
-    assert _build._count_lib is None
+    assert _build.count_cells_lib.lib is None

@@ -351,8 +351,11 @@ def test_launch_passes_the_plan_meta_and_table(monkeypatch):
     monkeypatch.setattr(tdec, "device_limits", lambda index: (132, 232_448))
     tdec._cached_plan.cache_clear()
     plan = tdec._cached_plan(keys.shape[0], buf.size, 1, starts.size, 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1234, raising=False)
     before = tdec.decode_rows.launches
-    tdec._launch(*t, meta, probes, 7, 8, outs, 1234, plan)
+    tdec._launch(*t, meta, probes, 7, 8, outs, 0, plan)
     tdec._cached_plan.cache_clear()
     assert tdec.decode_rows.launches == before + 1
     args, fields = seen[-1]

@@ -319,6 +319,9 @@ def test_cuda_launch_raises_and_counts_nothing_when_the_library_fails(
             calls.append(a)
             return self.rc
 
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
     before = tdec.decode_rows.launches
     monkeypatch.setattr(_build, "decode_rows_lib", lambda: Lib(209))
     with pytest.raises(RuntimeError, match="CUDA error 209"):
@@ -346,7 +349,7 @@ def test_decode_build_targets_hopper_and_stays_lazy(monkeypatch):
     cmd = _build._nvcc(_build.DECODE_ROWS_SRC)("out.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[-1].endswith(os.path.join("csrc", "decode_rows.cu"))
-    assert _build._decode_lib is None
+    assert _build.decode_rows_lib.lib is None
 
 
 # ----------------------------------------------------------------------

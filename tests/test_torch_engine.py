@@ -239,8 +239,8 @@ def test_cli_catchup_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("extra,conf_line,word", [
     (["--sharded"], "", "--sharded"),
-    # hll and sliding are ported; session (BASELINE #4) is not yet
-    (["--engine", "session"], "", "--engine session"),
+    # hll, sliding and session are ported; reach is not yet
+    (["--engine", "reach"], "", "--engine reach"),
     # --traceDir is ported; what stays refused of tracing is the fleet
     # layer's cross-process trace stitching (jax.obs.fleet)
     ([], "jax.obs.fleet: true", "jax.obs.fleet"),

@@ -139,7 +139,8 @@ def test_torch_test_with_device_decode_on_cpu(tmp_path):
     assert "decode=device" in engine_log
     stats = json.loads(engine_log.strip().splitlines()[-1])
     assert stats["events"] > 0 and stats["dropped"] == 0
-    assert stats["kernel_launches"] == {"count_cells": 0, "decode_rows": 0}
+    assert stats["kernel_launches"] == {"count_cells": 0, "decode_rows": 0,
+                                        "cms_rows": 0}
     verdict = json.load(open(os.path.join(wd, "verify.json")))
     assert verdict["journal_events"] == stats["events"]
     assert verdict["windows_correct"] > 0

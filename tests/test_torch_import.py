@@ -49,8 +49,9 @@ print(json.dumps({
                   if m.split(".")[0] in ("jax", "jaxlib", "streambench_tpu")),
     "cuda_initialized": torch.cuda.is_initialized(),
     "built": [native._lib is not None, native._tried,
-              _build._count_lib is not None,
-              _build._decode_lib is not None],
+              _build.count_cells_lib.lib is not None,
+              _build.decode_rows_lib.lib is not None,
+              _build.cms_rows_lib.lib is not None],
 }))
 """
 
@@ -82,13 +83,17 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.engine.sketches",
                 "streambench_tpu_torch.ops.hll",
                 "streambench_tpu_torch.ops.sliding",
-                "streambench_tpu_torch.ops.tdigest"} | {
+                "streambench_tpu_torch.ops.tdigest",
+                "streambench_tpu_torch.ops.session",
+                "streambench_tpu_torch.ops.cms",
+                "streambench_tpu_torch.ops.cmsrows",
+                "streambench_tpu_torch.ops.salsa"} | {
                     f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES} | {
                     f"streambench_tpu_torch.chaos.{m}" for m in CHAOS_MODULES}
     assert expected <= set(got["modules"])
     assert got["jax"] == []
     assert got["cuda_initialized"] is False
-    assert got["built"] == [False, False, False, False]
+    assert got["built"] == [False, False, False, False, False]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
