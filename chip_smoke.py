@@ -12,10 +12,13 @@ result line) when any phase fails:
    plain PyTorch version and a numpy count on the card, exact equality, at
    the main path's shapes and others (``CASES``: Zipf-skewed campaigns and
    ~30 % masked rows, a hot cell, views misaligned by 1 and 3 rows,
-   config #5's step on its 256 MB plane, and a 16.7M-row bandwidth
+   config #5's step on its 256 MB plane, the sharded fold's per-shard
+   plane of a four-shard config #5 layout ([250000, 64], three quarters
+   of the rows out of shard and masked), and a 16.7M-row bandwidth
    case), each with the launch plan it took; device
    times from CUDA events over CUDA-graph replays and eager call times,
-   beside the byte bound at 3.35 TB/s, one ``index_add_`` call as a
+   beside the byte bound at 3.35 TB/s (1 B a row's mask, 8 B an unmasked
+   row's campaign and slot, 8 B a touched cell), one ``index_add_`` call as a
    library yardstick, the launch floor (an empty kernel), and the share
    of a warp's rounds of atomics in which two rows hit one cell.  Then
    the decode kernel K2 (``csrc/decode_rows.cu``) against its plain
@@ -48,8 +51,9 @@ result line) when any phase fails:
    keys with a third masked; keys -1 and past 2^28; the two-stage refresh
    at Ws = 256; a bandwidth case, 2^22 rows, D = 8, Wd = 2^20), each with
    its device time over CUDA-graph replays, eager time, the plain
-   version's device time, the byte bound (9 B a row in, 8 B a touched
-   cell for the update, 4 B a gathered cell for the query) and the launch
+   version's device time, the byte bound (for the update 1 B a row's
+   mask, 8 B an unmasked row's key and weight, 8 B a touched cell; 4 B a
+   gathered cell for the query) and the launch
    floor, and ``index_add_`` over precomputed columns as the update's
    yardstick (the scatter alone: no PyTorch call hashes); then the CMS
    method table at Wd = 2048 (``methodbench.measure_cms``: flat, rowloop,
@@ -101,7 +105,7 @@ result line) when any phase fails:
    journal; the window latency (``updated.txt``) as p50/p90/p99/max.
 10. Fake Kafka: the same composite with ``KAFKA_FAKE=1`` (the broker its
    own process, one partition), 10,000 ev/s for 15 s.
-11. Observability: phase 9's composite at 100,000 ev/s for 30 s with every
+11. Observability: phase 9's composite at 100,000 ev/s for 15 s with every
    ported obs knob on (``METRICS_INTERVAL_MS=1000``, ``OBS_LIFECYCLE``,
    ``FLIGHTREC``, ``OBS_SPANS``, ``OBS_OCCUPANCY``, ``OBS_XFER``,
    ``OBS_DEVMEM``, ``OBS_CAPTURE``, ``SLO_P99_MS=15000``).  Besides phase
@@ -228,7 +232,22 @@ result line) when any phase fails:
    ``torch.profiler`` gives the device operations one eager batch
    launches (X5).
 
-Each kernel's launches are counted over each of phases 4, 6-16, from 0
+17. BASELINE #5 in the reference's shape: ``parallel.ShardedWindowEngine``
+   on a ``(1, 1)`` mesh of one rank (a world-size-1 NCCL group: every
+   gather and sum of the fold still runs through NCCL) over phase 6's
+   journal, with phase 6's configuration, twice: plain, and with the
+   per-shard skew tracker attached (``jax.obs.shard``).  Each run must
+   fold all 1,000,000 events, drop none, take ``rows_compact`` drains
+   and launch K1; the plain run must leave every window equal to phase
+   6's oracle-checked store, and the tracker's routed rows must be the
+   views phase 6 counted.  Its ev/s
+   (and with ``close()``) beside phase 6's, and the collectives one
+   dispatch issues, by kind and bytes, from the engine's own counter
+   (``collective_report``), each bracketed by CUDA events, and the NCCL
+   kernels' device time and the c10d calls' host time a dispatch under
+   ``torch.profiler``.
+
+Each kernel's launches are counted over each of phases 4, 6-17, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -271,7 +290,7 @@ PACED_LOAD = (100_000, 30)
 KAFKA_LOAD = (10_000, 15)
 PACED_DECODE_LOAD = (100_000, 15)
 # phase 11: the paced load and the harness's obs knobs
-OBS_LOAD = (100_000, 30)
+OBS_LOAD = (100_000, 15)
 OBS_ENV = {"METRICS_INTERVAL_MS": "1000", "OBS_LIFECYCLE": "1",
            "FLIGHTREC": "1", "OBS_SPANS": "1", "OBS_OCCUPANCY": "1",
            "OBS_XFER": "1", "OBS_DEVMEM": "1", "OBS_CAPTURE": "1",
@@ -376,6 +395,11 @@ CASES = (
      "zipf"),
     ("config #5 step: one 8192-event batch of the large-key-space catchup",
      8192, 1_000_000, 64, "config5"),
+    # the sharded fold's per-shard plane (M16): shard 0 of config #5's key
+    # space over a four-shard campaign axis, [250000, 64]
+    ("per-shard plane of a four-shard config #5 layout [250000, 64]: "
+     "three quarters of the rows out of shard", 8192, 250_000, 64,
+     "shard4"),
     ("hot cell: every unmasked row on one cell", 4096, 100, 16, "hot"),
     ("misaligned views, 1 row in", 4096, 100, 16, "offset1"),
     ("misaligned views, 3 rows in", 4096, 100, 16, "offset3"),
@@ -541,11 +565,15 @@ def _inputs(rng, B: int, C: int, W: int, kind: str):
     if kind == "hot":
         camp = np.full(n, C // 2, np.int32)
         slot = np.full(n, W - 1, np.int32)
-    elif kind == "config5":
-        camp = rng.integers(0, C, n, dtype=np.int32)
+    elif kind in ("config5", "shard4"):
+        # "shard4": campaigns over the whole key space of four shards, as
+        # the sharded fold passes them (``campaign - c0``, here c0 = 0),
+        # masked to the rows of this shard as its ``in_shard`` does
+        shards = 4 if kind == "shard4" else 1
+        camp = rng.integers(0, shards * C, n, dtype=np.int32)
         t0 = int(rng.integers(0, 10_000_000))
         slot = ((t0 + 10 * np.arange(n)) // 10_000 % W).astype(np.int32)
-        return camp, slot, rng.random(n) < 1 / 3, offset
+        return camp, slot, (rng.random(n) < 1 / 3) & (camp < C), offset
     elif kind.startswith("sliced"):
         # generator rows 10 ms apart: 1 s buckets on the 2048-slot ring,
         # lateness class S - 1 but for a tenth of the rows; a third are
@@ -638,12 +666,15 @@ def _kernel_case(label: str, C: int, W: int, kind: str, steps: list,
         cells = np.where(m, c.astype(np.int64) * W + s, -1)
         host += np.bincount(cells[m], minlength=C * W)
         n_touched = int(np.unique(cells[m]).size)
-        # bytes the function must move for THIS data: each input row read
-        # once (4 + 4 + 1 B), each counts cell it touches read and written
+        n_masked = int((~m).sum())
+        # bytes the function must move for THIS data: each row's mask
+        # (1 B), the campaign and slot of each unmasked row (4 + 4 B; a
+        # masked row needs neither), each counts cell it touches read and
+        # written (4 + 4 B)
         rows += c.size
-        nbytes += c.size * 9 + n_touched * 8
+        nbytes += c.size + (c.size - n_masked) * 8 + n_touched * 8
         touched += n_touched
-        masked += int((~m).sum())
+        masked += n_masked
         r, n = _repeat_rounds(cells, plan.head)
         repeat += r
         rounds += n
@@ -698,6 +729,7 @@ def _kernel_case(label: str, C: int, W: int, kind: str, steps: list,
 
 
 def phase_kernels() -> tuple[list[dict], dict]:
+    """K1's cases."""
     import numpy as np
     import torch
 
@@ -1742,22 +1774,25 @@ class Config5Data:
         return _config(self.workdir, dict(self.keys, **(keys or {})))
 
     def store(self):
+        """A fresh in-process store holding the campaign set, as
+        ``seed_campaigns`` leaves it, in SADDs of 10,000 members: one
+        command a campaign costs ~10 s a store at 1e6 campaigns."""
         from streambench_tpu_torch.io.fakeredis import make_store
-        from streambench_tpu_torch.io.redis_schema import (
-            as_redis,
-            seed_campaigns,
-        )
+        from streambench_tpu_torch.io.redis_schema import as_redis
 
         r = as_redis(make_store())
-        seed_campaigns(r, self.campaigns)
+        for i in range(0, len(self.campaigns), 10_000):
+            r.execute("SADD", "campaigns", *self.campaigns[i:i + 10_000])
         return r
 
     def remove(self) -> None:
         shutil.rmtree(self.workdir, ignore_errors=True)
 
 
-def phase_large_key_space(data: Config5Data) -> dict:
-    """BASELINE config #5's key space on one card (see the module doc)."""
+def phase_large_key_space(data: Config5Data) -> tuple[dict, dict]:
+    """BASELINE config #5's key space on one card (see the module doc).
+    Returns the result and the store's windows, which phase 17 holds its
+    rows against."""
     import torch
 
     from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
@@ -1840,7 +1875,10 @@ def phase_large_key_space(data: Config5Data) -> dict:
     if launches <= 0:
         raise AssertionError("the count kernel never launched on the "
                              "config #5 path")
-    return result
+    t0 = time.perf_counter()
+    windows = _store_windows(r)
+    result["store_read_s"] = time.perf_counter() - t0
+    return result, windows
 
 
 def _plain_sink_catchup(workdir: str, broker, mapping, campaigns) -> dict:
@@ -3600,6 +3638,204 @@ def _small_stage_check(data: SessionData, engine) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 17: BASELINE #5 in the reference's shape (the sharded engine)
+
+SHARDED_RUNS = ("plain", "obs_shard")
+COLLECTIVE_REPEATS = 3
+
+
+def _collective_kernels(engine, repeats: int = 20) -> dict:
+    """The NCCL kernels of ``repeats`` x (one step + one 1-batch scan) of
+    all-invalid rows under ``torch.profiler``: their device time and the
+    host time of the c10d calls that issue them, a dispatch (each
+    dispatch issues the same three collectives)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.collective_report(k=1)             # warm outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            engine.collective_report(k=1)
+        torch.cuda.synchronize()
+    dispatches = 2 * repeats
+    dev = [(e.key, e.count, e.self_device_time_total)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+    host = [(e.key, e.count, e.cpu_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU
+            and e.key.startswith("c10d::")]
+    return {
+        "dispatches": dispatches,
+        "device_ms_per_dispatch": sum(t for _, _, t in dev) / 1e3
+        / dispatches,
+        "host_ms_per_dispatch": sum(t for _, _, t in host) / 1e3
+        / dispatches,
+        "kernels": [{"name": k[:80], "calls": c, "device_ms": t / 1e3}
+                    for k, c, t in dev],
+        "host_calls": [{"name": k[:80], "calls": c, "host_ms": t / 1e3}
+                       for k, c, t in host],
+    }
+
+
+def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
+                  device: str = "cuda") -> dict:
+    """Phase 17: ``ShardedWindowEngine`` on a ``(1, 1)`` NCCL mesh over
+    phase 6's journal (see the module doc); ``want`` is phase 6's
+    oracle-checked store, ``unsharded`` its result.  ``device`` is an
+    argument so the phase can be rehearsed on the CPU (gloo, the touched
+    rows read through host memory, no device times)."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from streambench_tpu_torch.engine import StreamRunner
+    from streambench_tpu_torch.obs import MetricsRegistry, ShardSkew
+    from streambench_tpu_torch.ops.count import count_cells
+    from streambench_tpu_torch.parallel import (
+        ShardedWindowEngine,
+        build_mesh,
+    )
+
+    cfg = data.config()
+    on_card = device == "cuda"
+    drain_kind = "rows_compact" if on_card else "rows_host"
+    t0 = time.perf_counter()
+    mesh = build_mesh(1, 1, device=device)
+    out: dict = {"mesh": repr(mesh), "backend": mesh.backend,
+                 "mesh_s": time.perf_counter() - t0}
+    try:
+        warm = ShardedWindowEngine(cfg, data.mapping, mesh,
+                                   campaigns=data.campaigns, device=device)
+        warm.warmup()
+        warm.close()
+        del warm
+        for run in SHARDED_RUNS:
+            r = data.store()
+            engine = ShardedWindowEngine(cfg, data.mapping, mesh,
+                                         campaigns=data.campaigns, redis=r,
+                                         device=device)
+            skew = None
+            if run == "obs_shard":
+                # jax.obs.shard: the fold's stats arm feeds the tracker
+                reg = MetricsRegistry()
+                skew = ShardSkew(reg, n_shards=1)
+                engine.attach_obs(reg, shard=skew)
+            reader = data.broker.reader(cfg.kafka_topic)
+            _sync(device)
+            count_cells.launches = 0          # this path starts here
+            t0 = time.perf_counter()
+            stats = StreamRunner(engine, reader).run_catchup()
+            run_s = time.perf_counter() - t0
+            engine.close()
+            _sync(device)
+            total_s = time.perf_counter() - t0
+            launches = count_cells.launches   # this path ends here
+            reader.close()
+            res = {
+                "events": stats.events, "flushes": stats.flushes,
+                "windows_written": stats.windows_written,
+                "dropped": engine.dropped,
+                "run_catchup_s": run_s, "catchup_with_close_s": total_s,
+                "events_per_s": stats.events / run_s,
+                "events_per_s_with_close": stats.events / total_s,
+                "drains": dict(engine.drain_stats),
+                "count_cells_launches": launches,
+                "stages": engine.tracer.as_dict(),
+            }
+            diff: set = set()
+            if skew is not None:
+                # the stats arm's run is held by its routed rows below;
+                # reading a 1e6-campaign store again costs ~15 s
+                res["shard_skew"] = skew.summary()
+            else:
+                t0 = time.perf_counter()
+                got = _store_windows(r)
+                res["store_read_s"] = time.perf_counter() - t0
+                diff = {k for k in got.keys() | want.keys()
+                        if got.get(k) != want.get(k)}
+                res["windows_equal_phase6"] = len(want) - len(
+                    diff & want.keys())
+            print(f"[sharded_{run}] {json.dumps(res)}", flush=True)
+            if diff:
+                raise AssertionError(
+                    f"sharded {run}: {len(diff)} of {len(want)} windows "
+                    f"differ from phase 6's, e.g. {sorted(diff)[:3]}")
+            if stats.events != data.events or engine.dropped:
+                raise AssertionError(f"sharded {run}: folded "
+                                     f"{stats.events} of {data.events}, "
+                                     f"dropped {engine.dropped}")
+            if not engine.drain_stats.get(drain_kind):
+                raise AssertionError(f"sharded {run}: no {drain_kind} "
+                                     f"drain ran: {engine.drain_stats}")
+            if on_card and launches <= 0:
+                raise AssertionError(f"sharded {run}: the count kernel "
+                                     "never launched")
+            if skew is not None and res["shard_skew"]["rows"] != [
+                    sum(want.values())]:
+                raise AssertionError(f"sharded {run}: the shard's routed "
+                                     f"rows {res['shard_skew']} are not "
+                                     "the views counted")
+            out[run] = res
+        # the collectives a dispatch issues, from the engine's own
+        # counter, each bracketed by CUDA events (the step the path runs,
+        # and a scan of the configured group)
+        reports = [engine.collective_report(timed=on_card)
+                   for _ in range(COLLECTIVE_REPEATS)]
+        out["collectives"] = reports[-1]
+        for kernel in ("step", "scan") if on_card else ():
+            out["collectives"][kernel]["device_ms_runs"] = [
+                rep[kernel]["device_ms"] for rep in reports]
+            out["collectives"][kernel]["device_ms_median"] = (
+                statistics.median(rep[kernel]["device_ms"]
+                                  for rep in reports))
+        if on_card:
+            out["collective_kernels"] = _collective_kernels(engine)
+        out["unsharded_events_per_s"] = unsharded["events_per_s"]
+        out["unsharded_events_per_s_with_close"] = unsharded[
+            "events_per_s_with_close"]
+    finally:
+        dist.destroy_process_group()
+    step = out["collectives"]["step"]
+    step.setdefault("device_ms_median", "not measured")
+    print(f"[sharded] ev/s {out['plain']['events_per_s']} "
+          f"({out['plain']['events_per_s_with_close']} with close) on the "
+          f"(1, 1) {mesh.backend} mesh, phase 6 unsharded "
+          f"{out['unsharded_events_per_s']} "
+          f"({out['unsharded_events_per_s_with_close']}); a step issues "
+          f"{step['per_dispatch']['by_kind']} collectives, "
+          f"{step['per_dispatch']['bytes']} B, "
+          f"{step['device_ms_median']} ms between CUDA events, "
+          f"{out.get('collective_kernels', {}).get('device_ms_per_dispatch', 'not measured')}"
+          f" ms of NCCL kernels; jax.obs.shard run "
+          f"{out['obs_shard']['events_per_s']} ev/s, skew "
+          f"{out['obs_shard']['shard_skew']}", flush=True)
+    return out
+
+
+class Laps:
+    """Seconds of each phase of one run: ``lap(name)`` closes the phase
+    that ran since the last lap (or since the start)."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+
+    def as_dict(self) -> dict:
+        return {"seconds": self.seconds,
+                "total_s": time.perf_counter() - self.start}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--events", type=int, default=5_000_000,
@@ -3613,6 +3849,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="a diagnostic: phases 1-3 and 16 alone (no result "
                     "line)")
     args = ap.parse_args(argv)
+    lap = Laps()
 
     try:
         import torch
@@ -3665,26 +3902,41 @@ def main(argv: list[str] | None = None) -> int:
                            "nvidia_smi": smi}, f, indent=1)
         print(smi, flush=True)
         return 0
+    lap("1-3 device, build, K1 cases")
     decode_cases = phase_decode_kernels(floor)
     cms_cases = phase_cms_kernels(floor)
     methods = phase_method_table()
     cms_methods = phase_cms_method_table()
+    lap("3 K2, K3 cases, method tables")
     e2e, (C, W), steps, pipelined, decode = phase_end_to_end(args.events)
+    lap("4, 8, 12 catchups")
     config5 = Config5Data(LARGE_EVENTS)
-    large = phase_large_key_space(config5)
+    large, large_rows = phase_large_key_space(config5)
+    lap("6 config #5, its journal and oracle")
     xo = phase_exactly_once_resume(LARGE_EVENTS)
+    lap("7 exactly-once resume")
     paced = phase_paced("paced", PACED_LOAD)
+    lap("9 paced")
     kafka = phase_paced("kafka", KAFKA_LOAD, KAFKA_FAKE="1",
                         KAFKA_BROKERS=f"127.0.0.1:{_free_port()}")
+    lap("10 kafka")
     obs = phase_paced("obs", OBS_LOAD, check=check_obs, **OBS_ENV)
+    lap("11 obs")
     paced_decode = phase_paced("paced_decode", PACED_DECODE_LOAD,
                                DECODE_DEVICE="on")
+    lap("13 paced decode")
     try:
         chaos = phase_chaos(config5)
+        lap("14 chaos")
+        sharded = phase_sharded(config5, large_rows, large)
+        lap("17 config #5 sharded")
     finally:
         config5.remove()
+    del large_rows
     sketch = phase_sketches()
+    lap("15 sketches")
     session = phase_session()
+    lap("16 session")
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -3715,6 +3967,7 @@ def main(argv: list[str] | None = None) -> int:
         f"warm-up {o['captures']['warm_s']} s, captures "
         f"{[(c.get('start_s'), c.get('stop_s')) for c in o['captures']['captures']]}"
         f" s (start, stop)", flush=True)
+    lap("the summaries")
     cases.append(_kernel_case(
         f"the main path's own rows: every launch of the catchup's first "
         f"{min(args.events, PROFILE_EVENTS)} events", C, W, "catchup",
@@ -3730,6 +3983,8 @@ def main(argv: list[str] | None = None) -> int:
         "launches_by_path": {
             "stock_catchup": e2e["count_cells_launches"],
             "config5_catchup": large["count_cells_launches"],
+            **{f"sharded_config5_{k}": sharded[k]["count_cells_launches"]
+               for k in SHARDED_RUNS},
             "exactly_once_resume": xo["count_cells_launches"],
             "pipelined_catchup": pipelined["count_cells_launches"],
             "paced_ysb": paced["count_cells_launches"],
@@ -3815,9 +4070,13 @@ def main(argv: list[str] | None = None) -> int:
         "launch_floor_ms": main_cms["launch_floor_ms"],
         "cases": cms_cases,
     })
+    lap("5 K1 on the main path's rows")
+    laps = lap.as_dict()
+    print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"kernels": kernels, "method_table": methods,
+            json.dump({"kernels": kernels, "phase_seconds": laps,
+                       "method_table": methods,
                        "end_to_end": e2e, "large_key_space": large,
                        "exactly_once_resume": xo,
                        "pipelined_catchup": pipelined, "paced_ysb": paced,
@@ -3825,6 +4084,7 @@ def main(argv: list[str] | None = None) -> int:
                        "decode_catchup": decode,
                        "paced_ysb_decode": paced_decode,
                        "supervised_chaos": chaos,
+                       "sharded": sharded,
                        "sketches": sketch,
                        "cms_method_table": cms_methods,
                        "session": session,

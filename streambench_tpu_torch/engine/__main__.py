@@ -11,7 +11,10 @@ feeding a count-min sketch whose top-k heavy hitters go to
 tails the broker topic, flushes the canonical Redis window schema, and
 at the end (catchup drained, duration,
 idle timeout, or SIGTERM) closes the engine and prints the same JSON stats
-line as ``python -m streambench_tpu.engine``.  Any key space the config
+line as ``python -m streambench_tpu.engine``.  ``--sharded`` runs the exact
+engine on the ``(data, campaign)`` mesh of ``jax.mesh.shape``
+(``parallel.ShardedWindowEngine``, one rank: NCCL on the card, gloo on the
+CPU), as ``bench.py`` runs BASELINE #5.  Any key space the config
 names runs (config #5's 1,000,000 campaigns take the large-key-space
 drains); ``--checkpointDir`` saves (offset, state) snapshots there and
 resumes from the newest one at start; ``jax.sink.exactly_once: true``
@@ -40,12 +43,15 @@ profiles the whole run.
 
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
         --workdir RUN_DIR --catchup [--engine exact|hll|sliding|session] \
-        [--device cuda|cpu] [--checkpointDir D]
+        [--device cuda|cpu] [--checkpointDir D] [--sharded]
+
+``jax.obs.shard`` with ``--sharded`` adds the per-shard skew
+(``shard_skew`` in the stats line and the sampler's records).
 
 Options and config keys that need parts of the JAX engine not ported yet
-(the reach and hllx engines, sharding with any engine, the
-fork's micro-batch mode, tenants, the reach query, fleet and shard
-observability) are refused with exit 2.
+(the reach and hllx engines, ``--sharded`` with any engine but exact or
+with more than one process, the fork's micro-batch mode, tenants, the
+reach query and fleet observability) are refused with exit 2.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ import json
 import os
 import signal
 import sys
+
+import torch.distributed as dist
 
 from streambench_tpu_torch.checkpoint import Checkpointer
 from streambench_tpu_torch.config import ConfigError, find_and_read_config_file
@@ -78,6 +86,7 @@ from streambench_tpu_torch.obs import (
     MetricsSampler,
     MetricsServer,
     OccupancySampler,
+    ShardSkew,
     SloTracker,
     SpanTracer,
     TransferLedger,
@@ -87,6 +96,8 @@ from streambench_tpu_torch.obs import (
 from streambench_tpu_torch.ops import cmsrows
 from streambench_tpu_torch.ops.count import count_cells
 from streambench_tpu_torch.ops.decode import decode_rows
+from streambench_tpu_torch.parallel import ShardedWindowEngine, mesh_from_config
+from streambench_tpu_torch.parallel.mesh import CAMPAIGN_AXIS, DATA_AXIS
 from streambench_tpu_torch.trace import device_trace
 
 
@@ -117,9 +128,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(sliding-window counts + t-digest latency "
                         "quantiles) or session (session windows + "
                         "count-min heavy hitters): BASELINE configs #1-#4")
+    p.add_argument("--sharded", action="store_true",
+                   help="run the mesh-sharded exact engine (jax.mesh.shape;"
+                        " one process: NCCL on cuda, gloo on cpu)")
     # flags of the JAX CLI whose machinery is not ported yet: accepted
     # only to refuse them with a clear message
-    p.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--microbatch", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--tenants", default=None, help=argparse.SUPPRESS)
@@ -136,9 +149,14 @@ def unsupported(args, cfg) -> list[str]:
     HLL, sliding and session engines on one device, at any key space, with
     checkpoint/resume, the exactly-once sink, the staged ingest pipeline,
     the encode pool, the dead-letter queue, the Kafka source, device
-    decode (exact engine) and the single-engine observability layer."""
+    decode (exact engine), the single-engine observability layer, and the
+    sharded exact engine in one process (``--sharded``)."""
     out = []
-    for flag, on in (("--sharded", args.sharded),
+    ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
+    for flag, on in (("--sharded --engine " + str(args.engine),
+                      args.sharded and args.engine != "exact"),
+                     (f"--sharded over {ranks} processes",
+                      args.sharded and ranks > 1),
                      ("--engine " + str(args.engine),
                       args.engine not in ENGINES),
                      ("--microbatch", args.microbatch),
@@ -148,8 +166,7 @@ def unsupported(args, cfg) -> list[str]:
     for key, on in (
             ("jax.tenants", cfg.jax_tenants),
             ("jax.obs.query", cfg.jax_obs_query),
-            ("jax.obs.fleet", cfg.jax_obs_fleet),
-            ("jax.obs.shard", cfg.jax_obs_shard)):
+            ("jax.obs.fleet", cfg.jax_obs_fleet)):
         if on:
             out.append(key)
     return out
@@ -183,8 +200,9 @@ def main(argv: list[str] | None = None) -> int:
         print("error: not ported to the PyTorch engine yet (it runs the "
               "exact, hll, sliding and session engines with checkpoints, "
               "the exactly-once sink, the ingest pipeline, the encode pool, "
-              "the dead-letter queue, the Kafka source and the "
-              "single-engine observability layer): " + ", ".join(missing),
+              "the dead-letter queue, the Kafka source, the "
+              "single-engine observability layer and the sharded exact "
+              "engine in one process): " + ", ".join(missing),
               file=sys.stderr)
         return 2
 
@@ -194,8 +212,24 @@ def main(argv: list[str] | None = None) -> int:
     else:
         redis = RespClient(cfg.redis_host, cfg.redis_port)
     engine_cls = ENGINES[args.engine]
-    engine = engine_cls(cfg, mapping, campaigns=campaigns, redis=redis,
-                        device=args.device)
+    mesh = None
+    if args.sharded:
+        # one rank: a world-size-1 group, NCCL on the card, gloo on the CPU
+        try:
+            mesh = mesh_from_config(cfg, device=args.device)
+        except ValueError as e:
+            print(f"error: --sharded: {e}", file=sys.stderr)
+            return 2
+
+    def make_engine(r):
+        if mesh is not None:
+            return ShardedWindowEngine(cfg, mapping, mesh,
+                                       campaigns=campaigns, redis=r,
+                                       device=args.device)
+        return engine_cls(cfg, mapping, campaigns=campaigns, redis=r,
+                          device=args.device)
+
+    engine = make_engine(redis)
 
     broker = make_broker(cfg.kafka_bootstrap_servers,
                          args.brokerDir
@@ -253,8 +287,7 @@ def main(argv: list[str] | None = None) -> int:
     # Build the kernels and run every device path once on a throwaway
     # engine before announcing readiness, so the load phase never waits
     # on a compiler.
-    warm = engine_cls(cfg, mapping, campaigns=campaigns,
-                      device=args.device)
+    warm = make_engine(None)
     warm.settle_decode(runner._pipeline_on())
     warm.warmup()
     warm.close()
@@ -265,14 +298,15 @@ def main(argv: list[str] | None = None) -> int:
     # jax.metrics.port >= 0 serves the localhost Prometheus endpoint
     # (0 = ephemeral, the chosen port is printed below).
     sampler = metrics_server = occupancy = slo = None
-    xfer = devmem = capture = None
+    xfer = devmem = capture = shard = None
     slo_wanted = cfg.jax_slo_p99_ms > 0 or cfg.jax_slo_rate_evps > 0
+    shard_wanted = cfg.jax_obs_shard and mesh is not None
     flush_hooks = []
     if (cfg.jax_metrics_interval_ms > 0 or cfg.jax_metrics_port >= 0
             or cfg.jax_obs_lifecycle or cfg.jax_obs_spans
             or cfg.jax_obs_occupancy or slo_wanted
             or cfg.jax_obs_xfer or cfg.jax_obs_devmem
-            or cfg.jax_obs_capture):
+            or cfg.jax_obs_capture or shard_wanted):
         registry = MetricsRegistry()
         # jax.obs.occupancy: sampled CUDA-event-timed dispatches -> the
         # MEASURED device_busy_ratio, plus the kernel-library build
@@ -285,8 +319,13 @@ def main(argv: list[str] | None = None) -> int:
         if cfg.jax_obs_xfer:
             xfer = TransferLedger(registry,
                                   sample_every=cfg.jax_obs_xfer_sample)
+        # jax.obs.shard: per-shard routed-row skew gauges (the sharded
+        # engine only; the flag is inert without --sharded)
+        if cfg.jax_obs_shard and mesh is not None:
+            shard = ShardSkew(registry, n_shards=mesh.shape[CAMPAIGN_AXIS])
         engine.attach_obs(registry, lifecycle=cfg.jax_obs_lifecycle,
-                          spans=spans, occupancy=occupancy, xfer=xfer)
+                          spans=spans, occupancy=occupancy, xfer=xfer,
+                          shard=shard)
         # jax.obs.devmem: K1's launch footprints once, the allocator
         # census on the host loop at flush cadence
         if cfg.jax_obs_devmem:
@@ -377,7 +416,10 @@ def main(argv: list[str] | None = None) -> int:
           f"device={engine.device} method={engine.method} "
           f"pipeline={'on' if runner._pipeline_on() else 'off'} "
           f"decode={'device' if engine._devdecode is not None else 'host'} "
-          f"encode_workers={cfg.jax_encode_workers}", flush=True)
+          f"encode_workers={cfg.jax_encode_workers}"
+          + (f" mesh={mesh.shape[DATA_AXIS]}x{mesh.shape[CAMPAIGN_AXIS]} "
+             f"backend={mesh.backend}" if mesh is not None else ""),
+          flush=True)
     try:
         with device_trace(args.traceDir, engine.device):
             if args.catchup:
@@ -454,6 +496,10 @@ def main(argv: list[str] | None = None) -> int:
         stats_line["devmem"] = devmem.summary()
     if capture is not None:
         stats_line["capture"] = capture.summary()
+    if shard is not None:
+        shard_sum = shard.summary()
+        if shard_sum is not None:
+            stats_line["shard_skew"] = shard_sum
     if spans is not None:
         trace_path = os.path.join(args.workdir,
                                   f"trace_{os.getpid()}.json")
@@ -467,6 +513,8 @@ def main(argv: list[str] | None = None) -> int:
     if metrics_server is not None:
         metrics_server.close()
     print(json.dumps(stats_line), flush=True)
+    if mesh is not None:
+        dist.destroy_process_group()
     return 1 if close_err is not None else 0
 
 

@@ -542,6 +542,9 @@ class AdAnalyticsEngine:
         self._obs_lifecycle = None
         self._obs_occupancy = None
         self._obs_xfer = None
+        # the per-shard skew tracker (obs.xfer.ShardSkew), read by the
+        # sharded engine only
+        self._obs_shard = None
         # Parallel encode pool (multi-core hosts): per-thread encoders,
         # sound only for engines whose fold never reads the interned
         # user/page columns (see encode.parallel).  GIL-bound (pure
@@ -1551,7 +1554,8 @@ class AdAnalyticsEngine:
     # histogram and lifecycle (writer thread) and the dispatch hooks
     # (host loop)
     def attach_obs(self, registry, lifecycle: bool = False,
-                   spans=None, occupancy=None, xfer=None) -> None:
+                   spans=None, occupancy=None, xfer=None,
+                   shard=None) -> None:
         """Opt into live telemetry: register the window-latency streaming
         histogram on ``registry`` (obs.MetricsRegistry), fed at write
         time.  ``lifecycle=True`` attaches the per-window attribution
@@ -1559,7 +1563,9 @@ class AdAnalyticsEngine:
         every Tracer stage span, the writer thread's included;
         ``occupancy`` (obs.occupancy.OccupancySampler) is called after
         every device dispatch; ``xfer`` (obs.xfer.TransferLedger)
-        accounts every dispatch's host->device payload."""
+        accounts every dispatch's host->device payload.  ``shard``
+        (obs.xfer.ShardSkew) is kept for the sharded engine's per-shard
+        stats; a single-device engine has one shard and ignores it."""
         from streambench_tpu_torch.obs.lifecycle import WindowLifecycle
 
         self._obs_hist = registry.histogram(
@@ -1575,6 +1581,8 @@ class AdAnalyticsEngine:
             self._obs_occupancy = occupancy
         if xfer is not None:
             self._obs_xfer = xfer
+        if shard is not None:
+            self._obs_shard = shard
 
     def telemetry(self) -> dict:
         """Point-in-time snapshot of host bookkeeping: plain field reads
@@ -1658,7 +1666,7 @@ class AdAnalyticsEngine:
         """Capture exact engine state as of journal byte ``offset`` (or a
         per-partition offset vector)."""
         self._snapshot_sync()
-        state = wc.state_to_numpy(self.state)
+        state = self._host_state()
         return self._xo_decorate(Snapshot(
             offset=offset,
             meta=self._snapshot_meta(),
@@ -1669,6 +1677,11 @@ class AdAnalyticsEngine:
             pending=[(c, ts, n) for (c, ts), n in self._pending.items()],
             latency=sorted(self.window_latency.items()),
         ))
+
+    def _host_state(self) -> wc.WindowState:
+        """The whole device state as numpy arrays (the sharded engine
+        gathers its shards)."""
+        return wc.state_to_numpy(self.state)
 
     def _xo_decorate(self, snap: Snapshot) -> Snapshot:
         """Attach the exactly-once ledger, taint and fence to a snapshot

@@ -21,7 +21,9 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``BROKER_DIR`` (the file journal; default ``WORKDIR/broker``), and
 ``DEVICE`` (``cuda`` by default, passed to the engine as ``--device``;
 ``cpu`` only when asked for), ``ENGINE`` (``exact`` by default, ``hll``,
-``sliding`` or ``session``; passed to the engine as ``--engine``).
+``sliding`` or ``session``; passed to the engine as ``--engine``),
+``SHARDED=1`` (the mesh-sharded exact engine, ``--sharded``; SETUP
+refuses it with any ``ENGINE`` but ``exact``).
 ``VERIFY=1``
 makes ``TORCH_TEST`` hold every window in Redis against the generator's
 oracle over the journal the load wrote (``VERIFY``, before the services
@@ -36,8 +38,9 @@ attribution``), ``FLIGHTREC`` (``WORKDIR/flight_<reason>.jsonl``),
 ``OBS_SPANS`` (``WORKDIR/trace_<pid>.json``), ``OBS_OCCUPANCY``,
 ``SLO_P99_MS``, ``SLO_RATE_EVPS``, ``OBS_XFER``, ``OBS_DEVMEM`` and
 ``OBS_CAPTURE`` (a ``torch.profiler`` one-shot into
-``WORKDIR/xprof_<ms>_oneshot/``).  ``OBS_SHARD``, ``OBS_QUERY`` and
-``OBS_FLEET`` need surfaces not ported yet and are refused.
+``WORKDIR/xprof_<ms>_oneshot/``) and ``OBS_SHARD`` (with ``SHARDED=1``:
+the per-shard skew, ``jax.obs.shard``).  ``OBS_QUERY`` and ``OBS_FLEET``
+need surfaces not ported yet and are refused.
 
 Services are subprocesses with ``<pid> <starttime>`` pidfiles
 (``utils.pidfile``), so STOP never signals a recycled pid.  An engine that
@@ -86,6 +89,7 @@ DEVICE = os.environ.get("DEVICE", "cuda")
 # the aggregation engine: exact | hll | sliding | session (BASELINE
 # configs #1-#4)
 ENGINE = os.environ.get("ENGINE", "exact")
+SHARDED = _flag("SHARDED")
 # Fake Kafka as a standalone TCP broker process (START_KAFKA/STOP_KAFKA):
 # the generator produces and the engine consumes over a real socket.
 # KAFKA_BROKERS picks the address (default 127.0.0.1:9092); naming one
@@ -124,8 +128,9 @@ SLO_RATE_EVPS = int(os.environ.get("SLO_RATE_EVPS", "0"))
 OBS_XFER = _flag("OBS_XFER")
 OBS_DEVMEM = _flag("OBS_DEVMEM")
 OBS_CAPTURE = _flag("OBS_CAPTURE")
+OBS_SHARD = _flag("OBS_SHARD")
 #: knobs of the JAX harness whose surfaces the port does not have yet
-NOT_PORTED_KNOBS = ("OBS_SHARD", "OBS_QUERY", "OBS_FLEET")
+NOT_PORTED_KNOBS = ("OBS_QUERY", "OBS_FLEET")
 
 PID_DIR = os.path.join(WORKDIR, "pids")
 LOG_DIR = os.path.join(WORKDIR, "logs")
@@ -247,6 +252,10 @@ def op_setup() -> None:
     from streambench_tpu_torch.config import write_local_conf
 
     refused = [k for k in NOT_PORTED_KNOBS if _flag(k)]
+    if SHARDED and ENGINE != "exact":
+        # the sharded sketch engines are not ported yet
+        refused.append(f"SHARDED with ENGINE={ENGINE}"
+                       + (" (and its OBS_SHARD)" if OBS_SHARD else ""))
     if refused:
         raise SystemExit("not ported to the PyTorch harness yet: "
                          + ", ".join(refused))
@@ -295,6 +304,7 @@ def op_setup() -> None:
         # the env knob means "prove capture works": one bounded window
         # of the stream, so every such run leaves an xprof dir
         "jax.obs.capture.oneshot": OBS_CAPTURE,
+        "jax.obs.shard": OBS_SHARD,
     })
     log(f"wrote {CONF_FILE}")
     native.build()
@@ -452,6 +462,8 @@ def op_start_torch_processing() -> None:
             "--brokerDir", BROKER_DIR, "--device", DEVICE]
     if ENGINE != "exact":
         args += ["--engine", ENGINE]
+    if SHARDED:
+        args.append("--sharded")
     if CHECKPOINT_DIR:
         args += ["--checkpointDir", CHECKPOINT_DIR]
     if running_pid("engine") is not None:

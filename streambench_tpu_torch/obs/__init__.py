@@ -44,8 +44,7 @@ need it):
 Not ported yet, each with the surface it observes: ``fleet`` and
 ``clock`` (the pub/sub fleet), ``queryattr`` (reach serving),
 ``tenancy`` and ``admission`` (tenants), ``autoscale`` and ``diagnose``
-(the SLO autoscaler with chaos), ``xfer.ShardSkew`` (the sharded
-engines).
+(the SLO autoscaler with chaos).
 
 Enable on the engine CLI via config keys (``jax.metrics.interval.ms``
 > 0 and/or ``jax.metrics.port`` >= 0); embed via::
@@ -87,4 +86,7 @@ from streambench_tpu_torch.obs.sampler import (  # noqa: F401
 )
 from streambench_tpu_torch.obs.slo import SloTracker  # noqa: F401
 from streambench_tpu_torch.obs.spans import SpanTracer  # noqa: F401
-from streambench_tpu_torch.obs.xfer import TransferLedger  # noqa: F401
+from streambench_tpu_torch.obs.xfer import (  # noqa: F401
+    ShardSkew,
+    TransferLedger,
+)

@@ -184,6 +184,13 @@ def engine_collector(engine, reader=None, runner=None, registry=None):
         xf = getattr(engine, "_obs_xfer", None)
         if xf is not None:
             rec["xfer"] = xf.summary()
+        # per-shard routed-row skew (obs.xfer.ShardSkew): materializing
+        # the device accumulators syncs, but only at sampler cadence
+        sk = getattr(engine, "_obs_shard", None)
+        if sk is not None:
+            shard = sk.summary()
+            if shard is not None:
+                rec["shard_skew"] = shard
         rss, rss_label = rss_sample()
         rec[rss_label] = rss
         if reg is not None:

@@ -35,8 +35,9 @@ Two byte accountings per format:
   to the kernel's int32 width (4 B per column element), the basis on
   which ``packed_unpacked_ratio`` is exactly 0.5 for the exact engine.
 
-The reference's ``ShardSkew`` (per-shard routed rows) comes with the
-sharded engines; ``--sharded`` is refused.
+- :class:`ShardSkew` — per-shard routed rows and drops of the sharded
+  engine (``jax.obs.shard`` with ``--sharded``): the ``[S]`` vectors
+  its fold's stats arm returns, summed on the device.
 
 Default-off like the rest of obs/: the engine carries a ``None``
 attribute and one None check per dispatch until
@@ -44,6 +45,10 @@ attribute and one None check per dispatch until
 """
 
 from __future__ import annotations
+
+import threading
+
+import numpy as np
 
 
 class TransferLedger:
@@ -206,3 +211,94 @@ class TransferLedger:
         if self._hist is not None and self._hist.count:
             out["xfer_ms"] = self._hist.summary()
         return out
+
+
+def _host(x) -> np.ndarray:
+    """A device vector (or a numpy one) as an int64 numpy array."""
+    if hasattr(x, "cpu"):
+        x = x.cpu().numpy()
+    return np.asarray(x).astype(np.int64)
+
+
+class ShardSkew:
+    """Per-shard routed-row / drop accumulation for the sharded engine.
+
+    ``note(wanted_vec, routed_vec)`` receives two replicated ``[S]``
+    int32 DEVICE vectors from a stats-arm dispatch: rows whose campaign
+    maps to each shard (before the lateness mask, the same basis as the
+    global ``dropped``) and rows each shard actually counted.
+    Accumulation is a device-side add (no sync on the hot path);
+    ``summary()`` materializes the totals, so call it from the sampler
+    thread or at close, never the host loop.
+
+    ``note`` runs on the host loop only; ``summary`` snapshots the
+    accumulator references under a lock, so a concurrent ``note`` never
+    interleaves mid-read.
+    """
+
+    def __init__(self, registry=None, n_shards: int = 1):
+        self.n_shards = max(int(n_shards), 1)
+        self.dispatches = 0
+        self._wanted = None      # device [S] running totals
+        self._routed = None
+        self._lock = threading.Lock()
+        self._g_imb = None
+        self._g_rows: list = []
+        self._g_drop: list = []
+        if registry is not None:
+            self._g_imb = registry.gauge(
+                "streambench_shard_imbalance_ratio",
+                "max/mean routed rows across campaign shards "
+                "(1.0 = perfectly balanced)")
+            for s in range(self.n_shards):
+                self._g_rows.append(registry.gauge(
+                    "streambench_shard_rows",
+                    "rows routed to (counted by) this campaign shard",
+                    labels={"shard": str(s)}))
+                self._g_drop.append(registry.gauge(
+                    "streambench_shard_dropped",
+                    "rows wanted by this shard's campaigns but not "
+                    "counted (late / lost slot)",
+                    labels={"shard": str(s)}))
+
+    def note(self, wanted_vec, routed_vec) -> None:
+        """Accumulate one dispatch's per-shard vectors (device add)."""
+        with self._lock:
+            self.dispatches += 1
+            if self._wanted is None:
+                self._wanted = wanted_vec
+                self._routed = routed_vec
+            else:
+                self._wanted = self._wanted + wanted_vec
+                self._routed = self._routed + routed_vec
+
+    def summary(self) -> "dict | None":
+        """Materialize the totals (a device sync: sampler or close
+        cadence only) and set the gauges.  None until the first
+        dispatch."""
+        with self._lock:
+            if self._routed is None:
+                return None
+            wanted_d, routed_d = self._wanted, self._routed
+            dispatches = self.dispatches
+        wanted = _host(wanted_d)
+        routed = _host(routed_d)
+        dropped = np.maximum(wanted - routed, 0)
+        mean = routed.mean() if routed.size else 0.0
+        imbalance = float(routed.max() / mean) if mean > 0 else 1.0
+        for s, g in enumerate(self._g_rows):
+            if s < routed.size:
+                g.set(int(routed[s]))
+        for s, g in enumerate(self._g_drop):
+            if s < dropped.size:
+                g.set(int(dropped[s]))
+        if self._g_imb is not None:
+            self._g_imb.set(round(imbalance, 4))
+        return {
+            "shards": int(routed.size),
+            "dispatches": dispatches,
+            "rows": routed.tolist(),
+            "wanted": wanted.tolist(),
+            "dropped": dropped.tolist(),
+            "imbalance_ratio": round(imbalance, 4),
+        }

@@ -238,7 +238,9 @@ def test_cli_catchup_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,conf_line,word", [
-    (["--sharded"], "", "--sharded"),
+    # --sharded runs the exact engine; the sharded sketch engines are
+    # not ported yet
+    (["--sharded", "--engine", "hll"], "", "--sharded --engine hll"),
     # hll, sliding and session are ported; reach is not yet
     (["--engine", "reach"], "", "--engine reach"),
     # --traceDir is ported; what stays refused of tracing is the fleet

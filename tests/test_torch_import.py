@@ -1,8 +1,9 @@
 """Import hygiene of the PyTorch port (``streambench_tpu_torch``).
 
 Importing every module of the port must not load JAX, must not start a
-CUDA context and must not build anything (the native host library and
-the CUDA kernel are compiled at first use).  Statically, no module of the
+CUDA context or a ``torch.distributed`` process group, and must not build
+anything (the native host library and the CUDA kernel are compiled at
+first use).  Statically, no module of the
 port and not ``chip_smoke.py`` may import JAX or the JAX package: the
 check compares the FIRST dotted component of each imported name exactly,
 because ``"streambench_tpu_torch".startswith("streambench_tpu")``.
@@ -23,6 +24,7 @@ OBS_MODULES = ("__main__", "capture", "devmem", "flightrec", "httpd",
                "lifecycle", "occupancy", "registry", "regress", "report",
                "sampler", "slo", "spans", "xfer")
 CHAOS_MODULES = ("inject", "plan", "supervisor", "verify")
+PARALLEL_MODULES = ("collectives", "distributed", "mesh", "sharded")
 
 CHILD = r"""
 import json, pkgutil, subprocess, sys
@@ -48,6 +50,7 @@ print(json.dumps({
     "jax": sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "streambench_tpu")),
     "cuda_initialized": torch.cuda.is_initialized(),
+    "process_group": torch.distributed.is_initialized(),
     "built": [native._lib is not None, native._tried,
               _build.count_cells_lib.lib is not None,
               _build.decode_rows_lib.lib is not None,
@@ -89,10 +92,13 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.ops.cmsrows",
                 "streambench_tpu_torch.ops.salsa"} | {
                     f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES} | {
-                    f"streambench_tpu_torch.chaos.{m}" for m in CHAOS_MODULES}
+                    f"streambench_tpu_torch.chaos.{m}" for m in CHAOS_MODULES} | {
+                    f"streambench_tpu_torch.parallel.{m}"
+                    for m in PARALLEL_MODULES}
     assert expected <= set(got["modules"])
     assert got["jax"] == []
     assert got["cuda_initialized"] is False
+    assert got["process_group"] is False
     assert got["built"] == [False, False, False, False, False]
 
 
@@ -185,3 +191,45 @@ def test_chaos_package_imports_no_jax_and_initialises_no_cuda():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
         "jax": [], "cuda_initialized": False}
+
+
+PARALLEL_CHILD = r"""
+import json, subprocess, sys
+
+def no_builds(*a, **kw):
+    raise AssertionError(f"a process was started at import: {a!r}")
+
+subprocess.Popen.__init__ = no_builds
+
+import streambench_tpu_torch.parallel
+for m in sys.argv[1:]:
+    __import__("streambench_tpu_torch.parallel." + m)
+import torch
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "streambench_tpu")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+    "process_group": torch.distributed.is_initialized(),
+    "exports": sorted(streambench_tpu_torch.parallel.__all__),
+}))
+"""
+
+
+def test_parallel_package_imports_no_jax_and_starts_no_group():
+    """The sharded engine's package: importing it loads nothing of JAX,
+    starts no process group and no process, and touches no CUDA context;
+    it exports the exact-count engines only (the sharded sketch engines
+    and sharded reach are not ported)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_CHILD,
+                           *PARALLEL_MODULES], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["jax"] == [] and got["cuda_initialized"] is False
+    assert got["process_group"] is False
+    assert not any("HLL" in n or "Sliding" in n or "Session" in n
+                   or "Reach" in n for n in got["exports"])
+    assert "ShardedWindowEngine" in got["exports"]

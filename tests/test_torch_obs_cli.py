@@ -155,14 +155,20 @@ def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
         assert not glob.glob(os.path.join(workdir, "xprof_*"))
 
 
-@pytest.mark.parametrize("extra,conf_line,word", [
-    ([], "jax.obs.query: true", "jax.obs.query"),
-    ([], "jax.obs.fleet: true", "jax.obs.fleet"),
-    ([], "jax.obs.shard: true", "jax.obs.shard"),
-    (["--sharded"], "jax.obs.shard: true", "jax.obs.shard"),
+@pytest.mark.parametrize("extra,conf_line,word,env", [
+    ([], "jax.obs.query: true", "jax.obs.query", {}),
+    ([], "jax.obs.fleet: true", "jax.obs.fleet", {}),
+    # jax.obs.shard runs with --sharded on the exact engine in one
+    # process; the sharded sketch engines and more processes stay refused
+    (["--sharded", "--engine", "hll"], "jax.obs.shard: true",
+     "--sharded --engine hll", {}),
+    (["--sharded"], "jax.obs.shard: true", "--sharded over 4 processes",
+     {"STREAMBENCH_NUM_PROCESSES": "4"}),
 ], ids=["query", "fleet", "shard", "shard_sharded"])
-def test_cli_refuses_the_obs_keys_not_ported(tmp_path, capsys, extra,
-                                             conf_line, word):
+def test_cli_refuses_the_obs_keys_not_ported(tmp_path, capsys, monkeypatch,
+                                             extra, conf_line, word, env):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
     conf = tmp_path / "conf.yaml"
     conf.write_text('redis.host: ":inprocess:"\n' + conf_line + "\n")
     rc = cli.main(["--confPath", str(conf), "--workdir", str(tmp_path),
@@ -237,12 +243,54 @@ def test_harness_torch_test_with_obs_knobs_on_the_cpu(tmp_path):
                        capture_output=True, timeout=120)
 
 
-@pytest.mark.parametrize("knob", ["OBS_SHARD", "OBS_QUERY", "OBS_FLEET"])
-def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob):
+def test_harness_sharded_with_obs_shard_on_the_cpu(tmp_path):
+    """``SHARDED=1 OBS_SHARD=1``: the composite runs the sharded engine
+    (one gloo rank) with the per-shard skew on; the windows are exact and
+    the skew shows in the sampler's records and the stats line."""
+    workdir = str(tmp_path / "run")
+    harness = [sys.executable, "-m", "streambench_tpu_torch.harness"]
+    env = _harness_env(workdir, _free_port(), LOAD="600", TEST_TIME="6",
+                       VERIFY="1", STOP_STATS_GRACE="2", SHARDED="1",
+                       OBS_SHARD="1", METRICS_INTERVAL_MS="1000")
+    try:
+        p = subprocess.run([*harness, "TORCH_TEST"], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+        conf = open(os.path.join(workdir, "localConf.yaml")).read()
+        assert "jax.obs.shard: true" in conf
+        verify = json.load(open(os.path.join(workdir, "verify.json")))
+        assert verify["windows_correct"] > 0 and not (
+            verify["windows_differ"] or verify["windows_missing"]
+            or verify["windows_extra"])
+        engine_log = open(os.path.join(workdir, "logs",
+                                       "engine.log")).read()
+        assert "mesh=1x1 backend=gloo" in engine_log
+        stats = json.loads([ln for ln in engine_log.splitlines()
+                            if ln.startswith("{")][-1])
+        assert stats["events"] == verify["journal_events"]
+        skew = stats["shard_skew"]
+        assert skew["shards"] == 1 and skew["imbalance_ratio"] == 1.0
+        assert skew["rows"][0] > 0 and skew["dropped"] == [0]
+        records = [json.loads(ln) for ln in open(
+            os.path.join(workdir, "metrics.jsonl"))]
+        assert any(r.get("shard_skew", {}).get("rows") for r in records)
+    finally:
+        subprocess.run([*harness, "STOP_ALL"], cwd=REPO, env=env,
+                       capture_output=True, timeout=120)
+
+
+@pytest.mark.parametrize("knob,extra", [
+    # OBS_SHARD runs with SHARDED=1 on the exact engine; the sharded
+    # sketch engines stay refused
+    ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "hll"}),
+    ("OBS_QUERY", {}), ("OBS_FLEET", {})],
+    ids=["OBS_SHARD", "OBS_QUERY", "OBS_FLEET"])
+def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob, extra):
     workdir = str(tmp_path / "run")
     p = subprocess.run(
         [sys.executable, "-m", "streambench_tpu_torch.harness", "SETUP"],
-        cwd=REPO, env=_harness_env(workdir, _free_port(), **{knob: "1"}),
+        cwd=REPO, env=_harness_env(workdir, _free_port(), **{knob: "1"},
+                                   **extra),
         capture_output=True, text=True, timeout=120)
     assert p.returncode != 0
     assert "not ported" in p.stderr and knob in p.stderr
