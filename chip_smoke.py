@@ -44,18 +44,23 @@ result line) when any phase fails:
    timed with CUDA events at config #1's geometry (C = 100, W = 16; B =
    4096 and 8192) and config #5's (C = 1e6, W = 64, B = 8192), the arms
    whose operands would not fit marked as skipped.  Then the count-min
-   kernel K3 (``csrc/cms_rows.cu``): its four entry points (update,
-   query, the two-stage refresh, the hashed columns) against their plain
+   kernel K3 (``csrc/cms_rows.cu``): its six entry points (update,
+   query, the two-stage refresh, the hashed columns, and the fused
+   ``cms_update_query`` and ``cms2_update_query``) against their plain
    PyTorch versions on the card, exactly, in the cases of ``CMS_CASES``
    (the session engine's step, D = 4, Wd = 2048, 8192 rows of Zipf(1.1)
-   keys with a third masked; keys -1 and past 2^28; the two-stage refresh
-   at Ws = 256; a bandwidth case, 2^22 rows, D = 8, Wd = 2^20), each with
-   its device time over CUDA-graph replays, eager time, the plain
-   version's device time, the byte bound (for the update 1 B a row's
-   mask, 8 B an unmasked row's key and weight, 8 B a touched cell; 4 B a
-   gathered cell for the query) and the launch
-   floor, and ``index_add_`` over precomputed columns as the update's
-   yardstick (the scatter alone: no PyTorch call hashes); then the CMS
+   keys with a third masked; keys -1 and past 2^28; the two-stage pair
+   at Ws = 256, with Zipf and with near-distinct keys; the wide update
+   from 65,536 rows; a bandwidth case, 2^22 rows, D = 8, Wd = 2^20),
+   each with its device time over
+   CUDA-graph replays, eager time, the plain version's device time, the
+   byte bound (1 B a row's mask, 4 B a hashed row's key, 4 B an
+   unmasked row's weight, 4 B a distinct cell read and 4 B a changed
+   cell written, 4 B out a queried row) and its share, and the launch
+   floor; each fused entry timed in turns against the separate calls it
+   replaces, on the device and per eager call; and ``index_add_``
+   over precomputed columns as the update's yardstick (the scatter
+   alone: no PyTorch call hashes); then the CMS
    method table at Wd = 2048 (``methodbench.measure_cms``: flat, rowloop,
    twostage, salsa).
 4. End to end: BASELINE config #1 (``conf/benchmarkConf.yaml`` with the
@@ -216,14 +221,17 @@ result line) when any phase fails:
    in the latency bin the journal gives; every click of a user within
    capacity in a closed session (after ``close()``), ``dropped`` = the
    journal's overflow, each reported heavy hitter's estimate at least its
-   exact clicks, ``<hashtable>_hh`` holding the report, K3's update and
-   query launched, K1 not; and against the same engine on the CPU over
+   exact clicks, ``<hashtable>_hh`` holding the report, K3's fused
+   update and query (``cms_update_query``) and its query launched, K1
+   not; and against the same engine on the CPU over
    the same journal, drained at the same point, the session arrays,
    sketch, ring, counters and latency histogram bit-identical and the
    heavy hitters equal.  (b) ``jax.cms.mode: salsa``, held as (a), and
    its plane widened somewhere (``salsa.stats`` merged pairs).  (c)
    ``jax.cms.stages: 2`` on the first 1,000,000 events: every user's
-   small-stage estimate at least its exact clicks.  (d) An engine that
+   small-stage estimate at least its exact clicks, the fused two-stage
+   entry (``cms2_update_query``) launched, and held against the CPU as
+   (a).  (d) An engine that
    drains each second of wall clock and snapshots after every drain is
    abandoned half way; a fresh one resumes, its drains expire what (a)'s
    did, and its state equals (a)'s.  Each run's
@@ -421,12 +429,18 @@ SLIDE_CLASSES = 10                 # S = 10 s / 1 s
 # K3's cases: (label, rows, D, Wd, Ws of the two-stage refresh or None,
 # keys); "zipf" = measure_cms's Zipf(1.1) keys capped at 2^28, "edge" =
 # the same with a third of the keys -1 and a third past 2^28 (up to the
-# int32 end); weights 1-7 and a third of the rows masked in every case
+# int32 end), "distinct" = distinct keys below 400,000 (phase 16's
+# interned users); weights 1-7 and a third of the rows masked in every
+# case
 CMS_CASES = (
     ("main path: the session engine's step, D = 4, Wd = 2048, 8192 rows",
      8192, 4, 2048, None, "zipf"),
     ("keys -1 and past 2^28", 8192, 4, 2048, None, "edge"),
     ("the two-stage refresh, Ws = 256", 8192, 4, 2048, 256, "zipf"),
+    ("the engine's closed sessions: near-distinct users, the two-stage "
+     "pair at Ws = 256", 8192, 4, 2048, 256, "distinct"),
+    ("the wide update from 65,536 rows (4 rows a thread, the hot-key "
+     "table) on the engine's planes", 1 << 16, 4, 2048, 256, "zipf"),
     ("bandwidth (not a main-path shape): 2^22 rows, D = 8, Wd = 2^20",
      1 << 22, 8, 1 << 20, None, "zipf"),
 )
@@ -2959,13 +2973,15 @@ def phase_sketches(events: int = SKETCH_EVENTS,
 def _cms_inputs(rng, B: int, kind: str):
     """numpy (keys, weights, mask) of one K3 case (see CMS_CASES): the
     method table's batch (``methodbench.cms_batch``), then the case's
-    edge keys and mask."""
+    edge or distinct keys and mask."""
     from streambench_tpu_torch.ops.methodbench import cms_batch
 
     keys, weights = cms_batch(rng, B)
     if kind == "edge":
         keys[::3] = -1
         keys[1::3] = rng.integers(2**28 + 1, 2**31, keys[1::3].size)
+    elif kind == "distinct":
+        keys = rng.permutation(SESSION_USERS)[:B].astype(keys.dtype)
     return keys, weights, rng.random(B) >= 1 / 3
 
 
@@ -2976,14 +2992,38 @@ def _distinct(flat) -> int:
     return int(torch.unique(flat).numel())
 
 
+def _device_ms_in_turns(fns: dict, rounds: int = 3, reps: int = 100
+                        ) -> dict:
+    """Median ``_device_ms`` of each of ``fns`` over ``rounds`` rounds run
+    in turns (a, b, ..., then b, a, ...), so that drift falls on all."""
+    import statistics
+
+    times: dict = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(_device_ms(fns[name], reps))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _cms_diff(*pairs) -> int:
+    """The largest |a - b| over pairs of int tensors (or ints)."""
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in pairs)
+
+
 def _cms_case(label: str, B: int, D: int, Wd: int, Ws, kind: str,
               seed: int, floor: dict) -> dict:
-    """K3's four entry points against their plain versions on the card,
+    """K3's entry points against their plain versions on the card,
     exactly (and the update against a numpy count where the case is
-    small); device times over CUDA-graph replays, eager times, the byte
-    bounds of this data, the launch floor, and ``index_add_`` over
+    small): the update, the query, the columns, the refresh (two-stage
+    cases) and the fused entry points, ``cms_update_query`` always and
+    ``cms2_update_query`` where the case has a small stage; device times
+    over CUDA-graph replays, eager times, the byte bounds of this data
+    and their shares, the launch floor, and ``index_add_`` over
     precomputed columns as the update's yardstick (the scatter alone: no
-    PyTorch call hashes)."""
+    PyTorch call hashes).  Each fused entry is timed in turns against the
+    separate calls it replaces, on the device and per eager call."""
     import numpy as np
     import torch
 
@@ -2995,42 +3035,54 @@ def _cms_case(label: str, B: int, D: int, Wd: int, Ws, kind: str,
     base_np = rng.integers(0, 50, (D, Wd)).astype(np.int32)
     k, w, m = (torch.from_numpy(a).cuda() for a in (keys_np, w_np, m_np))
     base = torch.from_numpy(base_np).cuda()
+    small_np = (rng.integers(0, 400, (D, Ws)).astype(np.int32) if Ws
+                else None)
     diffs = {}
 
+    def seven():
+        return torch.tensor(7, dtype=torch.int32, device="cuda")
+
     # update: the kernel and the plain version from one plane
-    tk, totk = base.clone(), torch.tensor(7, dtype=torch.int32,
-                                          device="cuda")
-    tp, totp = base.clone(), totk.clone()
+    tk, totk = base.clone(), seven()
+    tp, totp = base.clone(), seven()
     cmsrows.cms_update(tk, totk, k, w, m)
     cmsrows.cms_update_plain(tp, totp, k, w, m)
-    diffs["update"] = max(int((tk.long() - tp.long()).abs().max()),
-                          abs(int(totk) - int(totp)))
+    diffs["update"] = _cms_diff((tk, tp), (totk, totp))
     if B <= 8192:
         want = base_np.astype(np.int64)
         cols_np = oracle_cols_np(keys_np, D, Wd)
         for d in range(D):
             np.add.at(want[d], cols_np[d][m_np], w_np[m_np])
         diffs["update_numpy"] = int(np.abs(tk.cpu().numpy() - want).max())
-    diffs["query"] = int((cmsrows.cms_query(tk, k).long()
-                          - cmsrows.cms_query_plain(tk, k).long())
-                         .abs().max())
+    diffs["query"] = _cms_diff((cmsrows.cms_query(tk, k),
+                                cmsrows.cms_query_plain(tk, k)))
     cols = cmsrows.cms_cols(k, D, Wd)
-    diffs["cols"] = int((cols.long() - cmsrows.row_cols_plain(k, D, Wd)
-                         .long()).abs().max())
+    diffs["cols"] = _cms_diff((cols, cmsrows.row_cols_plain(k, D, Wd)))
+    # the fused pair: plane, total and estimates
+    fk, ftk, fp, ftp = base.clone(), seven(), base.clone(), seven()
+    est_k = cmsrows.cms_update_query(fk, ftk, k, w, m)
+    est_p = cmsrows.cms_update_query_plain(fp, ftp, k, w, m)
+    diffs["update_query"] = _cms_diff((fk, fp), (ftk, ftp), (est_k, est_p))
     if Ws:
-        small_np = rng.integers(0, 400, (D, Ws)).astype(np.int32)
         sk = torch.from_numpy(small_np).cuda()
         sp = sk.clone()
         cmsrows.cms_refresh_small(tk, sk, k, m)
         cmsrows.cms_refresh_small_plain(tk, sp, k, m)
-        diffs["refresh_small"] = int((sk.long() - sp.long()).abs().max())
+        diffs["refresh_small"] = _cms_diff((sk, sp))
+        # the fused triple: fat plane, small stage, total and estimates
+        fk, ftk, fp, ftp = base.clone(), seven(), base.clone(), seven()
+        sk, sp = (torch.from_numpy(small_np).cuda() for _ in range(2))
+        est_k = cmsrows.cms2_update_query(fk, sk, ftk, k, w, m)
+        est_p = cmsrows.cms2_update_query_plain(fp, sp, ftp, k, w, m)
+        diffs["update2_query"] = _cms_diff((fk, fp), (sk, sp), (ftk, ftp),
+                                           (est_k, est_p))
     torch.cuda.synchronize()
 
-    # the bytes this data needs: every row's mask byte, the key (and
-    # weight) of an unmasked row only (a masked row adds nothing), each
-    # distinct cell an unmasked row touches read and written once
-    # (update; the fat cells read once and the small ones read and
-    # written once by the refresh), each distinct cell read once (query)
+    # the bytes this data needs: every row's mask byte, the key of a row
+    # that is hashed (the update's: an unmasked row's; the query's: every
+    # row's) and the weight of an unmasked row, each distinct cell the
+    # rows reach read once and each changed cell written once, 4 B out a
+    # queried row, 8 B of total
     rows = torch.arange(D, device="cuda", dtype=torch.int64)[:, None]
     flat = rows * Wd + cols.long()
     touched = _distinct(flat[:, m])
@@ -3038,11 +3090,16 @@ def _cms_case(label: str, B: int, D: int, Wd: int, Ws, kind: str,
     live = B - int((~m_np).sum())
     nbytes = {"update": B + 8 * live + 8 * touched + 8,
               "query": 8 * B + 4 * gathered,
-              "cols": 4 * B + 4 * D * B}
+              "cols": 4 * B + 4 * D * B,
+              "update_query": 9 * B + 4 * live + 4 * gathered
+                              + 4 * touched + 8}
     if Ws:
         sflat = rows * Ws + cmsrows.row_cols_plain(k, D, Ws).long()
-        nbytes["refresh_small"] = (B + 4 * live + 4 * touched
-                                   + 8 * _distinct(sflat[:, m]))
+        s_touched = _distinct(sflat[:, m])
+        nbytes["refresh_small"] = B + 4 * live + 4 * touched + 8 * s_touched
+        nbytes["update2_query"] = (9 * B + 4 * live + 8 * touched
+                                   + 4 * _distinct(sflat) + 4 * s_touched
+                                   + 8)
 
     scratch = base.clone()
     stot = torch.zeros((), dtype=torch.int32, device="cuda")
@@ -3054,11 +3111,18 @@ def _cms_case(label: str, B: int, D: int, Wd: int, Ws, kind: str,
                   lambda: cmsrows.cms_query_plain(scratch, k)),
         "cols": (lambda: cmsrows.cms_cols(k, D, Wd),
                  lambda: cmsrows.row_cols_plain(k, D, Wd)),
+        "update_query": (
+            lambda: cmsrows.cms_update_query(scratch, stot, k, w, m),
+            lambda: cmsrows.cms_update_query_plain(scratch, stot, k, w, m)),
     }
     if Ws:
         fns["refresh_small"] = (
             lambda: cmsrows.cms_refresh_small(scratch, small, k, m),
             lambda: cmsrows.cms_refresh_small_plain(scratch, small, k, m))
+        fns["update2_query"] = (
+            lambda: cmsrows.cms2_update_query(scratch, small, stot, k, w, m),
+            lambda: cmsrows.cms2_update_query_plain(scratch, small, stot, k,
+                                                    w, m))
     lib_flat = torch.where(m[None, :], flat, D * Wd).reshape(-1)
     lib_w = w.expand(D, -1).reshape(-1).contiguous()
     padded = torch.zeros(D * Wd + 1, dtype=torch.int32, device="cuda")
@@ -3078,14 +3142,35 @@ def _cms_case(label: str, B: int, D: int, Wd: int, Ws, kind: str,
             "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
             "max_abs_diff": diffs[name]}
         entries[name]["bound_share"] = entries[name]["bound_ms"] / kernel_ms
+
+    # each fused entry in turns against the launches it replaces
+    def pair():
+        cmsrows.cms_update(scratch, stot, k, w, m)
+        cmsrows.cms_query(scratch, k)
+
+    def triple():
+        cmsrows.cms_update(scratch, stot, k, w, m)
+        cmsrows.cms_refresh_small(scratch, small, k, m)
+        cmsrows.cms_query(small, k)
+
+    turns = {"update_query": {"fused": fns["update_query"][0],
+                              "update + query": pair}}
+    if Ws:
+        turns["update2_query"] = {"fused": fns["update2_query"][0],
+                                  "update + refresh + query": triple}
+    for name, arms in turns.items():
+        entries[name]["device_ms_in_turns"] = _device_ms_in_turns(arms,
+                                                                  reps=reps)
+        entries[name]["call_ms_in_turns"] = _call_ms_in_turns(
+            arms, rounds=3, reps=max(1, 2 * reps))
     library_ms = _device_ms(library, reps)
     calls = _call_ms_in_turns({"kernel": fns["update"][0],
                                "library": library}, reps=max(1, 2 * reps))
-    plan = cmsrows.launch_plan(B)
     case = {
         "case": label, "shape": {"B": B, "D": D, "Wd": Wd, "Ws": Ws},
-        "inputs": kind, "plan": plan._asdict(), "masked_rows":
-            int((~m_np).sum()), "touched_cells": touched,
+        "inputs": kind,
+        "plan": cmsrows.launch_plan(B, entry="cms_update")._asdict(),
+        "masked_rows": int((~m_np).sum()), "touched_cells": touched,
         "gathered_cells": gathered, "entries": entries,
         "max_abs_diff": max(diffs.values()), "diffs": diffs,
         "library_ms": library_ms, "library_what": "index_add_ over "
@@ -3093,6 +3178,9 @@ def _cms_case(label: str, B: int, D: int, Wd: int, Ws, kind: str,
         "update_call_ms_in_turns": calls["kernel"],
         "library_call_ms": calls["library"], **floor}
     print(f"[cms_kernels] {json.dumps(case)}", flush=True)
+    print(f"[cms_kernels] {label}: " + "; ".join(
+        f"{n} {e['kernel_ms']:.6f} ms, bound {e['bound_ms']:.3g} ms, share "
+        f"{e['bound_share']:.4f}" for n, e in entries.items()), flush=True)
     if case["max_abs_diff"]:
         raise AssertionError(f"K3 disagrees with its plain version at "
                              f"{label!r}: {diffs}")
@@ -3340,6 +3428,7 @@ def _session_run(tag: str, data: SessionData, device: str,
     _sync(device)
     total_s = time.perf_counter() - t0
     launches = cmsrows.launches()          # this path ends here
+    k3 = cmsrows.kernel_launches()
     k1 = count_cells.launches
     reader.close()
     stages = engine.tracer.as_dict()
@@ -3359,7 +3448,7 @@ def _session_run(tag: str, data: SessionData, device: str,
         "events_per_s_with_close": stats.events / total_s,
         "fold_host_ms_per_batch": fold_ms / max(steps, 1),
         "cms_rows_launches": launches,
-        "cms_rows_launches_total": sum(launches.values()),
+        "cms_rows_launches_total": k3,
         "count_cells_launches": k1, "stages": stages,
         "drains": len(drains), "expired": sum(c for c, _ in drains),
         "drains_closing": sum(1 for c, _ in drains if c),
@@ -3517,7 +3606,9 @@ def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
             res, eng, r = _session_run("fixed", data, device,
                                        flush_interval_ms=once)
             res.update(_session_checks("fixed", data, res, eng, r,
-                                       ("cms_update", "cms_query"), device))
+                                       ("cms_update_query", "cms_update",
+                                        "cms_query"),
+                                       device))
             res.update(_expiry_check("fixed", data, res, eng, clock))
             state_a, hh_a = _session_state(eng), eng.heavy_hitters()
             ref, ref_eng, _ = _session_run("fixed_cpu", data, "cpu",
@@ -3557,16 +3648,28 @@ def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
             del eng, ref_eng
 
             # (c) jax.cms.stages: 2 on the first events: the small stage
-            # reads at least every user's exact clicks
+            # reads at least every user's exact clicks; held as (a)
+            keys = {"jax.cms.stages": 2}
             res, eng, r = _session_run(
-                "two_stage", data, device, {"jax.cms.stages": 2},
-                max_events=two_stage_events)
+                "two_stage", data, device, keys,
+                max_events=two_stage_events, flush_interval_ms=once)
             res.update(_session_checks(
                 "two_stage", data, res, eng, r,
-                ("cms_update", "cms_refresh_small", "cms_query"), device))
+                ("cms2_update_query", "cms_update", "cms_refresh_small",
+                 "cms_query"), device))
             res.update(_small_stage_check(data, eng))
+            ref, ref_eng, _ = _session_run(
+                "two_stage_cpu", data, "cpu", keys,
+                max_events=two_stage_events, flush_interval_ms=once)
+            res["cpu_equal_arrays"] = _states_equal(
+                "two_stage", _session_state(eng), _session_state(ref_eng),
+                "the CPU run's")
+            if ref_eng.heavy_hitters() != eng.heavy_hitters():
+                raise AssertionError("[session_two_stage] _hh differs from "
+                                     "the CPU run's")
+            res["cpu_catchup_with_close_s"] = ref["catchup_with_close_s"]
             out["two_stage"] = res
-            del eng
+            del eng, ref_eng
 
             # (d) resume: abandoned half way, resumed from its snapshot;
             # both halves drain every second of wall clock, so its state
@@ -3606,7 +3709,9 @@ def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
           f"{s['events_per_s']}, two-stage "
           f"{out['two_stage']['events_per_s']}; fold host ms a batch "
           f"{f['fold_host_ms_per_batch']}; K3 launches "
-          f"{f['cms_rows_launches']}; expired by drains {f['expired']} "
+          f"{f['cms_rows_launches']} (two-stage "
+          f"{out['two_stage']['cms_rows_launches']}); expired by drains "
+          f"{f['expired']} "
           f"(salsa {s['expired']}); salsa merged pairs "
           f"{s['salsa']['merged_pairs']}; device ops a batch {out['profile']['device_ops_per_batch']}; "
           f"{out['phase_s']:.1f} s", flush=True)
@@ -4070,6 +4175,35 @@ def main(argv: list[str] | None = None) -> int:
         "launch_floor_ms": main_cms["launch_floor_ms"],
         "cases": cms_cases,
     })
+    # the fused entry points, each on the run of its family
+    two_cms = next(c for c in cms_cases if c["shape"]["Ws"])
+    for name, case, run, entry in (
+            ("cms_rows.update_query", main_cms, "fixed", "update_query"),
+            ("cms_rows.update2_query", two_cms, "two_stage",
+             "update2_query")):
+        e = case["entries"][entry]
+        fn = "cms2_update_query" if run == "two_stage" else \
+            "cms_update_query"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "streambench_tpu_torch/csrc/cms_rows.cu",
+            # cms.update then query (update2 then query_small) in
+            # _session_cms_scan, one XLA program there
+            "replaces": "streambench_tpu/engine/sketches.py:1083",
+            "launches": session[run]["cms_rows_launches"][fn],
+            "shape": case["shape"],
+            "max_abs_err": e["max_abs_diff"],
+            "ms": e["kernel_ms"],
+            "kernel_call_ms": e["kernel_call_ms"],
+            "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "launch_floor_ms": case["launch_floor_ms"],
+            "device_ms_in_turns": e["device_ms_in_turns"],
+            "plan": case["plan"],
+        })
     lap("5 K1 on the main path's rows")
     laps = lap.as_dict()
     print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)

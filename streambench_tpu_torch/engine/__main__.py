@@ -470,7 +470,7 @@ def main(argv: list[str] | None = None) -> int:
         "faults": stats.faults,
         "kernel_launches": {"count_cells": count_cells.launches,
                             "decode_rows": decode_rows.launches,
-                            "cms_rows": sum(cmsrows.launches().values())},
+                            "cms_rows": cmsrows.kernel_launches()},
     }
     if occupancy is not None:
         # the MEASURED busy ratio + the steady-state build invariant

@@ -607,12 +607,17 @@ def _det_lat(now_rel: int, event_time: torch.Tensor,
     return torch.clamp(now_rel - newest, min=0)
 
 
+def _counted(ck_acc, closed: session.ClosedSessions):
+    """The device counters with the closed sessions and their clicks."""
+    n = closed.valid.sum(dtype=torch.int32)
+    c = torch.where(closed.valid, closed.clicks, 0).sum(dtype=torch.int32)
+    return ck_acc[0] + n, ck_acc[1] + c
+
+
 def _absorb_closed(cm, ck_acc, closed: session.ClosedSessions):
     """Fold closed sessions into the sketch and the device counters."""
     cm = cms.sk_update(cm, closed.user, closed.clicks, closed.valid)
-    n = closed.valid.sum(dtype=torch.int32)
-    c = torch.where(closed.valid, closed.clicks, 0).sum(dtype=torch.int32)
-    return cm, (ck_acc[0] + n, ck_acc[1] + c)
+    return cm, _counted(ck_acc, closed)
 
 
 def _session_cms_scan(sess_state, cms_state, topk_state, closed_n,
@@ -620,9 +625,11 @@ def _session_cms_scan(sess_state, cms_state, topk_state, closed_n,
                       user_idx, event_type, event_time, valid, *,
                       gap_ms: int, lateness_ms: int):
     """The session + CMS + heavy-hitter fold over ``[N, B]`` batches: per
-    batch the session step, then for each closed set the sketch update,
-    the counters, the latency bin and the candidate fold; the candidate
-    table merges into the ring once, after the loop.  No host sync.
+    batch the session step, then for each closed set the sketch update
+    and the query of its users (``cms.update_query``: one K3 call for
+    the fixed and two-stage sketches), the counters, the latency bin and
+    the candidate fold; the candidate table merges into the ring once,
+    after the loop.  No host sync.
 
     ``salt`` must differ chunk to chunk (the engine passes a sequence
     number), so a hash collision in the candidate table never shadows the
@@ -638,11 +645,12 @@ def _session_cms_scan(sess_state, cms_state, topk_state, closed_n,
             lateness_ms=lateness_ms)
         det_lat = _det_lat(now_rel, t, v)
         for closed in (in_batch, carried):
-            cm, acc = _absorb_closed(cm, acc, closed)
+            cm, est = cms.update_query(cm, closed.user, closed.clicks,
+                                       closed.valid)
+            acc = _counted(acc, closed)
             hist = _hist_scalar(hist, det_lat, closed.valid)
             ckeys, cests = cms.fold_candidates(
-                ckeys, cests, closed.user, cms.point_query(cm, closed.user),
-                closed.valid, salt)
+                ckeys, cests, closed.user, est, closed.valid, salt)
     tk = cms.update_topk(cm, topk_state, ckeys, ckeys >= 0)
     return st, cm, tk, acc[0], acc[1], hist
 

@@ -89,22 +89,29 @@ def _bind_decode(lib: ctypes.CDLL) -> None:
 
 
 def _bind_cms(lib: ctypes.CDLL) -> None:
-    # each: ..., D, widths, B, blocks, threads, stream
+    # each: ..., D, widths, B, plan (ops/cmsrows.py:launch_plan), stream
     lib.sb_cms_update.restype = ctypes.c_int
-    # table, total, keys, weights, mask
+    # table, total, keys, weights, mask; blocks, threads, rows a thread,
+    # hot table
     lib.sb_cms_update.argtypes = [_p, _p, _p, _p, _p, _i32, _i64, _i64,
-                                  _i32, _i32, _p]
+                                  _i32, _i32, _i32, _i32, _p]
     lib.sb_cms_query.restype = ctypes.c_int
-    # table, keys, out
+    # table, keys, out; blocks, threads
     lib.sb_cms_query.argtypes = [_p, _p, _p, _i32, _i64, _i64, _i32, _i32,
                                  _p]
     lib.sb_cms_refresh_small.restype = ctypes.c_int
-    # fat, small, keys, mask; Wd, Ws
+    # fat, small, keys, mask; Wd, Ws; blocks, threads
     lib.sb_cms_refresh_small.argtypes = [_p, _p, _p, _p, _i32, _i64, _i64,
                                          _i64, _i32, _i32, _p]
     lib.sb_cms_cols.restype = ctypes.c_int
-    # keys, cols
+    # keys, cols; blocks, threads
     lib.sb_cms_cols.argtypes = [_p, _p, _i32, _i64, _i64, _i32, _i32, _p]
+    lib.sb_cms_update_query.restype = ctypes.c_int
+    # table, total, keys, weights, mask, small (NULL: fixed), out; D, Wd,
+    # Ws, B; the update's blocks, threads, rows a thread, hot table
+    lib.sb_cms_update_query.argtypes = [_p] * 7 + [_i32, _i64, _i64, _i64,
+                                                   _i32, _i32, _i32, _i32,
+                                                   _p]
 
 
 #: the count kernel K1, the decode kernel K2, the count-min kernel K3

@@ -12,7 +12,10 @@ plain version.  The rest stays torch ops.
   with the touched keys' new fat estimates (scatter-max).  It does not
   merge (``merge2`` raises).
 - ``sk_update`` / ``point_query`` / ``sk_total``: the family dispatch
-  over fixed, two-stage and SALSA (``ops/salsa.py``) states.
+  over fixed, two-stage and SALSA (``ops/salsa.py``) states;
+  ``update_query`` is ``sk_update`` then ``point_query`` of the same keys,
+  one K3 call for the fixed and two-stage families (the session fold's
+  closed sets).
 - ``TopKState``: the fixed-size heavy-hitter candidate ring;
   ``fold_candidates`` folds a batch into a chunk-local hash-slotted
   table in O(B), ``update_topk`` merges keys into the ring exactly.
@@ -176,6 +179,27 @@ def point_query(state, keys: torch.Tensor) -> torch.Tensor:
 
     if isinstance(state, salsa.SalsaState):
         return salsa.query(state, keys)
+    raise TypeError(f"not a sketch state: {type(state).__name__}")
+
+
+def update_query(state, keys: torch.Tensor, weights: torch.Tensor,
+                 mask: torch.Tensor):
+    """``sk_update`` then ``point_query`` of the same keys: (state,
+    estimates).  Fixed and two-stage update in place, in one fused K3
+    call (``cmsrows.cms_update_query`` / ``cms2_update_query``); SALSA
+    returns a new state from ``salsa.update``, then ``salsa.query``."""
+    if isinstance(state, CMSState):
+        return state, cmsrows.cms_update_query(state.table, state.total,
+                                               keys, weights, mask)
+    if isinstance(state, CMS2State):
+        return state, cmsrows.cms2_update_query(
+            state.fat.table, state.small, state.fat.total, keys, weights,
+            mask)
+    from streambench_tpu_torch.ops import salsa
+
+    if isinstance(state, salsa.SalsaState):
+        state = salsa.update(state, keys, weights, mask)
+        return state, salsa.query(state, keys)
     raise TypeError(f"not a sketch state: {type(state).__name__}")
 
 

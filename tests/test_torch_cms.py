@@ -170,11 +170,62 @@ def test_family_dispatch_matches(family):
     np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
 
 
+def _family_states(family, D=4, W=256):
+    if family == "fixed":
+        return jcms.init_state(D, W), cms.init_state(D, W)
+    if family == "twostage":
+        return jcms.init_two_stage(D, W), cms.init_two_stage(D, W)
+    return jsalsa.init_state(D, W), salsa.init_state(D, W)
+
+
+def _sketch_leaves(state):
+    out = []
+    for v in state:
+        out += _sketch_leaves(v) if isinstance(v, tuple) else [v]
+    return out
+
+
+@pytest.mark.parametrize("D", [1, 4, 8])
+@pytest.mark.parametrize("family", ["fixed", "twostage", "salsa"])
+def test_update_query_matches_update_then_point_query(family, D):
+    """The session fold's fused entry: the reference's ``sk_update`` then
+    ``point_query`` of the same keys, batch after batch (all rows in,
+    all out and an empty batch among them); every plane, the total and
+    the estimates bit-identical."""
+    rng = np.random.default_rng(40 + D)
+    js, ts = _family_states(family, D)
+    for b in range(5):
+        k, w, m = _batch(rng, 700)
+        if b == 1:
+            m[:] = True
+        elif b == 2:
+            m[:] = False
+        elif b == 3:
+            k, w, m = k[:0], w[:0], m[:0]
+        js = jcms.sk_update(js, _j(k), _j(w), _j(m))
+        want = jcms.point_query(js, _j(k))
+        ts, got = cms.update_query(ts, _t(k), _t(w), _t(m))
+        _eq(want, got, f"estimates, batch {b}")
+        for a, t in zip(_sketch_leaves(js), _sketch_leaves(ts)):
+            _eq(a, t, f"sketch, batch {b}")
+    _eq(jcms.sk_total(js), cms.sk_total(ts))
+
+
+def test_update_query_updates_fixed_and_two_stage_in_place():
+    for family in ("fixed", "twostage"):
+        _, ts = _family_states(family)
+        k, w, m = _batch(np.random.default_rng(9), 300)
+        out, _ = cms.update_query(ts, _t(k), _t(w), _t(m))
+        assert out is ts and int(cms.sk_total(ts)) == int(w[m].sum())
+
+
 def test_dispatch_refuses_other_states():
     with pytest.raises(TypeError, match="not a sketch state"):
         cms.sk_update(object(), None, None, None)
     with pytest.raises(TypeError, match="not a sketch state"):
         cms.point_query(object(), None)
+    with pytest.raises(TypeError, match="not a sketch state"):
+        cms.update_query(object(), None, None, None)
 
 
 def test_top_k_ties_go_to_the_lowest_index_like_jax():

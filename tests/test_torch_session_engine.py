@@ -194,6 +194,75 @@ def _clicks_by_user(wd):
     return clicks
 
 
+def _scan_states(family, U=256, D=4, W=256, M=8):
+    """(reference, port) initial sketch-fold states of ``family``."""
+    from streambench_tpu.ops import cms as jcms
+    from streambench_tpu.ops import salsa as jsalsa
+    from streambench_tpu.ops import session as jsession
+    from streambench_tpu_torch.ops import session as psession
+
+    if family == "fixed":
+        jc, pc = jcms.init_state(D, W), cms.init_state(D, W)
+    elif family == "twostage":
+        jc, pc = jcms.init_two_stage(D, W), cms.init_two_stage(D, W)
+    else:
+        jc, pc = jsalsa.init_state(D, 32), salsa.init_state(D, 32)
+    i32 = np.int32(0)
+    ref = [jsession.init_state(U), jc, jcms.init_topk(M), i32, i32,
+           np.zeros(sketches.LAT_BINS, np.int32)]
+    port = [psession.init_state(U), pc, cms.init_topk(M),
+            torch.tensor(0, dtype=torch.int32),
+            torch.tensor(0, dtype=torch.int32),
+            torch.zeros(sketches.LAT_BINS, dtype=torch.int32)]
+    return ref, port
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_fused_scan_matches_the_reference_scan(family, monkeypatch):
+    """The port's ``_session_cms_scan`` (each closed set's update and
+    query through ``cms.update_query``) against the reference's
+    ``_session_cms_scan`` on the same seeded ``[N, B]`` chunks, three in
+    a row with their own salts: every output bit-identical after each,
+    and the sketch reached once a closed set through the fused entry."""
+    import jax.numpy as jnp
+
+    fused = []
+    inner = cms.update_query
+
+    def counted(*a):
+        fused.append(a[1].shape[0])
+        return inner(*a)
+
+    monkeypatch.setattr(cms, "update_query", counted)
+    rng = np.random.default_rng(12)
+    ref, port = _scan_states(family)
+    N, B, t = 4, 128, 0
+    for chunk in range(3):
+        users = rng.integers(-2, 300, (N, B)).astype(np.int32)
+        etype = rng.integers(0, 3, (N, B)).astype(np.int32)
+        times = (t + np.cumsum(rng.integers(0, 40, (N, B)), axis=1)
+                 ).astype(np.int32)
+        t = int(times.max()) + 2_500 * (chunk + 1)
+        valid = rng.random((N, B)) < 0.9
+        cols = (users, etype, times, valid)
+        ref = list(jax_sketches._session_cms_scan(
+            *ref, 90_000, jnp.int32(chunk + 1), *map(jnp.asarray, cols),
+            gap_ms=GAP_MS, lateness_ms=1_000))
+        port = list(sketches._session_cms_scan(
+            *port, 90_000, chunk + 1, *map(torch.from_numpy, cols),
+            gap_ms=GAP_MS, lateness_ms=1_000))
+        for name, want, got in zip(("session", "sketch", "ring", "closed",
+                                    "clicks", "hist"), ref, port):
+            want, got = leaves((want,)), leaves((got,))
+            assert len(want) == len(got), name
+            for a, b in zip(want, got):
+                assert b.dtype == a.dtype, name
+                np.testing.assert_array_equal(b, a, err_msg=f"{name}, "
+                                                            f"chunk {chunk}")
+    assert fused == [B] * (2 * N * 3)
+    assert int(port[3]) > 0 and int(port[4]) > 0
+
+
 def test_heavy_hitters_dominate_the_exact_clicks(journal):
     """The reference's golden (``tests/test_sketch_engines.py:124``):
     after ``close()`` every click is in a closed session, and each
@@ -552,6 +621,7 @@ def test_chip_smoke_phase16_runs_on_the_cpu(tmp_path, monkeypatch):
     assert out["salsa"]["salsa"]["merged_pairs"] > 0
     assert out["salsa"]["cpu_equal_arrays"] == 13
     assert out["two_stage"]["small_min_margin"] >= 0
+    assert out["two_stage"]["cpu_equal_arrays"] == 12
     assert out["resume"]["equal_arrays"] == 11
     assert 0 < out["resume"]["crashed_at_events"] < out["events"]
     assert out["profile"]["batches"] == -(-out["events"] // 8192)
