@@ -161,8 +161,11 @@ result line) when any phase fails:
    K1) under the at-least-once acceptance plan, within the bound, with
    only the rows the journal faults damaged falling back to the host
    encoder; (c) config #5's key space (phase 6's deployment, seed 7)
-   under a script with a checkpoint crash, within the bound, each restart
-   allocating the 256 MB plane and restoring a 256 MB snapshot; (d) the
+   under a script with a checkpoint crash, every event folded and none
+   dropped, each restart allocating the 256 MB plane and restoring a
+   256 MB snapshot (its at-least-once check of the store, 51.4 s here,
+   runs in the CPU rehearsal only since PR 13: the cut that pays for
+   phase 18; phase 17 holds config #5's rows to phase 6's); (d) the
    in-process fake Kafka, three partitions, 200,000 events, broker
    faults (produce errors, connection drops, a down window) and three
    crashes under exactly-once: oracle-exact, the delivery ledger
@@ -255,7 +258,27 @@ result line) when any phase fails:
    kernels' device time and the c10d calls' host time a dispatch under
    ``torch.profiler``.
 
-Each kernel's launches are counted over each of phases 4, 6-17, from 0
+18. The sharded sketch engines (M16b, ``parallel.sketches``) on the
+   ``(1, 1)`` NCCL mesh of phase 17, over phase 15's and 16's journals,
+   each held to that phase's card result: (a) ``ShardedHLLEngine``, plain
+   and with the shard-skew tracker (``jax.obs.shard``): Redis rows, the
+   registers left after ``close()`` window by window, the watermark and
+   ``dropped`` equal to 15 (a)'s, no K1 launch, the tracker's routed rows
+   the views; (b) ``ShardedSlidingTDigestEngine``, sliced (K1 on the
+   shard's ``[Cl*S, W]`` view), under 15 (b)'s clock: rows, ring,
+   watermark, ``dropped`` and the digest's weight per campaign equal, the
+   quantiles within 2^-5 of 15 (b)'s, K1 launched; (c)
+   ``ShardedSessionCMSEngine`` with the fixed sketch, as 16 (a) runs: its
+   drains expire what 16 (a)'s did, the session arrays, sketch, ring,
+   counters and latency histogram bit-identical to 16 (a)'s, the heavy
+   hitters equal, K3's update and query launched and never the fused
+   entry; (d) the same with SALSA against 16 (b); (e) the two-stage
+   sketch refused.  Each run's ev/s (and with ``close()``), K1's and K3's
+   launches, the fullest device memory, the collectives a dispatch by
+   kind and bytes, each bracketed by CUDA events, and the NCCL kernels'
+   device time under ``torch.profiler``.
+
+Each kernel's launches are counted over each of phases 4, 6-18, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -264,6 +287,7 @@ is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py [--events N] [--out FILE]
     python3 chip_smoke.py --only-sketches  # phases 1-3 and 15 alone
     python3 chip_smoke.py --only-session   # phases 1-3 and 16 alone
+    python3 chip_smoke.py --only-sharded-sketches  # 1-3, 15, 16 and 18
 """
 
 from __future__ import annotations
@@ -2316,10 +2340,15 @@ def _chaos_journal_runs(events: int, device: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def _chaos_config5(data: Config5Data, device: str) -> dict:
+def _chaos_config5(data: Config5Data, device: str,
+                   check: bool = True) -> dict:
     """Phase 14 (c): config #5's key space (phase 6's dataset) under a
     crash script with a checkpoint crash.  The store is not wrapped: the
-    plan has no sink faults, so the native bulk writeback stays."""
+    plan has no sink faults, so the native bulk writeback stays.
+    ``check`` holds the store to ``check_at_least_once`` over the journal
+    (51.4 s on the card, PR 11 call 11); the smoke's full run leaves it
+    to this rehearsal on the CPU, and phase 17 holds config #5's rows to
+    phase 6's oracle-checked store on the card."""
     from streambench_tpu_torch.chaos import FaultPlan, check_at_least_once
     from streambench_tpu_torch.checkpoint import Checkpointer
     from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
@@ -2338,13 +2367,17 @@ def _chaos_config5(data: Config5Data, device: str) -> dict:
     plan = FaultPlan(seed=7, crashes=CHAOS_CONFIG5_SCRIPT)
     st, _, _, _, rec = _chaos_supervise("config5", plan, device, build)
     t0 = time.perf_counter()
-    v = check_at_least_once(r, data.workdir,
-                            data.broker.topic_path(cfg.kafka_topic),
-                            st.replay_segments, st.carried)
-    rec["verdict"] = _chaos_verdict(v)
+    v = None
+    if check:
+        v = check_at_least_once(r, data.workdir,
+                                data.broker.topic_path(cfg.kafka_topic),
+                                st.replay_segments, st.carried)
+        rec["verdict"] = _chaos_verdict(v)
+    else:
+        rec["verdict"] = "not checked in this run (the smoke's cut)"
     rec["check_s"] = time.perf_counter() - t0
     print(f"[chaos_config5] {json.dumps(rec)}", flush=True)
-    if not (v.ok and v.windows > 0):
+    if v is not None and not (v.ok and v.windows > 0):
         raise AssertionError(f"[chaos_config5] {v.summary()}")
     if rec["events"] != data.events or rec["dropped"]:
         raise AssertionError(f"[chaos_config5] folded {rec['events']} of "
@@ -2450,13 +2483,14 @@ def _chaos_kafka(events: int, device: str) -> dict:
 
 def phase_chaos(config5: Config5Data, events: int = CHAOS_EVENTS,
                 kafka_events: int = CHAOS_KAFKA_EVENTS,
-                device: str = "cuda") -> dict:
+                device: str = "cuda", check_config5: bool = True) -> dict:
     """Phase 14: supervised chaos (see the module doc).  ``device`` and
     the sizes are arguments so the phase can be rehearsed on the CPU at a
-    small size; the smoke runs it on ``cuda`` at full size."""
+    small size; the smoke runs it on ``cuda`` at full size, without (c)'s
+    at-least-once check (``check_config5``)."""
     t0 = time.perf_counter()
     out = _chaos_journal_runs(events, device)
-    out["config5"] = _chaos_config5(config5, device)
+    out["config5"] = _chaos_config5(config5, device, check_config5)
     out["kafka"] = _chaos_kafka(kafka_events, device)
     out["phase_s"] = time.perf_counter() - t0
     summary = []
@@ -2526,12 +2560,24 @@ def _golden_sliding(views) -> dict:
     return {(names[int(c)], int(w)): int(k) for (c, w), k in zip(uk, n)}
 
 
-def _sketch_engine(kind: str, cfg, data: Config5Data, r, device: str):
+def _sketch_engine(kind: str, cfg, data: Config5Data, r, device: str,
+                   mesh=None):
+    """Phase 15's engine of ``kind``, or with ``mesh`` its sharded form
+    (phase 18)."""
     from streambench_tpu_torch.engine.sketches import (
         HLLDistinctEngine,
         SlidingTDigestEngine,
     )
+    from streambench_tpu_torch.parallel import (
+        ShardedHLLEngine,
+        ShardedSlidingTDigestEngine,
+    )
 
+    if mesh is not None:
+        cls = (ShardedHLLEngine if kind == "hll"
+               else ShardedSlidingTDigestEngine)
+        return cls(cfg, data.mapping, mesh, campaigns=data.campaigns,
+                   redis=r, device=device)
     cls = HLLDistinctEngine if kind == "hll" else SlidingTDigestEngine
     return cls(cfg, data.mapping, campaigns=data.campaigns, redis=r,
                device=device)
@@ -2544,23 +2590,50 @@ def _sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def _reset_peak(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device: str):
+    """The fullest device memory since ``_reset_peak`` (bytes), or "not
+    measured" off the card."""
+    import torch
+
+    if device == "cuda":
+        return torch.cuda.max_memory_allocated()
+    return "not measured"
+
+
 def _sketch_catchup(tag: str, kind: str, data: Config5Data, device: str,
-                    keys: dict | None = None) -> tuple:
+                    keys: dict | None = None, mesh=None,
+                    obs_shard: bool = False) -> tuple:
     """One timed catchup of the dataset through a fresh sketch engine on
-    the card, after a warm engine ran every device path once (as the
-    CLI does).  Returns (result, store, engine)."""
+    the card (sharded on ``mesh`` if given, with the shard-skew tracker
+    if ``obs_shard``), after a warm engine ran every device path once (as
+    the CLI does).  Returns (result, store, engine)."""
     from streambench_tpu_torch.engine import StreamRunner
     from streambench_tpu_torch.ops.count import count_cells
 
     cfg = data.config(keys)
-    warm = _sketch_engine(kind, cfg, data, None, device)
+    warm = _sketch_engine(kind, cfg, data, None, device, mesh)
     warm.warmup()
     warm.close()
     del warm
     r = data.store()
-    engine = _sketch_engine(kind, cfg, data, r, device)
+    engine = _sketch_engine(kind, cfg, data, r, device, mesh)
+    skew = None
+    if obs_shard:
+        from streambench_tpu_torch.obs import MetricsRegistry, ShardSkew
+
+        reg = MetricsRegistry()
+        skew = ShardSkew(reg, n_shards=1)
+        engine.attach_obs(reg, shard=skew)
     reader = data.broker.reader(cfg.kafka_topic)
     _sync(device)
+    _reset_peak(device)
     count_cells.launches = 0              # this path starts here
     t0 = time.perf_counter()
     stats = StreamRunner(engine, reader).run_catchup()
@@ -2584,9 +2657,12 @@ def _sketch_catchup(tag: str, kind: str, data: Config5Data, device: str,
         "count_cells_launches": launches, "stages": stages,
         "window_slots": engine.W, "batch_size": engine.batch_size,
         "fold_host_ms_per_batch": fold_ms / max(steps, 1),
+        "peak_allocated_bytes": _peak(device),
     }
     if kind != "hll":
         result["sliced"] = engine.sliced
+    if skew is not None:
+        result["shard_skew"] = skew.summary()
     print(f"[sketch_{tag}] {json.dumps(result)}", flush=True)
     if stats.events != data.events or engine.dropped:
         raise AssertionError(f"[sketch_{tag}] folded {stats.events} of "
@@ -2827,10 +2903,12 @@ def _sketch_ops_check(device: str) -> dict:
 
 
 def phase_sketches(events: int = SKETCH_EVENTS,
-                   device: str = "cuda") -> dict:
+                   device: str = "cuda", keep: bool = False):
     """Phase 15: BASELINE configs #2 and #3 on the card (module doc).
     ``device`` and the size are arguments so the phase can be rehearsed
-    on the CPU at a small size; the smoke runs it on ``cuda``."""
+    on the CPU at a small size; the smoke runs it on ``cuda``.  With
+    ``keep`` it returns ``(result, kept)``: the journal and what phase 18
+    holds its sharded runs to (the caller removes the journal)."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -2838,6 +2916,7 @@ def phase_sketches(events: int = SKETCH_EVENTS,
     data = Config5Data(events, keys={}, name="smoke_sketch",
                        seed=SKETCH_SEED)
     out.update(events=events, generate_s=data.gen_s)
+    kept = None
     try:
         views = _journal_views(data)
         out["views"] = int(views[0].size)
@@ -2863,9 +2942,9 @@ def phase_sketches(events: int = SKETCH_EVENTS,
         ref_res, ref_r, ref_eng = _sketch_catchup("hll_cpu", "hll", data,
                                                   "cpu")
         t1 = time.perf_counter()
+        hll_end = _hll_end_state(hll_eng)
         hll_res.update(_hll_against_cpu(
-            got, _hll_end_state(hll_eng), _store_windows(ref_r),
-            _hll_end_state(ref_eng)),
+            got, hll_end, _store_windows(ref_r), _hll_end_state(ref_eng)),
             cpu_catchup_with_close_s=ref_res["catchup_with_close_s"],
             cpu_check_s=time.perf_counter() - t1)
         out["hll"] = hll_res
@@ -2920,6 +2999,10 @@ def phase_sketches(events: int = SKETCH_EVENTS,
                 f"{views[0].size} views; {len(table)} quantile fields")
         out["sliced"] = sl_res
         sliced_windows = got
+        sliced_end = {"ids": sl_eng.state.window_ids.cpu().numpy(),
+                      "watermark": int(sl_eng.state.watermark),
+                      "dropped": int(sl_eng.state.dropped),
+                      "counts": int(sl_eng.state.counts.sum())}
         del sl_eng, r, golden
 
         with _sketch_clock(clock):
@@ -2950,8 +3033,18 @@ def phase_sketches(events: int = SKETCH_EVENTS,
         if device == "cuda" and res_s["count_cells_launches"] <= 0:
             raise AssertionError("[sketch_sliced_resume] K1 never launched")
         out["resume"] = {"hll": res_h, "sliced": res_s}
+        if keep:
+            kept = {"data": data, "clock": clock,
+                    "ev": {k: (out[k]["events_per_s"],
+                               out[k]["events_per_s_with_close"])
+                           for k in ("hll", "sliced")},
+                    "views": int(views[0].size), "hll_rows": hll_windows,
+                    "hll_end": hll_end, "sliced_rows": sliced_windows,
+                    "sliced_end": sliced_end, "sliced_q": q,
+                    "sliced_w": weights}
     finally:
-        data.remove()
+        if kept is None:
+            data.remove()
     out["phase_s"] = time.perf_counter() - t0
     print(f"[sketch] ev/s: hll {out['hll']['events_per_s']}, sliced "
           f"{out['sliced']['events_per_s']} (K1 "
@@ -2964,7 +3057,7 @@ def phase_sketches(events: int = SKETCH_EVENTS,
           f"run's by {out['sliced']['cpu_quantile_max_rel_err']}; "
           f"{out['phase_s']:.1f} s",
           flush=True)
-    return out
+    return (out, kept) if keep else out
 
 
 # ----------------------------------------------------------------------
@@ -3332,14 +3425,17 @@ class SessionData:
         shutil.rmtree(self.workdir, ignore_errors=True)
 
 
-def _session_engine(data: SessionData, cfg, r, device: str):
+def _session_engine(data: SessionData, cfg, r, device: str, mesh=None):
+    """Phase 16's engine, or with ``mesh`` its sharded form (phase 18)."""
     from streambench_tpu_torch.engine.sketches import SessionCMSEngine
+    from streambench_tpu_torch.parallel import ShardedSessionCMSEngine
 
-    return SessionCMSEngine(cfg, data.mapping, campaigns=data.campaigns,
-                            redis=r, gap_ms=SESSION_GAP_MS,
-                            user_capacity=data.capacity, cms_depth=4,
-                            cms_width=data.cms_width, top_k=16,
-                            device=device)
+    kw = dict(campaigns=data.campaigns, redis=r, gap_ms=SESSION_GAP_MS,
+              user_capacity=data.capacity, cms_depth=4,
+              cms_width=data.cms_width, top_k=16, device=device)
+    if mesh is not None:
+        return ShardedSessionCMSEngine(cfg, data.mapping, mesh, **kw)
+    return SessionCMSEngine(cfg, data.mapping, **kw)
 
 
 def _session_state(engine) -> dict:
@@ -3380,7 +3476,7 @@ def _session_run(tag: str, data: SessionData, device: str,
                  keys: dict | None = None, max_events: int | None = None,
                  ckdir: str | None = None, resume: bool = False,
                  close: bool = True,
-                 flush_interval_ms: int | None = None) -> tuple:
+                 flush_interval_ms: int | None = None, mesh=None) -> tuple:
     """One catchup of ``data`` through a fresh session engine (after a warm
     one ran every device path, as the CLI does), under the fixed clock;
     K3's launches counted from just before the run to just after
@@ -3395,12 +3491,12 @@ def _session_run(tag: str, data: SessionData, device: str,
     from streambench_tpu_torch.ops.count import count_cells
 
     cfg = data.config(keys)
-    warm = _session_engine(data, cfg, None, device)
+    warm = _session_engine(data, cfg, None, device, mesh)
     warm.warmup()
     warm.close()
     del warm
     r = as_redis(make_store())
-    engine = _session_engine(data, cfg, r, device)
+    engine = _session_engine(data, cfg, r, device, mesh)
     reader = data.broker.reader(cfg.kafka_topic)
     runner_kw = ({} if ckdir is None else
                  {"checkpointer": Checkpointer(ckdir),
@@ -3417,6 +3513,7 @@ def _session_run(tag: str, data: SessionData, device: str,
     resumed_at = engine.events_processed
     drains = _watch_drains(engine)
     _sync(device)
+    _reset_peak(device)
     cmsrows.reset_launches()               # this path starts here
     count_cells.launches = 0
     t0 = time.perf_counter()
@@ -3453,7 +3550,8 @@ def _session_run(tag: str, data: SessionData, device: str,
         "drains": len(drains), "expired": sum(c for c, _ in drains),
         "drains_closing": sum(1 for c, _ in drains if c),
         "batch_size": engine.batch_size, "scan_batches":
-            engine.scan_batches, "user_capacity": engine.user_capacity}
+            engine.scan_batches, "user_capacity": engine.user_capacity,
+        "peak_allocated_bytes": _peak(device)}
     print(f"[session_{tag}] {json.dumps(result)}", flush=True)
     return result, engine, r
 
@@ -3581,12 +3679,14 @@ def _session_profile(data: SessionData, device: str) -> dict:
 def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
                   device: str = "cuda",
                   two_stage_events: int = SESSION_TWO_STAGE_EVENTS,
-                  cms_width: int = 2048) -> dict:
+                  cms_width: int = 2048, keep: bool = False):
     """Phase 16: BASELINE config #4 on the card (module doc).  ``device``,
     the sizes and the sketch's width are arguments so the phase can be
     rehearsed on the CPU at a small size (a narrow sketch, so that SALSA
     widens cells there too); the smoke runs it on ``cuda`` at Wd =
-    2048."""
+    2048.  With ``keep`` it returns ``(result, kept)``: the journal and
+    the states of (a) and (b), which phase 18 holds its sharded runs to
+    (the caller removes the journal)."""
     from streambench_tpu_torch.ops import salsa
 
     t0 = time.perf_counter()
@@ -3600,6 +3700,7 @@ def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
     # drain), on the card and on the CPU alike: that drain expires every
     # session of the body (the tail's watermark has passed them all)
     once = 10**9
+    kept = None
     try:
         with _sketch_clock(clock):
             # (a) the fixed sketch, on the card and on the CPU
@@ -3634,9 +3735,9 @@ def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
             res.update(_expiry_check("salsa", data, res, eng, clock))
             ref, ref_eng, _ = _session_run("salsa_cpu", data, "cpu", keys,
                                            flush_interval_ms=once)
+            state_b, hh_b = _session_state(eng), eng.heavy_hitters()
             res["cpu_equal_arrays"] = _states_equal(
-                "salsa", _session_state(eng), _session_state(ref_eng),
-                "the CPU run's")
+                "salsa", state_b, _session_state(ref_eng), "the CPU run's")
             if ref_eng.heavy_hitters() != eng.heavy_hitters():
                 raise AssertionError("[session_salsa] _hh differs from the "
                                      "CPU run's")
@@ -3700,8 +3801,15 @@ def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
             out["resume"] = res
             del eng
             out["profile"] = _session_profile(data, device)
+        if keep:
+            kept = {"data": data, "clock": clock,
+                    "ev": {k: (out[k]["events_per_s"],
+                               out[k]["events_per_s_with_close"])
+                           for k in ("fixed", "salsa")},
+                    "fixed": (state_a, hh_a), "salsa": (state_b, hh_b)}
     finally:
-        data.remove()
+        if kept is None:
+            data.remove()
     out["phase_s"] = time.perf_counter() - t0
     f, s = out["fixed"], out["salsa"]
     print(f"[session] ev/s: fixed {f['events_per_s']} "
@@ -3715,7 +3823,7 @@ def phase_session(events: int = SESSION_EVENTS, users: int = SESSION_USERS,
           f"(salsa {s['expired']}); salsa merged pairs "
           f"{s['salsa']['merged_pairs']}; device ops a batch {out['profile']['device_ops_per_batch']}; "
           f"{out['phase_s']:.1f} s", flush=True)
-    return out
+    return (out, kept) if keep else out
 
 
 def _small_stage_check(data: SessionData, engine) -> dict:
@@ -3923,6 +4031,209 @@ def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 18: the sharded sketch engines (M16b) on a (1, 1) mesh
+
+SHARDED_SKETCH_RUNS = ("hll", "hll_obs_shard", "sliced", "fixed", "salsa")
+
+
+def _sharded_collectives(engine, on_card: bool) -> dict:
+    """An engine's collective report (ops and bytes a dispatch by kind),
+    each collective bracketed by CUDA events, three times for the median
+    device ms; and on the card the NCCL kernels' device ms and the c10d
+    calls' host ms a dispatch under ``torch.profiler`` (5 x a step and a
+    1-batch scan)."""
+    import statistics
+
+    t0 = time.perf_counter()
+    reports = [engine.collective_report(timed=on_card)
+               for _ in range(COLLECTIVE_REPEATS)]
+    rep = reports[-1]
+    for kernel in ("step", "scan"):
+        rep[kernel]["device_ms_median"] = (
+            statistics.median(r[kernel]["device_ms"] for r in reports)
+            if on_card else "not measured")
+    out = {"collectives": rep}
+    if on_card:
+        k = _collective_kernels(engine, repeats=5)
+        out["collective_kernels"] = {key: k[key] for key in (
+            "dispatches", "device_ms_per_dispatch", "host_ms_per_dispatch")}
+    out["collectives_s"] = time.perf_counter() - t0
+    return out
+
+
+def _collective_line(res: dict) -> str:
+    c = res["collectives"]
+    k = res.get("collective_kernels", {})
+    return (f"step {c['step']['per_dispatch']['by_kind']} "
+            f"{c['step']['per_dispatch']['bytes']} B "
+            f"{c['step']['device_ms_median']} ms, scan "
+            f"{c['scan']['per_dispatch']['by_kind']} "
+            f"{c['scan']['per_dispatch']['bytes']} B "
+            f"{c['scan']['device_ms_median']} ms between CUDA events, "
+            f"NCCL kernels {k.get('device_ms_per_dispatch', 'not measured')}"
+            f" ms a dispatch")
+
+
+def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda"
+                           ) -> dict:
+    """Phase 18 (module doc): the sharded sketch engines on a ``(1, 1)``
+    mesh over phase 15's and 16's journals, held to those phases' card
+    results (``sk``, ``ses``: what they kept).  Removes both journals.
+    ``device`` is an argument so the phase can be rehearsed on the CPU
+    (gloo, against CPU results)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from streambench_tpu_torch.parallel import build_mesh
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    out: dict = {}
+    try:
+        mesh = build_mesh(1, 1, device=device)
+        out.update(mesh=repr(mesh), backend=mesh.backend)
+        data = sk["data"]
+        # (a) HLL, plain and with jax.obs.shard
+        for run in ("hll", "hll_obs_shard"):
+            obs = run == "hll_obs_shard"
+            res, r, eng = _sketch_catchup(
+                f"sharded_{run}", "hll", data, device, mesh=mesh,
+                obs_shard=obs)
+            t1 = time.perf_counter()
+            if not obs:
+                # the stats arm folds the same registers (checked below)
+                _windows_equal(run, _store_windows(r), sk["hll_rows"],
+                               "phase 15 (a)'s")
+                res["windows_equal_phase15"] = len(sk["hll_rows"])
+            end, want = _hll_end_state(eng), sk["hll_end"]
+            if (set(end["registers"]) != set(want["registers"])
+                    or not all(np.array_equal(end["registers"][w],
+                                              want["registers"][w])
+                               for w in want["registers"])
+                    or (end["watermark"], end["dropped"])
+                    != (want["watermark"], want["dropped"])):
+                raise AssertionError(f"[sharded_{run}] state after close() "
+                                     "differs from phase 15 (a)'s")
+            if res["count_cells_launches"]:
+                raise AssertionError(f"[sharded_{run}] K1 launched")
+            if obs and res["shard_skew"]["rows"] != [sk["views"]]:
+                raise AssertionError(f"[sharded_{run}] routed rows "
+                                     f"{res['shard_skew']} against "
+                                     f"{sk['views']} views")
+            res["check_s"] = time.perf_counter() - t1
+            res.update(_sharded_collectives(eng, on_card and not obs))
+            out[run] = res
+            del eng, r
+        # (b) the sliced sliding fold (K1 on the [Cl*S, W] plane) under
+        # phase 15 (b)'s clock
+        with _sketch_clock(sk["clock"]):
+            res, r, eng = _sketch_catchup("sharded_sliced", "sliding", data,
+                                          device, mesh=mesh)
+        t1 = time.perf_counter()
+        _windows_equal("sharded_sliced", _store_windows(r),
+                       sk["sliced_rows"], "phase 15 (b)'s")
+        st, want = eng.state, sk["sliced_end"]
+        if (not np.array_equal(st.window_ids.cpu().numpy(), want["ids"])
+                or (int(st.watermark), int(st.dropped),
+                    int(st.counts.sum()))
+                != (want["watermark"], want["dropped"], want["counts"])):
+            raise AssertionError("[sharded_sliced] ring, watermark or "
+                                 "dropped differ from phase 15 (b)'s")
+        q = eng.quantiles()
+        weights = eng._whole()[1].weights.sum(1).cpu().numpy()
+        res["quantile_max_rel_err_phase15"] = _quantiles_against_cpu(
+            "sharded_sliced", q, weights, sk["sliced_q"], sk["sliced_w"])
+        if not eng.sliced or (on_card and res["count_cells_launches"] <= 0):
+            raise AssertionError(f"[sharded_sliced] sliced={eng.sliced}, "
+                                 f"K1 launches "
+                                 f"{res['count_cells_launches']}")
+        res["windows_equal_phase15"] = len(sk["sliced_rows"])
+        res["check_s"] = time.perf_counter() - t1
+        res.update(_sharded_collectives(eng, on_card))
+        out["sliced"] = res
+        del eng, r
+        data.remove()                     # phase 15's journal is done
+        # (c) fixed and (d) SALSA over phase 16's journal, held to its
+        # (a) and (b); K3's update and query (never the fused entry the
+        # single-device fold takes) for fixed, its columns for SALSA
+        sdata, once = ses["data"], 10**9
+        with _sketch_clock(ses["clock"]):
+            for fam, keys, entries in (
+                    ("fixed", None, ("cms_update", "cms_query")),
+                    ("salsa", {"jax.cms.mode": "salsa"}, ("cms_cols",))):
+                res, eng, r = _session_run(f"sharded_{fam}", sdata, device,
+                                           keys, flush_interval_ms=once,
+                                           mesh=mesh)
+                t1 = time.perf_counter()
+                res.update(_session_checks(f"sharded_{fam}", sdata, res, eng,
+                                           r, entries, device))
+                res.update(_expiry_check(f"sharded_{fam}", sdata, res, eng,
+                                         ses["clock"]))
+                state, hh = ses[fam]
+                res["equal_arrays_phase16"] = _states_equal(
+                    f"sharded_{fam}", _session_state(eng), state,
+                    "phase 16's")
+                if eng.heavy_hitters() != hh:
+                    raise AssertionError(f"[sharded_{fam}] heavy hitters "
+                                         "differ from phase 16's")
+                if res["cms_rows_launches"]["cms_update_query"]:
+                    raise AssertionError(f"[sharded_{fam}] the fused "
+                                         "update and query launched")
+                res["check_s"] = time.perf_counter() - t1
+                res.update(_sharded_collectives(eng, on_card))
+                out[fam] = res
+                del eng, r
+            # (e) the two-stage sketch does not merge: refused
+            try:
+                _session_engine(sdata, sdata.config({"jax.cms.stages": 2}),
+                                None, device, mesh)
+            except ValueError as e:
+                out["two_stage_refused"] = str(e)
+            else:
+                raise AssertionError("[sharded] the two-stage sketch was "
+                                     "not refused")
+    finally:
+        sk["data"].remove()
+        ses["data"].remove()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    unsharded = {**sk["ev"], **ses["ev"], "hll_obs_shard": sk["ev"]["hll"]}
+    print(f"[sharded_sketch] ev/s (with close) on the (1, 1) "
+          f"{out['backend']} mesh [phases 15 and 16]: " + "; ".join(
+              f"{run} {out[run]['events_per_s']} "
+              f"({out[run]['events_per_s_with_close']}) "
+              f"[{unsharded[run][0]} ({unsharded[run][1]})]"
+              for run in SHARDED_SKETCH_RUNS)
+          + f"; K1 launches sliced {out['sliced']['count_cells_launches']}"
+          f", K3 fixed {out['fixed']['cms_rows_launches']}, salsa "
+          f"{out['salsa']['cms_rows_launches']}; peak device memory "
+          + ", ".join(f"{run} {out[run]['peak_allocated_bytes']}"
+                      for run in SHARDED_SKETCH_RUNS)
+          + f"; {out['phase_s']:.1f} s", flush=True)
+    for run in SHARDED_SKETCH_RUNS:
+        print(f"[sharded_{run}] collectives: "
+              f"{_collective_line(out[run])}", flush=True)
+    return out
+
+
+def _sketch_phases(lap) -> tuple:
+    """Phases 15, 16 and 18: the sketch engines, then their sharded forms
+    over the same journals.  Returns ((phase 15, phase 16), phase 18)."""
+    sketch, sk_keep = phase_sketches(keep=True)
+    lap("15 sketches")
+    try:
+        session, ses_keep = phase_session(keep=True)
+    except BaseException:
+        sk_keep["data"].remove()
+        raise
+    lap("16 session")
+    sharded = phase_sharded_sketches(sk_keep, ses_keep)
+    lap("18 sharded sketches")
+    return (sketch, session), sharded
+
+
 class Laps:
     """Seconds of each phase of one run: ``lap(name)`` closes the phase
     that ran since the last lap (or since the start)."""
@@ -3953,6 +4264,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--only-session", action="store_true",
                     help="a diagnostic: phases 1-3 and 16 alone (no result "
                     "line)")
+    ap.add_argument("--only-sharded-sketches", action="store_true",
+                    help="a diagnostic: phases 1-3 (K1 and K3 cases), 15, "
+                    "16 and 18 alone (no result line)")
     args = ap.parse_args(argv)
     lap = Laps()
 
@@ -3999,6 +4313,21 @@ def main(argv: list[str] | None = None) -> int:
                            "ptxas": ptxas}, f, indent=1)
         print(smi, flush=True)
         return 0
+    if args.only_sharded_sketches:
+        cms_cases = phase_cms_kernels(floor)
+        lap("1-3 device, build, K1 and K3 cases")
+        sketch, sharded = _sketch_phases(lap)
+        laps = lap.as_dict()
+        print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "cms_cases": cms_cases,
+                           "sketches": sketch[0], "session": sketch[1],
+                           "sharded_sketches": sharded,
+                           "phase_seconds": laps, "nvidia_smi": smi}, f,
+                          indent=1)
+        print(smi, flush=True)
+        return 0
     if args.only_sketches:
         sketch = phase_sketches()
         if args.out:
@@ -4031,17 +4360,15 @@ def main(argv: list[str] | None = None) -> int:
                                DECODE_DEVICE="on")
     lap("13 paced decode")
     try:
-        chaos = phase_chaos(config5)
+        # the cut that pays for phase 18: (c)'s at-least-once check
+        chaos = phase_chaos(config5, check_config5=False)
         lap("14 chaos")
         sharded = phase_sharded(config5, large_rows, large)
         lap("17 config #5 sharded")
     finally:
         config5.remove()
     del large_rows
-    sketch = phase_sketches()
-    lap("15 sketches")
-    session = phase_session()
-    lap("16 session")
+    (sketch, session), sharded_sketch = _sketch_phases(lap)
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -4110,7 +4437,10 @@ def main(argv: list[str] | None = None) -> int:
             "sliding_sliced_resume":
                 sketch["resume"]["sliced"]["count_cells_launches"],
             **{f"session_{k}": session[k]["count_cells_launches"]
-               for k in SESSION_RUNS}},
+               for k in SESSION_RUNS},
+            **{f"sharded_sketch_{k}":
+               sharded_sketch[k]["count_cells_launches"]
+               for k in SHARDED_SKETCH_RUNS}},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -4161,8 +4491,11 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "streambench_tpu/ops/cms.py:53",
         "launches": session["fixed"]["cms_rows_launches_total"],
         "launches_by_path": {
-            f"session_{k}": session[k]["cms_rows_launches"]
-            for k in SESSION_RUNS},
+            **{f"session_{k}": session[k]["cms_rows_launches"]
+               for k in SESSION_RUNS},
+            **{f"sharded_session_{k}":
+               sharded_sketch[k]["cms_rows_launches"]
+               for k in ("fixed", "salsa")}},
         "shape": main_cms["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cms_cases),
         "ms": update["kernel_ms"],
@@ -4222,6 +4555,7 @@ def main(argv: list[str] | None = None) -> int:
                        "sketches": sketch,
                        "cms_method_table": cms_methods,
                        "session": session,
+                       "sharded_sketches": sharded_sketch,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,11 +10,14 @@ feeding a count-min sketch whose top-k heavy hitters go to
 ``jax.cms.cell.bits`` and ``jax.cms.stages`` pick the sketch).  It
 tails the broker topic, flushes the canonical Redis window schema, and
 at the end (catchup drained, duration,
-idle timeout, or SIGTERM) closes the engine and prints the same JSON stats
-line as ``python -m streambench_tpu.engine``.  ``--sharded`` runs the exact
-engine on the ``(data, campaign)`` mesh of ``jax.mesh.shape``
-(``parallel.ShardedWindowEngine``, one rank: NCCL on the card, gloo on the
-CPU), as ``bench.py`` runs BASELINE #5.  Any key space the config
+idle timeout, or SIGTERM, after folding what the topic holds) closes the
+engine and prints the same JSON stats
+line as ``python -m streambench_tpu.engine``.  ``--sharded`` runs the
+engine on the ``(data, campaign)`` mesh of ``jax.mesh.shape`` (one rank:
+NCCL on the card, gloo on the CPU): ``parallel.ShardedWindowEngine`` for
+``exact``, as ``bench.py`` runs BASELINE #5, and the sharded sketch
+engines of ``parallel.sketches`` for ``hll``, ``sliding`` and
+``session``.  Any key space the config
 names runs (config #5's 1,000,000 campaigns take the large-key-space
 drains); ``--checkpointDir`` saves (offset, state) snapshots there and
 resumes from the newest one at start; ``jax.sink.exactly_once: true``
@@ -46,12 +49,13 @@ profiles the whole run.
         [--device cuda|cpu] [--checkpointDir D] [--sharded]
 
 ``jax.obs.shard`` with ``--sharded`` adds the per-shard skew
-(``shard_skew`` in the stats line and the sampler's records).
+(``shard_skew`` in the stats line and the sampler's records) of the
+exact and HLL engines.
 
 Options and config keys that need parts of the JAX engine not ported yet
-(the reach and hllx engines, ``--sharded`` with any engine but exact or
-with more than one process, the fork's micro-batch mode, tenants, the
-reach query and fleet observability) are refused with exit 2.
+(the reach and hllx engines, sharded or not, ``--sharded`` with more
+than one process, the fork's micro-batch mode, tenants, the reach query
+and fleet observability) are refused with exit 2.
 """
 
 from __future__ import annotations
@@ -96,7 +100,13 @@ from streambench_tpu_torch.obs import (
 from streambench_tpu_torch.ops import cmsrows
 from streambench_tpu_torch.ops.count import count_cells
 from streambench_tpu_torch.ops.decode import decode_rows
-from streambench_tpu_torch.parallel import ShardedWindowEngine, mesh_from_config
+from streambench_tpu_torch.parallel import (
+    ShardedHLLEngine,
+    ShardedSessionCMSEngine,
+    ShardedSlidingTDigestEngine,
+    ShardedWindowEngine,
+    mesh_from_config,
+)
 from streambench_tpu_torch.parallel.mesh import CAMPAIGN_AXIS, DATA_AXIS
 from streambench_tpu_torch.trace import device_trace
 
@@ -129,8 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "quantiles) or session (session windows + "
                         "count-min heavy hitters): BASELINE configs #1-#4")
     p.add_argument("--sharded", action="store_true",
-                   help="run the mesh-sharded exact engine (jax.mesh.shape;"
-                        " one process: NCCL on cuda, gloo on cpu)")
+                   help="run the engine sharded over the mesh of "
+                        "jax.mesh.shape (exact, hll, sliding or session; "
+                        "one process: NCCL on cuda, gloo on cpu)")
     # flags of the JAX CLI whose machinery is not ported yet: accepted
     # only to refuse them with a clear message
     p.add_argument("--microbatch", action="store_true",
@@ -142,6 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
 #: engines the port runs, by ``--engine`` name
 ENGINES = {"exact": AdAnalyticsEngine, "hll": HLLDistinctEngine,
            "sliding": SlidingTDigestEngine, "session": SessionCMSEngine}
+#: their mesh-sharded forms (``--sharded``)
+SHARDED_ENGINES = {"exact": ShardedWindowEngine, "hll": ShardedHLLEngine,
+                   "sliding": ShardedSlidingTDigestEngine,
+                   "session": ShardedSessionCMSEngine}
 
 
 def unsupported(args, cfg) -> list[str]:
@@ -150,11 +165,11 @@ def unsupported(args, cfg) -> list[str]:
     checkpoint/resume, the exactly-once sink, the staged ingest pipeline,
     the encode pool, the dead-letter queue, the Kafka source, device
     decode (exact engine), the single-engine observability layer, and the
-    sharded exact engine in one process (``--sharded``)."""
+    same four engines sharded in one process (``--sharded``)."""
     out = []
     ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
     for flag, on in (("--sharded --engine " + str(args.engine),
-                      args.sharded and args.engine != "exact"),
+                      args.sharded and args.engine not in SHARDED_ENGINES),
                      (f"--sharded over {ranks} processes",
                       args.sharded and ranks > 1),
                      ("--engine " + str(args.engine),
@@ -201,8 +216,8 @@ def main(argv: list[str] | None = None) -> int:
               "exact, hll, sliding and session engines with checkpoints, "
               "the exactly-once sink, the ingest pipeline, the encode pool, "
               "the dead-letter queue, the Kafka source, the "
-              "single-engine observability layer and the sharded exact "
-              "engine in one process): " + ", ".join(missing),
+              "single-engine observability layer and the four engines "
+              "sharded in one process): " + ", ".join(missing),
               file=sys.stderr)
         return 2
 
@@ -223,9 +238,9 @@ def main(argv: list[str] | None = None) -> int:
 
     def make_engine(r):
         if mesh is not None:
-            return ShardedWindowEngine(cfg, mapping, mesh,
-                                       campaigns=campaigns, redis=r,
-                                       device=args.device)
+            return SHARDED_ENGINES[args.engine](
+                cfg, mapping, mesh, campaigns=campaigns, redis=r,
+                device=args.device)
         return engine_cls(cfg, mapping, campaigns=campaigns, redis=r,
                           device=args.device)
 
@@ -279,7 +294,10 @@ def main(argv: list[str] | None = None) -> int:
 
     def _on_sigterm(*_):
         signals["sigterm"] = True
-        runner.stop()
+        # fold what the topic already holds before the final stats line:
+        # the harness stops the load first, and its evidence is events
+        # emitted == events folded
+        runner.stop(drain=True)
 
     signal.signal(signal.SIGTERM, _on_sigterm)
     signal.signal(signal.SIGINT, lambda *_: runner.stop())

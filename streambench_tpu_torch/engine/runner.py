@@ -110,6 +110,7 @@ class StreamRunner:
             counters=engine.faults)
         self.stats = RunStats()
         self._stop = False
+        self._drain_on_stop = False
         # Staged ingest pipeline (engine.ingest): "off" keeps the serial
         # loops byte-identical, "on" forces the overlapped stages, "auto"
         # enables them where block-mode ingest makes the overlap pay.
@@ -138,7 +139,16 @@ class StreamRunner:
         # CLI sets them (capture, device-memory census).
         self.flush_hooks: tuple = ()
 
-    def stop(self) -> None:
+    # A drain-on-stop reads the source for at most this long.
+    STOP_DRAIN_S = 30.0
+
+    def stop(self, drain: bool = False) -> None:
+        """End the run loop.  ``drain`` (the CLI's SIGTERM) first folds
+        what the source already holds, up to a poll that comes back empty
+        (at most ``STOP_DRAIN_S``), so a stop that follows the producer's
+        counts everything it wrote (the serial loop; the pipelined one
+        folds what its stages read)."""
+        self._drain_on_stop = drain
         self._stop = True
 
     def _chaos_point(self, kind: str) -> None:
@@ -544,6 +554,23 @@ class StreamRunner:
                 self._flush(now)
                 last_flush = now
 
+        if self._drain_on_stop:
+            # stopped by the CLI's SIGTERM: fold the backlog first
+            stop_by = time.monotonic() + self.STOP_DRAIN_S
+            while time.monotonic() < stop_by:
+                if block_mode:
+                    data = self.reader.poll_block(chunk_cap * est_bytes)
+                    got = data.count(b"\n") if data else 0
+                    if got:
+                        pending.append(data)
+                else:
+                    lines = self.reader.poll(max_records=chunk_cap)
+                    got = len(lines)
+                    pending.extend(lines)
+                if not got:
+                    break
+                pending_n += got
+                dispatch()
         if pending:
             dispatch()
         self._finish_run()

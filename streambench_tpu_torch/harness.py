@@ -22,8 +22,9 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``DEVICE`` (``cuda`` by default, passed to the engine as ``--device``;
 ``cpu`` only when asked for), ``ENGINE`` (``exact`` by default, ``hll``,
 ``sliding`` or ``session``; passed to the engine as ``--engine``),
-``SHARDED=1`` (the mesh-sharded exact engine, ``--sharded``; SETUP
-refuses it with any ``ENGINE`` but ``exact``).
+``SHARDED=1`` (the engine sharded over the mesh, ``--sharded``: the
+exact, hll, sliding and session engines; SETUP refuses it with
+``ENGINE=reach``, whose sharded form is not ported yet).
 ``VERIFY=1``
 makes ``TORCH_TEST`` hold every window in Redis against the generator's
 oracle over the journal the load wrote (``VERIFY``, before the services
@@ -39,7 +40,7 @@ attribution``), ``FLIGHTREC`` (``WORKDIR/flight_<reason>.jsonl``),
 ``SLO_P99_MS``, ``SLO_RATE_EVPS``, ``OBS_XFER``, ``OBS_DEVMEM`` and
 ``OBS_CAPTURE`` (a ``torch.profiler`` one-shot into
 ``WORKDIR/xprof_<ms>_oneshot/``) and ``OBS_SHARD`` (with ``SHARDED=1``:
-the per-shard skew, ``jax.obs.shard``).  ``OBS_QUERY`` and ``OBS_FLEET``
+the per-shard skew, ``jax.obs.shard``, of the exact and hll engines).  ``OBS_QUERY`` and ``OBS_FLEET``
 need surfaces not ported yet and are refused.
 
 Services are subprocesses with ``<pid> <starttime>`` pidfiles
@@ -90,6 +91,8 @@ DEVICE = os.environ.get("DEVICE", "cuda")
 # configs #1-#4)
 ENGINE = os.environ.get("ENGINE", "exact")
 SHARDED = _flag("SHARDED")
+#: the engines SHARDED=1 runs (the CLI's --sharded)
+SHARDED_ENGINES = ("exact", "hll", "sliding", "session")
 # Fake Kafka as a standalone TCP broker process (START_KAFKA/STOP_KAFKA):
 # the generator produces and the engine consumes over a real socket.
 # KAFKA_BROKERS picks the address (default 127.0.0.1:9092); naming one
@@ -252,8 +255,8 @@ def op_setup() -> None:
     from streambench_tpu_torch.config import write_local_conf
 
     refused = [k for k in NOT_PORTED_KNOBS if _flag(k)]
-    if SHARDED and ENGINE != "exact":
-        # the sharded sketch engines are not ported yet
+    if SHARDED and ENGINE not in SHARDED_ENGINES:
+        # sharded reach is not ported yet
         refused.append(f"SHARDED with ENGINE={ENGINE}"
                        + (" (and its OBS_SHARD)" if OBS_SHARD else ""))
     if refused:

@@ -1,11 +1,13 @@
-"""The mesh-sharded exact engine over ``torch.distributed``.
+"""The mesh-sharded engines over ``torch.distributed``.
 
-The port of ``streambench_tpu/parallel``'s exact-count half: the
-``(data, campaign)`` mesh of ranks (``mesh``), the sharded fold and its
-engine (``sharded``), the collective-cost counter (``collectives``) and
+The port of ``streambench_tpu/parallel`` but sharded reach: the
+``(data, campaign)`` mesh of ranks (``mesh``), the sharded exact fold and
+its engine (``sharded``), the sharded sketch engines (``sketches``: HLL,
+sliding + t-digest, session + count-min), the single controller they
+share (``controller``), the collective-cost counter (``collectives``) and
 the multi-process engine with its lockstep catchup (``distributed``).
-The sharded sketch engines and sharded reach are not ported yet.
-Importing the package starts no process group and touches no card.
+Sharded reach is not ported yet.  Importing the package starts no
+process group and touches no card.
 """
 
 from streambench_tpu_torch.parallel.distributed import (
@@ -26,11 +28,21 @@ from streambench_tpu_torch.parallel.sharded import (
     sharded_init_state,
     sharded_step,
 )
+from streambench_tpu_torch.parallel.sketches import (
+    ShardedHLLEngine,
+    ShardedSessionCMSEngine,
+    ShardedSlidingTDigestEngine,
+    sharded_hll_init,
+    sharded_hll_step,
+)
 
 __all__ = [
     "DistContext",
     "DistributedWindowEngine",
     "Mesh",
+    "ShardedHLLEngine",
+    "ShardedSessionCMSEngine",
+    "ShardedSlidingTDigestEngine",
     "ShardedWindowEngine",
     "build_mesh",
     "cross_host_barrier",
@@ -38,6 +50,8 @@ __all__ = [
     "init_distributed",
     "mesh_from_config",
     "run_distributed_catchup",
+    "sharded_hll_init",
+    "sharded_hll_step",
     "sharded_init_state",
     "sharded_step",
 ]

@@ -103,11 +103,13 @@ def all_gather_last(x: torch.Tensor, group, recorder: Recorder | None = None,
 
 def all_reduce_sum(x: torch.Tensor, group, recorder: Recorder | None = None,
                    *, name: str, in_loop: bool = False) -> torch.Tensor:
-    """Sum the int32 scalar ``x`` over ``group``; returns a new scalar."""
-    buf = x.reshape(1).to(torch.int32).clone()
+    """Sum the int32 tensor ``x`` (a scalar, or a stack such as the
+    session fold's ``[K, 2, D, Wd]`` sketch deltas) over ``group``;
+    returns a new tensor of ``x``'s shape."""
+    buf = x.reshape(-1).to(torch.int32).clone()
     _issue(recorder, "all-reduce", name, buf, group, in_loop,
            lambda: dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group))
-    return buf.reshape(())
+    return buf.reshape(x.shape)
 
 
 def summarize(ops: list[CollectiveOp], scan_len: int = 1,

@@ -176,7 +176,7 @@ class DistributedWindowEngine(ShardedWindowEngine):
         return self.process_lines(lines)
 
     def _device_step(self, batch) -> None:
-        self._fold_local_cols(
+        self._step_local(
             [self._to_device(c) for c in (batch.ad_idx, batch.event_type,
                                           batch.event_time, batch.valid)],
             False)

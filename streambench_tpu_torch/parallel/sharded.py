@@ -30,13 +30,11 @@ counted rows once per dispatch, with nothing inside its loop.
 ``ShardedWindowEngine`` runs this fold under the port's engine.  At world
 size 1 (one card) it is the base engine with the fold swapped: drains,
 checkpoints and exactly-once are the base engine's.  With more ranks,
-rank 0 plays the JAX single controller: it alone reads the stream, owns
-the writer, the fence and the checkpoints, and sends every device call
-to the other ranks (``follow``) on the gloo group before making it, so
-all ranks issue the same collectives in the same order.  A call that
-carries batch columns sends each rank only its data slice, as the
-reference's ``shard_map`` takes the batch data-sharded; the fold's
-gather then assembles the batch on the card's own backend.
+rank 0 plays the JAX single controller (``parallel.controller``, which
+the sketch engines of ``parallel.sketches`` share): it alone reads the
+stream, owns the writer, the fence and the checkpoints, and sends every
+device call to the other ranks (``follow``) on the gloo group before
+making it.
 """
 
 from __future__ import annotations
@@ -57,6 +55,7 @@ from streambench_tpu_torch.io.redis_schema import RedisLike
 from streambench_tpu_torch.ops import windowcount as wc
 from streambench_tpu_torch.ops.windowcount import WindowState
 from streambench_tpu_torch.parallel import collectives
+from streambench_tpu_torch.parallel.controller import SingleController
 from streambench_tpu_torch.parallel.mesh import CAMPAIGN_AXIS, DATA_AXIS, Mesh
 from streambench_tpu_torch.utils.device import resolve_device
 
@@ -68,6 +67,10 @@ class Axes(NamedTuple):
     campaign: object    # group the counted rows are summed over
     c0: int             # first campaign row of this rank's shard
     shards: int         # campaign-axis size (the stats arm's [S])
+    # the whole mesh (the user-sharded session fold's group) and this
+    # rank's place in it: the linearized (data, campaign) shard index
+    world: object = None
+    index: int = 0
 
 
 def pad_campaigns(num_campaigns: int, mesh: Mesh) -> int:
@@ -110,7 +113,17 @@ def mesh_axes(mesh: Mesh, num_campaigns: int) -> Axes:
     nc = mesh.shape[CAMPAIGN_AXIS]
     cl = pad_campaigns(num_campaigns, mesh) // nc
     return Axes(mesh.data_group, mesh.campaign_group,
-                mesh.campaign_index * cl, nc)
+                mesh.campaign_index * cl, nc, mesh.world_group, mesh.rank)
+
+
+def check_mesh_device(mesh: Mesh, device) -> None:
+    """Raise unless ``device`` (default ``"cuda"``) is the mesh's: a CUDA
+    mesh runs NCCL, a CPU mesh gloo."""
+    dev = resolve_device(device)
+    if dev.type != mesh.device.type or dev.index not in (
+            None, mesh.device.index):
+        raise ValueError(f"the engine runs on {dev}, its mesh on "
+                         f"{mesh.device} ({mesh.backend})")
 
 
 def sharded_init_state(num_campaigns: int, window_slots: int,
@@ -329,7 +342,7 @@ def _host_allgather(values: np.ndarray, group) -> np.ndarray:
     return out.numpy()
 
 
-class ShardedWindowEngine(AdAnalyticsEngine):
+class ShardedWindowEngine(SingleController, AdAnalyticsEngine):
     """``AdAnalyticsEngine`` with its state and batches sharded over a
     mesh of ranks.
 
@@ -341,28 +354,20 @@ class ShardedWindowEngine(AdAnalyticsEngine):
 
     With more than one rank, rank 0 drives the engine as usual and every
     other rank calls ``follow()``, which runs the device calls rank 0
-    sends until rank 0 closes its engine.  Every rank builds the engine
-    from the same configuration and mapping.  Ranks do not each read the
-    stream in lockstep: the runner flushes and checkpoints on the wall
-    clock, so their drains (collectives) would diverge."""
-
-    # Whether rank 0 sends each device call to the other ranks (the
-    # single controller); the distributed engine's ranks each drive their
-    # own partition in lockstep instead.
-    COMMANDED = True
+    sends until rank 0 closes its engine (``parallel.controller``).
+    Every rank builds the engine from the same configuration and
+    mapping.  Ranks do not each read the stream in lockstep: the runner
+    flushes and checkpoints on the wall clock, so their drains
+    (collectives) would diverge."""
 
     def __init__(self, cfg: BenchmarkConfig, ad_to_campaign: dict[str, str],
                  mesh: Mesh, campaigns: list[str] | None = None,
                  redis: RedisLike | None = None, method: str | None = None,
                  device: torch.device | str | None = None):
-        dev = resolve_device(device)
-        if dev.type != mesh.device.type or dev.index not in (
-                None, mesh.device.index):
-            raise ValueError(f"the engine runs on {dev}, its mesh on "
-                             f"{mesh.device} ({mesh.backend})")
+        check_mesh_device(mesh, device)
         super().__init__(cfg, ad_to_campaign, campaigns=campaigns,
                          redis=redis, method=method, device=mesh.device)
-        self.mesh = mesh
+        self._init_controller(mesh)
         # A batch size the data axis doesn't divide is padded with invalid
         # rows at dispatch, never rejected.
         self._data_pad = data_axis_pad(self.batch_size, mesh)
@@ -373,67 +378,10 @@ class ShardedWindowEngine(AdAnalyticsEngine):
         self._fold_kw = dict(divisor_ms=self.divisor,
                              lateness_ms=self.lateness, view_type=0,
                              method=self.method)
-        self._leads = self.COMMANDED and mesh.size > 1 and mesh.rank == 0
-        self._follows = self.COMMANDED and mesh.size > 1 and mesh.rank != 0
-        # set while collective_report records a dispatch
-        self._recorder: collectives.Recorder | None = None
-        self._obs_reg = None
-
-    # ------------------------------------------------------------------
-    # the single controller (more than one rank)
-    def _command(self, name: str, *args, per_rank=None):
-        """Run device call ``name`` here, first sending it to the other
-        ranks when this rank leads them.  Every rank receives ``args``,
-        or, with ``per_rank``, rank ``r`` receives ``per_rank(r)`` (its
-        own data slice or shard)."""
-        if self._follows:
-            raise RuntimeError(f"rank {self.mesh.rank} follows rank 0: "
-                               "call follow(), not the engine's entry "
-                               "points")
-        if per_rank is not None:
-            args = per_rank(self.mesh.rank)
-        if self._leads:
-            dist.scatter_object_list(
-                [None], [(name, per_rank(r) if per_rank else args)
-                         for r in range(self.mesh.size)],
-                src=0, group=self.mesh.host_group)
-        return getattr(self, "_do_" + name)(*args)
-
-    def follow(self) -> None:
-        """Run the device calls rank 0 sends until it closes its engine
-        (ranks other than 0 of a commanded engine).  A call that does not
-        come within the mesh's timeout raises."""
-        if not self._follows:
-            raise RuntimeError("only ranks other than 0 of a multi-rank "
-                               "sharded engine follow")
-        while True:
-            box = [None]
-            dist.scatter_object_list(box, None, src=0,
-                                     group=self.mesh.host_group)
-            name, args = box[0]
-            if name == "stop":
-                return
-            getattr(self, "_do_" + name)(*args)
-
-    def _do_stop(self) -> None:
-        pass
 
     # ------------------------------------------------------------------
     # the fold
-    def _stats_on(self) -> bool:
-        """Shard-skew stats arm: only when attach_obs handed over a
-        ShardSkew tracker (jax.obs.shard); it issues no collective."""
-        return self._obs_shard is not None
-
-    def _note_shard(self, out: tuple) -> tuple:
-        """Peel and accumulate the trailing (wanted_s, routed_s) outputs
-        when the skew tracker is attached."""
-        if self._obs_shard is None:
-            return out
-        self._obs_shard.note(out[-2], out[-1])
-        return out[:-2]
-
-    def _fold_local_cols(self, local: list, packed: bool) -> None:
+    def _step_local(self, local: list, packed: bool) -> None:
         """One batch of this rank's local columns through ``fold_step``."""
         out = fold_step(self.state, self.join_table, local, self._axes,
                         packed=packed, stats=self._stats_on(),
@@ -446,65 +394,6 @@ class ShardedWindowEngine(AdAnalyticsEngine):
                         packed=packed, hoist=True, stats=self._stats_on(),
                         recorder=self._recorder, **self._fold_kw)
         self.state = WindowState(*self._note_shard(out))
-
-    def _local(self, cols) -> list:
-        """Global host or device columns -> this rank's padded data slices
-        on the device."""
-        return [data_slice(self.mesh, c) for c in pad_data_cols(
-            self._data_pad, *(self._to_device(c) if isinstance(c, np.ndarray)
-                              else c for c in cols))]
-
-    def _slices_by_rank(self, cols: list, packed: bool):
-        """``per_rank`` of a call that carries global host columns (or
-        ``[K, B]`` stacks): rank ``r`` receives its data index's padded
-        slice of each, and ``packed``."""
-        pad = [(0, 0)] * (cols[0].ndim - 1) + [(0, self._data_pad)]
-        cols = [np.pad(c, pad) if self._data_pad else c for c in cols]
-        b = cols[0].shape[-1] // self.mesh.shape[DATA_AXIS]
-        nc = self.mesh.shape[CAMPAIGN_AXIS]
-
-        def per_rank(r: int) -> tuple:
-            d = r // nc             # the grid is row-major
-            return ([np.ascontiguousarray(c[..., d * b:(d + 1) * b])
-                     for c in cols], packed)
-        return per_rank
-
-    def _device_step(self, batch) -> None:
-        if self._pack_ok:
-            cols = [wc.pack_columns(batch.ad_idx, batch.event_type,
-                                    batch.valid), batch.event_time]
-        else:
-            cols = [batch.ad_idx, batch.event_type, batch.event_time,
-                    batch.valid]
-        self._command("step", per_rank=self._slices_by_rank(cols,
-                                                            self._pack_ok))
-
-    def _do_step(self, local: list, packed: bool) -> None:
-        self._fold_local_cols([self._to_device(c) for c in local], packed)
-
-    def _fold_stack(self, batches: list) -> list[np.ndarray]:
-        if self._pack_ok:
-            stacks = [np.stack([wc.pack_columns(b.ad_idx, b.event_type,
-                                                b.valid) for b in batches]),
-                      np.stack([b.event_time for b in batches])]
-        else:
-            stacks = [np.stack([getattr(b, c) for b in batches])
-                      for c in self.SCAN_COLUMNS]
-        self._command("scan", per_rank=self._slices_by_rank(stacks,
-                                                            self._pack_ok))
-        return stacks
-
-    def _do_scan(self, local: list, packed: bool) -> None:
-        self._scan_local([self._to_device(s) for s in local], packed)
-
-    def _device_scan(self, ad_idx, event_type, event_time, valid) -> None:
-        """Fold ``[K, B]`` global stacks (this rank folds its slice)."""
-        self._scan_local(self._local((ad_idx, event_type, event_time,
-                                      valid)), False)
-
-    def _device_scan_packed(self, packed, event_time) -> None:
-        """``_device_scan`` over the packed wire word."""
-        self._scan_local(self._local((packed, event_time)), True)
 
     # ------------------------------------------------------------------
     # drains, snapshots, restore
@@ -549,11 +438,7 @@ class ShardedWindowEngine(AdAnalyticsEngine):
         on the ranks of data row 0 (the others drain without gathering)."""
         if self.mesh.data_index != 0:
             return None
-        n = self.mesh.shape[CAMPAIGN_AXIS]
-        out = block.new_empty((n,) + tuple(block.shape))
-        dist.all_gather(list(out.unbind(0)), block.contiguous(),
-                        group=self.mesh.campaign_group)
-        return out.reshape(-1, block.shape[1])
+        return self._gather_rows(block, self.mesh.campaign_group)
 
     def _do_drain(self, rows: np.ndarray | None) -> None:
         kw = dict(divisor_ms=self.divisor, lateness_ms=self.lateness)
@@ -619,69 +504,3 @@ class ShardedWindowEngine(AdAnalyticsEngine):
         self.state = wc.state_from_numpy(
             (shard, window_ids, watermark, dropped), self.device)
         return self.state
-
-    def close(self) -> None:
-        """The base engine's close on rank 0, then the other ranks'
-        ``follow`` returns.  A following rank holds no host state (no
-        pending rows, no writer): closing it does nothing."""
-        if self._follows:
-            return
-        try:
-            super().close()
-        finally:
-            if self._leads:
-                self._command("stop")
-
-    # ------------------------------------------------------------------
-    # collective-cost accounting (parallel.collectives)
-    def attach_obs(self, registry, lifecycle: bool = False,
-                   spans=None, occupancy=None, xfer=None,
-                   shard=None) -> None:
-        super().attach_obs(registry, lifecycle, spans=spans,
-                           occupancy=occupancy, xfer=xfer, shard=shard)
-        self._obs_reg = registry
-
-    def collective_report(self, k: int | None = None,
-                          timed: bool = False) -> dict:
-        """Per-dispatch collective ops and payload bytes of the folds this
-        engine dispatches (the packed step and hoisted packed scan when
-        ``_pack_ok``), counted over one real step and one real
-        ``k``-batch scan of all-invalid rows, which leave the state as it
-        was.  ``timed`` adds each one's device time (CUDA only).
-        Publishes ``streambench_collective_{ops,bytes}{kernel=}`` gauges
-        when obs is attached.  Every rank takes part."""
-        report = self._command("report", int(k or self.scan_batches), timed)
-        if self._obs_reg is not None:
-            collectives.publish_gauges(self._obs_reg, report)
-        return report
-
-    def _do_report(self, k: int, timed: bool) -> dict:
-        B = self.batch_size
-        zeros = lambda *s: np.zeros(s, np.int32)  # noqa: E731
-        if self._pack_ok:
-            step_cols, scan_cols = [zeros(B), zeros(B)], [zeros(k, B),
-                                                          zeros(k, B)]
-        else:
-            step_cols = [zeros(B), zeros(B), zeros(B), np.zeros(B, bool)]
-            scan_cols = [zeros(k, B), zeros(k, B), zeros(k, B),
-                         np.zeros((k, B), bool)]
-
-        def dispatch(fold, cols):
-            def run(rec):
-                self._recorder = rec
-                try:
-                    fold(self._local(cols), self._pack_ok)
-                finally:
-                    self._recorder = None
-            return run
-
-        return {
-            "batch_events": self.batch_size,
-            "scan_batches": k,
-            "packed": bool(self._pack_ok),
-            "step": collectives.report_for(
-                dispatch(self._fold_local_cols, step_cols), timed=timed),
-            "scan": collectives.report_for(
-                dispatch(self._scan_local, scan_cols), scan_len=k,
-                timed=timed),
-        }

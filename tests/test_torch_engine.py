@@ -238,9 +238,9 @@ def test_cli_catchup_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,conf_line,word", [
-    # --sharded runs the exact engine; the sharded sketch engines are
-    # not ported yet
-    (["--sharded", "--engine", "hll"], "", "--sharded --engine hll"),
+    # --sharded runs the exact, hll, sliding and session engines;
+    # sharded reach is not ported yet
+    (["--sharded", "--engine", "reach"], "", "--sharded --engine reach"),
     # hll, sliding and session are ported; reach is not yet
     (["--engine", "reach"], "", "--engine reach"),
     # --traceDir is ported; what stays refused of tracing is the fleet

@@ -24,7 +24,8 @@ OBS_MODULES = ("__main__", "capture", "devmem", "flightrec", "httpd",
                "lifecycle", "occupancy", "registry", "regress", "report",
                "sampler", "slo", "spans", "xfer")
 CHAOS_MODULES = ("inject", "plan", "supervisor", "verify")
-PARALLEL_MODULES = ("collectives", "distributed", "mesh", "sharded")
+PARALLEL_MODULES = ("collectives", "controller", "distributed", "mesh",
+                    "sharded", "sketches")
 
 CHILD = r"""
 import json, pkgutil, subprocess, sys
@@ -218,8 +219,8 @@ print(json.dumps({
 def test_parallel_package_imports_no_jax_and_starts_no_group():
     """The sharded engine's package: importing it loads nothing of JAX,
     starts no process group and no process, and touches no CUDA context;
-    it exports the exact-count engines only (the sharded sketch engines
-    and sharded reach are not ported)."""
+    it exports the exact-count and sketch engines (sharded reach is not
+    ported)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
     env["PYTHONPATH"] = REPO
@@ -230,6 +231,7 @@ def test_parallel_package_imports_no_jax_and_starts_no_group():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["jax"] == [] and got["cuda_initialized"] is False
     assert got["process_group"] is False
-    assert not any("HLL" in n or "Sliding" in n or "Session" in n
-                   or "Reach" in n for n in got["exports"])
-    assert "ShardedWindowEngine" in got["exports"]
+    assert not any("Reach" in n for n in got["exports"])
+    assert {"ShardedWindowEngine", "ShardedHLLEngine",
+            "ShardedSlidingTDigestEngine",
+            "ShardedSessionCMSEngine"} <= set(got["exports"])

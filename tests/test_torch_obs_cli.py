@@ -158,10 +158,10 @@ def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
 @pytest.mark.parametrize("extra,conf_line,word,env", [
     ([], "jax.obs.query: true", "jax.obs.query", {}),
     ([], "jax.obs.fleet: true", "jax.obs.fleet", {}),
-    # jax.obs.shard runs with --sharded on the exact engine in one
-    # process; the sharded sketch engines and more processes stay refused
-    (["--sharded", "--engine", "hll"], "jax.obs.shard: true",
-     "--sharded --engine hll", {}),
+    # jax.obs.shard runs with --sharded on the exact and sketch engines
+    # in one process; sharded reach and more processes stay refused
+    (["--sharded", "--engine", "reach"], "jax.obs.shard: true",
+     "--sharded --engine reach", {}),
     (["--sharded"], "jax.obs.shard: true", "--sharded over 4 processes",
      {"STREAMBENCH_NUM_PROCESSES": "4"}),
 ], ids=["query", "fleet", "shard", "shard_sharded"])
@@ -280,9 +280,9 @@ def test_harness_sharded_with_obs_shard_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("knob,extra", [
-    # OBS_SHARD runs with SHARDED=1 on the exact engine; the sharded
-    # sketch engines stay refused
-    ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "hll"}),
+    # OBS_SHARD runs with SHARDED=1 on the exact, hll, sliding and
+    # session engines; sharded reach stays refused
+    ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "reach"}),
     ("OBS_QUERY", {}), ("OBS_FLEET", {})],
     ids=["OBS_SHARD", "OBS_QUERY", "OBS_FLEET"])
 def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob, extra):

@@ -522,6 +522,57 @@ def test_harness_torch_test_with_engine_session_on_cpu(tmp_path):
     assert stats["events"] == emitted > 0 and stats["dropped"] == 0
 
 
+def test_sigterm_folds_what_the_topic_holds(tmp_path):
+    """The cause of the unsteady composite above, made deterministic: an
+    engine that has fallen behind its producer (held here with SIGSTOP
+    while 20,000 events land) and then gets the harness's SIGTERM folds
+    the whole backlog before its final stats line, instead of stopping
+    at the events it had read."""
+    import signal
+    import time
+
+    wd = str(tmp_path)
+    rng = random.Random(7)
+    campaigns = make_ids(10, rng)
+    ads = make_ids(100, rng)
+    gen.write_ids(campaigns, ads, wd)
+    gen.write_ad_mapping_file(campaigns, ads, wd)
+    src = gen.EventSource(ads=ads, user_ids=make_ids(300, rng),
+                          page_ids=make_ids(10, rng), rng=rng)
+    lines = [(src.event_at(1_700_000_000_000 + 2 * i) + "\n").encode()
+             for i in range(22_000)]
+    broker = FileBroker(os.path.join(wd, "broker"))
+    with broker.writer(TOPIC, append=False) as w:
+        w.append_bytes(b"".join(lines[:2_000]))
+    conf = os.path.join(wd, "conf.yaml")
+    with open(conf, "w") as f:
+        f.write(f'redis.host: ":inprocess:"\nkafka.topic: "{TOPIC}"\n')
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "streambench_tpu_torch.engine", "--confPath",
+         conf, "--workdir", wd, "--engine", "session", "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    try:
+        deadline = time.monotonic() + 120
+        for line in proc.stdout:
+            if line.startswith("engine up:"):
+                break
+            assert time.monotonic() < deadline
+        time.sleep(1.0)                    # the first 2,000 fold
+        proc.send_signal(signal.SIGSTOP)   # the engine falls behind
+        with broker.writer(TOPIC, append=True) as w:
+            w.append_bytes(b"".join(lines[2_000:]))
+        proc.send_signal(signal.SIGTERM)   # handled first thing on resume
+        proc.send_signal(signal.SIGCONT)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    stats = json.loads(out.strip().splitlines()[-1])
+    assert stats["events"] == 22_000 and stats["dropped"] == 0
+
+
 def test_harness_refuses_verify_with_engine_session(tmp_path):
     env = {"WORKDIR": str(tmp_path / "run"), "ENGINE": "session",
            "VERIFY": "1", "DEVICE": "cpu"}
