@@ -249,9 +249,14 @@ result line) when any phase fails:
    journal, with phase 6's configuration, twice: plain, and with the
    per-shard skew tracker attached (``jax.obs.shard``).  Each run must
    fold all 1,000,000 events, drop none, take ``rows_compact`` drains
-   and launch K1; the plain run must leave every window equal to phase
-   6's oracle-checked store, and the tracker's routed rows must be the
-   views phase 6 counted.  Its ev/s
+   and launch K1; each run's whole store must hold phase 6's windows:
+   the same number, the same total of counts (the views phase 6 counted)
+   and the same digest of (campaign, window, count) (``window_digest``,
+   one native call a store, where the read of each store, 19 s, went to
+   pay for phase 19); a seeded sample of 10,000 of phase 6's
+   oracle-checked windows (drawn from those of a seeded tenth of the
+   campaigns) read back from the plain run's store must be equal, and
+   the tracker's routed rows must be the views phase 6 counted.  Its ev/s
    (and with ``close()``) beside phase 6's, and the collectives one
    dispatch issues, by kind and bytes, from the engine's own counter
    (``collective_report``), each bracketed by CUDA events, and the NCCL
@@ -265,7 +270,10 @@ result line) when any phase fails:
    registers left after ``close()`` window by window, the watermark and
    ``dropped`` equal to 15 (a)'s, no K1 launch, the tracker's routed rows
    the views; (b) ``ShardedSlidingTDigestEngine``, sliced (K1 on the
-   shard's ``[Cl*S, W]`` view), under 15 (b)'s clock: rows, ring,
+   shard's ``[Cl*S, W]`` view), under 15 (b)'s clock: the store's window
+   digest (count, total, digest) equal to 15 (b)'s store's and a seeded
+   sample of 10,000 of 15 (b)'s rows read back (the whole store's read,
+   11.9 s, went to pay for phase 19), the ring,
    watermark, ``dropped`` and the digest's weight per campaign equal, the
    quantiles within 2^-5 of 15 (b)'s, K1 launched; (c)
    ``ShardedSessionCMSEngine`` with the fixed sketch, as 16 (a) runs: its
@@ -278,7 +286,44 @@ result line) when any phase fails:
    kind and bytes, each bracketed by CUDA events, and the NCCL kernels'
    device time under ``torch.profiler``.
 
-Each kernel's launches are counted over each of phases 4, 6-18, from 0
+19. Reach serving (M13a): the MinHash ∪ HLL reach engine at the
+   reference reach benchmark's "large" rung (``bench_reach.py:2262-2285``):
+   100 campaigns x 10 ads, 130,000 devices, 600,000 generator events 10
+   ms apart, k = 256 signature slots, R = 1,024 registers, B = 8,192.
+   (a) ``ReachSketchEngine(device="cuda")`` under
+   ``StreamRunner.run_catchup`` on the packed scan: both planes
+   bit-identical to ``reach.oracle.expected_state`` over the journal's
+   exact device sets, no K1, K2 or K3 launch; an engine abandoned half way
+   after a snapshot a flush and a fresh one resumed from it, with the
+   same planes and epoch 1; the first four dispatches again under
+   ``torch.profiler`` (X6: device operations and device ms a dispatch).
+   (b) 512 queries through ``reach.query.query_chunks``: 2 dispatches,
+   ``agree`` equal to ``oracle.query_oracle_np``, the mean errors against
+   exact set arithmetic inside 2 x 1.04/sqrt(R) (union) and 1/sqrt(k) +
+   1.04/sqrt(R) (overlap, relative to the union); ``batch_query`` at Q =
+   256 timed between CUDA events and per eager call, its device
+   operations and fullest memory (X7).  (c) A storm of 1,200 queries from
+   6 pub/sub clients against a held ``ReachQueryServer`` (batch 256,
+   depth 2,048): all served in at most 5 dispatches, none shed, p50/p99;
+   a shed rung of 300 at depth 64 and batch 64: some shed, shed + served
+   = sent.  (d) 400 queries served while a second thread folds a second
+   journal (100,000 events over 20,000 new devices) into the same engine,
+   pushing between chunks: every query answered or shed, none lost or in
+   error, each served ``agree`` that of a state pushed while the query
+   was in flight (each push's planes recorded), 64 queries after the
+   last push equal to the oracle's over both journals; after ``close()``
+   the planes equal that oracle's.  (e) ``python -m
+   streambench_tpu_torch.engine --engine reach --device cuda --catchup``
+   on (a)'s journal and a tail of 196,608 events over 5 campaigns
+   appended to it, flushing and shipping at every chunk to a delta ship
+   log, and a RESP store process, and a ``python -m
+   streambench_tpu_torch.reach.replica --device cuda`` process tailing the
+   log: the tail's own chunks shipped as deltas and the replica folded
+   them; 64 queries through the replica's pub/sub with ``agree`` equal to
+   the oracle's over both (R = 256, the CLI engine's), the ``_reach`` hash
+   the rounded estimates, both processes exiting 0.
+
+Each kernel's launches are counted over each of phases 4, 6-19, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -288,6 +333,7 @@ is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --only-sketches  # phases 1-3 and 15 alone
     python3 chip_smoke.py --only-session   # phases 1-3 and 16 alone
     python3 chip_smoke.py --only-sharded-sketches  # 1-3, 15, 16 and 18
+    python3 chip_smoke.py --only-reach     # phases 1-3 and 19 alone
 """
 
 from __future__ import annotations
@@ -447,6 +493,7 @@ CASES = (
 )
 # the phase 15 dataset: the stock topology (conf/benchmarkConf.yaml),
 # 1,000,000 events 10 ms apart, its own seed (run (d) crashes half way)
+STORE_SAMPLE = 10_000             # windows phases 17 and 18 (b) read back
 SKETCH_EVENTS = 1_000_000
 SKETCH_SEED = 61
 SLIDE_CLASSES = 10                 # S = 10 s / 1 s
@@ -1325,11 +1372,14 @@ def phase_end_to_end(events: int) -> tuple[dict, tuple, list]:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def _store_windows(r) -> dict:
-    """``(campaign, window_ts) -> seen_count`` of every window in a store:
-    one HGETALL per campaign, one HGET per window."""
+def _store_windows(r, campaigns=None) -> dict:
+    """``(campaign, window_ts) -> seen_count`` of every window in a store
+    (or of ``campaigns``' windows): one HGETALL per campaign, one HGET per
+    window."""
     out = {}
-    for campaign in r.execute("SMEMBERS", "campaigns"):
+    if campaigns is None:
+        campaigns = r.execute("SMEMBERS", "campaigns")
+    for campaign in campaigns:
         fields = r.execute("HGETALL", campaign) or []
         for ts, key in zip(fields[::2], fields[1::2]):
             if ts != "windows":
@@ -1829,8 +1879,8 @@ class Config5Data:
 
 def phase_large_key_space(data: Config5Data) -> tuple[dict, dict]:
     """BASELINE config #5's key space on one card (see the module doc).
-    Returns the result and the store's windows, which phase 17 holds its
-    rows against."""
+    Returns the result and the windows of a seeded sample of campaigns,
+    which phase 17 holds its rows against."""
     import torch
 
     from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
@@ -1913,10 +1963,40 @@ def phase_large_key_space(data: Config5Data) -> tuple[dict, dict]:
     if launches <= 0:
         raise AssertionError("the count kernel never launched on the "
                              "config #5 path")
-    t0 = time.perf_counter()
-    windows = _store_windows(r)
-    result["store_read_s"] = time.perf_counter() - t0
+    record, windows = _config5_record(data, r)
+    result.update(record)
     return result, windows
+
+
+def _store_digest(r) -> dict:
+    """The store's whole-store window digest (``window_digest``: windows,
+    total of counts, digest), one native call."""
+    return getattr(r, "_store", r).window_digest()
+
+
+def _config5_record(data: Config5Data, r) -> tuple[dict, dict]:
+    """What phase 17 holds its stores to, from phase 6's oracle-checked
+    store: its window digest, whose total must be the journal's views
+    (every view joins and none is dropped), and the windows of a seeded
+    tenth of the campaigns, ~33,000 windows (the whole store's read went
+    to pay for phase 19)."""
+    from streambench_tpu_torch.datagen import gen
+
+    t0 = time.perf_counter()
+    out = {"store_digest": _store_digest(r)}
+    out["store_digest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    windows = _store_windows(r, random.Random(19).sample(
+        list(data.campaigns), len(data.campaigns) // 10))
+    out["store_read_s"] = time.perf_counter() - t0
+    out["store_read_windows"] = len(windows)
+    with open(os.path.join(data.workdir, gen.KAFKA_JSON_FILE), "rb") as f:
+        out["views"] = f.read().count(b'"event_type": "view"')
+    if out["store_digest"]["seen"] != out["views"]:
+        raise AssertionError(f"[config5] the store counts "
+                             f"{out['store_digest']} against "
+                             f"{out['views']} views in the journal")
+    return out, windows
 
 
 def _plain_sink_catchup(workdir: str, broker, mapping, campaigns) -> dict:
@@ -2723,6 +2803,24 @@ def _sketch_resume(tag: str, kind: str, data: Config5Data,
     return result, r
 
 
+def _sampled_windows_equal(tag: str, r, want: dict, what: str,
+                           n: int = STORE_SAMPLE, seed: int = 19) -> int:
+    """Hold a seeded sample of ``n`` of ``want``'s windows against the
+    store, reading each back (two commands a window) instead of the
+    whole store.  Returns the windows compared."""
+    sample = random.Random(seed).sample(list(want), min(n, len(want)))
+    bad = []
+    for campaign, ts in sample:
+        key = r.execute("HGET", campaign, str(ts))
+        got = None if key is None else r.execute("HGET", key, "seen_count")
+        if got is None or int(got) != want[(campaign, ts)]:
+            bad.append((campaign, ts, got, want[(campaign, ts)]))
+    if bad:
+        raise AssertionError(f"[{tag}] {len(bad)} of {len(sample)} sampled "
+                             f"windows differ from {what}: {bad[:3]}")
+    return len(sample)
+
+
 def _windows_equal(tag: str, got: dict, want: dict, what: str) -> None:
     if got != want:
         diff = [k for k in set(got) | set(want) if got.get(k) != want.get(k)]
@@ -2999,6 +3097,7 @@ def phase_sketches(events: int = SKETCH_EVENTS,
                 f"{views[0].size} views; {len(table)} quantile fields")
         out["sliced"] = sl_res
         sliced_windows = got
+        sliced_digest = _store_digest(r)
         sliced_end = {"ids": sl_eng.state.window_ids.cpu().numpy(),
                       "watermark": int(sl_eng.state.watermark),
                       "dropped": int(sl_eng.state.dropped),
@@ -3040,6 +3139,7 @@ def phase_sketches(events: int = SKETCH_EVENTS,
                            for k in ("hll", "sliced")},
                     "views": int(views[0].size), "hll_rows": hll_windows,
                     "hll_end": hll_end, "sliced_rows": sliced_windows,
+                    "sliced_digest": sliced_digest,
                     "sliced_end": sliced_end, "sliced_q": q,
                     "sliced_w": weights}
     finally:
@@ -3961,24 +4061,20 @@ def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
                 "count_cells_launches": launches,
                 "stages": engine.tracer.as_dict(),
             }
-            diff: set = set()
+            # the whole store against phase 6's: windows, total, digest
+            res["store_digest"] = _store_digest(r)
             if skew is not None:
                 # the stats arm's run is held by its routed rows below;
                 # reading a 1e6-campaign store again costs ~15 s
                 res["shard_skew"] = skew.summary()
             else:
+                # a seeded sample of phase 6's oracle-checked windows, read
+                # back (the whole store's read, 19 s, paid for phase 19)
                 t0 = time.perf_counter()
-                got = _store_windows(r)
+                res["windows_equal_phase6_sampled"] = _sampled_windows_equal(
+                    f"sharded_{run}", r, want, "phase 6's")
                 res["store_read_s"] = time.perf_counter() - t0
-                diff = {k for k in got.keys() | want.keys()
-                        if got.get(k) != want.get(k)}
-                res["windows_equal_phase6"] = len(want) - len(
-                    diff & want.keys())
             print(f"[sharded_{run}] {json.dumps(res)}", flush=True)
-            if diff:
-                raise AssertionError(
-                    f"sharded {run}: {len(diff)} of {len(want)} windows "
-                    f"differ from phase 6's, e.g. {sorted(diff)[:3]}")
             if stats.events != data.events or engine.dropped:
                 raise AssertionError(f"sharded {run}: folded "
                                      f"{stats.events} of {data.events}, "
@@ -3989,8 +4085,13 @@ def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
             if on_card and launches <= 0:
                 raise AssertionError(f"sharded {run}: the count kernel "
                                      "never launched")
+            if res["store_digest"] != unsharded["store_digest"]:
+                raise AssertionError(
+                    f"sharded {run}: the store's windows "
+                    f"{res['store_digest']} are not phase 6's "
+                    f"{unsharded['store_digest']}")
             if skew is not None and res["shard_skew"]["rows"] != [
-                    sum(want.values())]:
+                    unsharded["views"]]:
                 raise AssertionError(f"sharded {run}: the shard's routed "
                                      f"rows {res['shard_skew']} are not "
                                      "the views counted")
@@ -4131,8 +4232,16 @@ def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda"
             res, r, eng = _sketch_catchup("sharded_sliced", "sliding", data,
                                           device, mesh=mesh)
         t1 = time.perf_counter()
-        _windows_equal("sharded_sliced", _store_windows(r),
-                       sk["sliced_rows"], "phase 15 (b)'s")
+        # the whole store's digest and a seeded sample of 15 (b)'s
+        # windows (the whole store's read, 11.9 s, paid for phase 19)
+        res["store_digest"] = _store_digest(r)
+        if res["store_digest"] != sk["sliced_digest"]:
+            raise AssertionError(
+                f"[sketch_sharded_sliced] the store's windows "
+                f"{res['store_digest']} are not 15 (b)'s "
+                f"{sk['sliced_digest']}")
+        res["windows_equal_phase15_sampled"] = _sampled_windows_equal(
+            "sharded_sliced", r, sk["sliced_rows"], "phase 15 (b)'s")
         st, want = eng.state, sk["sliced_end"]
         if (not np.array_equal(st.window_ids.cpu().numpy(), want["ids"])
                 or (int(st.watermark), int(st.dropped),
@@ -4148,7 +4257,6 @@ def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda"
             raise AssertionError(f"[sharded_sliced] sliced={eng.sliced}, "
                                  f"K1 launches "
                                  f"{res['count_cells_launches']}")
-        res["windows_equal_phase15"] = len(sk["sliced_rows"])
         res["check_s"] = time.perf_counter() - t1
         res.update(_sharded_collectives(eng, on_card))
         out["sliced"] = res
@@ -4218,6 +4326,869 @@ def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda"
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 19: reach serving (M13a) on the card
+
+# the reference reach benchmark's "large" rung (bench_reach.py:2262-2285)
+REACH_CAMPAIGNS = 100              # x 10 ads each
+REACH_USERS = 130_000
+REACH_EVENTS = 600_000
+REACH_SPACING_MS = 10
+REACH_K = 256
+REACH_R = 1024
+REACH_BATCH = 8192
+REACH_QUERIES = 512
+REACH_SEED = 23
+REACH_STORM = {"queries_n": 1200, "clients": 6, "depth": 2048,
+               "batch": 256, "expect_shed": False}
+REACH_SHED = {"queries_n": 300, "clients": 2, "depth": 64, "batch": 64,
+              "expect_shed": True}
+REACH_PROFILE_EVENTS = 4 * 8 * REACH_BATCH   # four packed-scan dispatches
+REACH_TIMED_CALLS = 50
+REACH_PROFILED_CALLS = 10
+REACH_LIVE_EVENTS = 100_000       # (d): the second journal
+REACH_LIVE_USERS = 20_000         # ... over devices (a) never saw
+REACH_LIVE_QUERIES = 400
+REACH_CLI_QUERIES = 64
+REACH_CLI_R = 256                 # the CLI's engine: registers=256
+# (e): a tail appended to the topic over the ads of a few campaigns, three
+# catchup chunks long, so that with a flush and a ship at every chunk
+# the chunks that hold only the tail ship as deltas
+REACH_TAIL_EVENTS = 3 * 8 * REACH_BATCH
+REACH_TAIL_USERS = 20_000
+REACH_TAIL_CAMPAIGNS = 5
+REACH_FINAL_QUERIES = 64          # (d): asked after the last push
+
+
+class ReachData:
+    """Phase 19's journal in the reference reach benchmark's shape
+    (``bench_reach.py:make_world``): C campaigns x 10 ads, a universe of
+    ``users`` devices, ``events`` generator events 10 ms apart, written
+    to a broker topic, with the id and map files the engine CLI reads.
+    ``extra(n, users, seed)`` writes a second journal over the same ads
+    and new devices, ``tail(...)`` appends one over a few campaigns' ads
+    to the main topic."""
+
+    def __init__(self, events: int, campaigns: int, users: int, seed: int,
+                 name: str = "smoke_reach"):
+        from streambench_tpu_torch.datagen import gen
+        from streambench_tpu_torch.io.journal import FileBroker
+        from streambench_tpu_torch.utils.ids import make_ids
+
+        self.workdir = _workdir(name)
+        self.events = events
+        t0 = time.perf_counter()
+        rng = random.Random(seed)
+        self.campaigns = make_ids(campaigns, rng)
+        self.ads = make_ids(campaigns * 10, rng)
+        self.mapping = {a: self.campaigns[i // 10]
+                        for i, a in enumerate(self.ads)}
+        gen.write_ids(self.campaigns, self.ads, self.workdir)
+        gen.write_ad_mapping_file(self.campaigns, self.ads, self.workdir)
+        self.broker = FileBroker(os.path.join(self.workdir, "broker"))
+        self.journal = self._write(self.config().kafka_topic, events,
+                                   users, rng)
+        self.gen_s = time.perf_counter() - t0
+
+    def _write(self, topic: str, events: int, users: int, rng,
+               start: int = 1_700_000_000_000, ads: list | None = None,
+               name: str | None = None, append: bool = False) -> str:
+        import numpy as np
+
+        from streambench_tpu_torch.datagen import gen
+        from streambench_tpu_torch.utils.ids import make_ids
+
+        src = gen.EventSource(ads=ads or self.ads,
+                              user_ids=make_ids(users, rng),
+                              page_ids=make_ids(100, rng), rng=rng)
+        path = os.path.join(self.workdir, f"{name or topic}.journal.txt")
+        with open(path, "wb") as f, self.broker.writer(
+                topic, append=append) as w:
+            for base in range(0, events, 100_000):
+                ts = start + REACH_SPACING_MS * np.arange(
+                    base, min(base + 100_000, events), dtype=np.int64)
+                blob = src.events_blob_at(ts)
+                if blob is None:
+                    blob = b"".join(src.event_at(int(t)).encode() + b"\n"
+                                    for t in ts)
+                f.write(blob)
+                w.append_bytes(blob)
+        return path
+
+    def extra(self, topic: str, events: int, users: int, seed: int) -> str:
+        return self._write(topic, events, users, random.Random(seed))
+
+    def tail(self, events: int, users: int, seed: int,
+             campaigns: int) -> str:
+        """Append ``events`` events (new devices, later times) over the
+        ads of the first ``campaigns`` campaigns to the main topic;
+        returns the tail's own journal file."""
+        return self._write(
+            self.config().kafka_topic, events, users, random.Random(seed),
+            start=1_700_000_000_000 + REACH_SPACING_MS * self.events,
+            ads=self.ads[:10 * campaigns], name="tail", append=True)
+
+    def sets(self, *paths) -> dict:
+        """Exact device sets per campaign over the journals (the oracle's
+        ``campaign_user_sets``, one pass each)."""
+        from streambench_tpu_torch.reach import oracle as ro
+
+        out = {c: set() for c in self.campaigns}
+        for path in paths:
+            with open(path, "rb") as f:
+                for c, s in ro.campaign_user_sets(
+                        f, self.mapping, self.campaigns).items():
+                    out[c] |= s
+        return out
+
+    def config(self, keys: dict | None = None):
+        return _config(self.workdir, {"jax.batch.size": REACH_BATCH,
+                                      **(keys or {})})
+
+    def remove(self) -> None:
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def _reach_engine(data: ReachData, cfg, r, device: str, k: int = REACH_K,
+                  registers: int = REACH_R):
+    from streambench_tpu_torch.engine.sketches import ReachSketchEngine
+
+    return ReachSketchEngine(cfg, data.mapping, campaigns=data.campaigns,
+                             redis=r, k=k, registers=registers,
+                             device=device)
+
+
+def _reset_launches() -> None:
+    from streambench_tpu_torch.ops import cmsrows
+    from streambench_tpu_torch.ops.count import count_cells
+    from streambench_tpu_torch.ops.decode import decode_rows
+
+    count_cells.launches = 0
+    decode_rows.launches = 0
+    cmsrows.reset_launches()
+
+
+def _launches() -> dict:
+    from streambench_tpu_torch.ops import cmsrows
+    from streambench_tpu_torch.ops.count import count_cells
+    from streambench_tpu_torch.ops.decode import decode_rows
+
+    return {"count_cells": count_cells.launches,
+            "decode_rows": decode_rows.launches,
+            "cms_rows": cmsrows.kernel_launches()}
+
+
+def _planes_equal(tag: str, engine, mins, regs) -> None:
+    import numpy as np
+
+    p = engine.planes()
+    if not (np.array_equal(p["mins"], mins)
+            and np.array_equal(p["registers"], regs)):
+        bad = int((p["mins"] != mins).any(1).sum()
+                  + (p["registers"] != regs).any(1).sum())
+        raise AssertionError(f"[reach_{tag}] planes differ from the "
+                             f"oracle's in {bad} campaign rows")
+
+
+def _reach_profile(data: ReachData, device: str) -> dict:
+    """X6's numbers: the device operations and device ms one packed-scan
+    dispatch of the reach fold launches, under ``torch.profiler`` over
+    the first REACH_PROFILE_EVENTS events (no flush inside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from streambench_tpu_torch.engine import StreamRunner
+
+    cfg = data.config()
+    engine = _reach_engine(data, cfg, None, device)
+    engine.warmup()
+    reader = data.broker.reader(cfg.kafka_topic)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        stats = StreamRunner(engine, reader, flush_interval_ms=10**9
+                             ).run_catchup(max_events=REACH_PROFILE_EVENTS)
+        _sync(device)
+    reader.close()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda x: -x[2])
+    scans = engine.tracer.as_dict().get("device_scan", {}).get("calls", 0)
+    batches = -(-stats.events // engine.batch_size)
+    ops = sum(c for _, c, _ in rows)
+    out = {"events": stats.events, "batches": batches, "dispatches": scans,
+           "device_ops": ops,
+           "device_ops_per_dispatch": ops / max(scans, 1),
+           "device_ops_per_batch": ops / max(batches, 1),
+           "device_ms_per_dispatch": (sum(t for _, _, t in rows) / 1e3
+                                      / max(scans, 1)) if rows
+           else "not measured",
+           "top_device_ops": [{"name": k[:80], "count": c,
+                               "device_ms": t / 1e3}
+                              for k, c, t in rows[:8]]}
+    print(f"[reach_profile] {json.dumps(out)}", flush=True)
+    return out
+
+
+def _reach_catchup(data: ReachData, device: str) -> tuple:
+    """19 (a): the timed catchup on a fresh engine after a warm one ran
+    every device path.  Returns (result, engine, store)."""
+    from streambench_tpu_torch.engine import StreamRunner
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis
+
+    cfg = data.config()
+    warm = _reach_engine(data, cfg, None, device)
+    warm.warmup()
+    warm.close()
+    del warm
+    r = as_redis(make_store())
+    engine = _reach_engine(data, cfg, r, device)
+    reader = data.broker.reader(cfg.kafka_topic)
+    _sync(device)
+    _reset_peak(device)
+    _reset_launches()                     # this path starts here
+    t0 = time.perf_counter()
+    stats = StreamRunner(engine, reader).run_catchup()
+    run_s = time.perf_counter() - t0
+    engine.close()
+    _sync(device)
+    total_s = time.perf_counter() - t0
+    launches = _launches()                # this path ends here
+    reader.close()
+    stages = engine.tracer.as_dict()
+    fold_ms = sum(stages.get(k, {}).get("total_ms", 0.0)
+                  for k in ("device_step", "device_scan"))
+    res = {"events": stats.events, "flushes": stats.flushes,
+           "windows_written": stats.windows_written,
+           "dropped": engine.dropped, "run_catchup_s": run_s,
+           "catchup_with_close_s": total_s,
+           "events_per_s": stats.events / run_s,
+           "events_per_s_with_close": stats.events / total_s,
+           "kernel_launches": launches, "stages": stages,
+           "fold_host_ms_per_batch": fold_ms / max(
+               -(-stats.events // engine.batch_size), 1),
+           "peak_allocated_bytes": _peak(device),
+           "reach_rows": len(r.hgetall(f"{cfg.redis_hashtable}_reach"))}
+    print(f"[reach_catchup] {json.dumps(res)}", flush=True)
+    if stats.events != data.events or engine.dropped:
+        raise AssertionError(f"[reach_catchup] folded {stats.events} of "
+                             f"{data.events}, dropped {engine.dropped}")
+    if any(launches.values()):
+        raise AssertionError(f"[reach_catchup] a kernel launched on the "
+                             f"reach path: {launches}")
+    return res, engine, r
+
+
+def _reach_resume(data: ReachData, device: str, mins, regs) -> dict:
+    """19 (a): an engine that snapshots after every flush is abandoned
+    half way; a fresh one resumes, finishes with the oracle's planes, and
+    serves a bumped epoch."""
+    from streambench_tpu_torch.checkpoint import Checkpointer
+    from streambench_tpu_torch.engine import StreamRunner
+
+    cfg = data.config()
+    ckdir = os.path.join(data.workdir, "ckpt")
+    t0 = time.perf_counter()
+    a = _reach_engine(data, cfg, None, device)
+    reader = data.broker.reader(cfg.kafka_topic)
+    StreamRunner(a, reader, checkpointer=Checkpointer(ckdir),
+                 checkpoint_interval_ms=0).run_catchup(
+                     max_events=data.events // 2)
+    crashed_at = a.events_processed
+    reader.close()
+    del a                                 # the crash: no close()
+    gc.collect()
+    b = _reach_engine(data, cfg, None, device)
+    reader = data.broker.reader(cfg.kafka_topic)
+    runner = StreamRunner(b, reader, checkpointer=Checkpointer(ckdir),
+                          checkpoint_interval_ms=0)
+    if not runner.resume():
+        raise AssertionError("[reach_resume] no snapshot to resume from")
+    resumed_at = b.events_processed
+    runner.run_catchup()
+    b.close()
+    reader.close()
+    res = {"crashed_at_events": crashed_at, "resumed_at_events": resumed_at,
+           "events": b.events_processed, "epoch": b.reach_epoch,
+           "run_s": time.perf_counter() - t0}
+    print(f"[reach_resume] {json.dumps(res)}", flush=True)
+    if (resumed_at != crashed_at or b.events_processed != data.events
+            or b.reach_epoch != 1):
+        raise AssertionError(f"[reach_resume] {res}")
+    _planes_equal("resume", b, mins, regs)
+    return res
+
+
+def _make_queries(n: int, C: int, seed: int):
+    """``bench_reach.py:make_queries``: 1-5 campaigns a query, union or
+    overlap at random."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((n, C), bool)
+    overlap = np.zeros(n, bool)
+    for i in range(n):
+        m = int(rng.integers(1, 6))
+        masks[i, rng.choice(C, size=min(m, C), replace=False)] = True
+        overlap[i] = bool(rng.integers(0, 2))
+    return masks, overlap
+
+
+def _reach_queries(engine, sets: dict, names: list, device: str) -> dict:
+    """19 (b): the 512 queries through ``query_chunks`` (2 dispatches,
+    ``agree`` exact, errors inside the bounds), then ``batch_query``
+    timed (X7): device ms between CUDA events, eager call ms (the mask
+    from numpy in, the results to the host out), device operations, the
+    fullest device memory."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from streambench_tpu_torch.reach import oracle as ro
+    from streambench_tpu_torch.reach import query as rq
+
+    k, R = engine.k, engine.registers
+    masks, overlap = _make_queries(REACH_QUERIES, len(names),
+                                   REACH_SEED + 1)
+    mins, regs = engine.state.mins, engine.state.registers
+    counter = rq.DispatchCounter()
+    t0 = time.perf_counter()
+    est, union, jacc, agree = rq.query_chunks(mins, regs, masks, overlap,
+                                              counter=counter)
+    chunks_ms = (time.perf_counter() - t0) * 1e3
+    p = engine.planes()
+    want = ro.query_oracle_np(p["mins"], p["registers"], masks)
+    u_err, o_err = [], []
+    for i in range(masks.shape[0]):
+        sel = [names[j] for j in np.flatnonzero(masks[i])]
+        op = "overlap" if overlap[i] else "union"
+        truth, true_union = ro.exact_counts(sets, sel, op)
+        if overlap[i]:
+            o_err.append(abs(float(est[i]) - truth) / max(true_union, 1))
+        else:
+            u_err.append(abs(float(est[i]) - truth) / max(truth, 1))
+    ub = 2 * rq.union_bound(R)
+    ob = rq.overlap_bound(k, R)
+    out = {"queries": REACH_QUERIES, "dispatches": counter.dispatches,
+           "query_chunks_ms": chunks_ms,
+           "agree_equal_oracle": bool(np.array_equal(agree, want)),
+           "union_rel_err": {"mean": float(np.mean(u_err)),
+                             "max": float(np.max(u_err)), "n": len(u_err),
+                             "bound": ub},
+           "overlap_rel_err_vs_union": {"mean": float(np.mean(o_err)),
+                                        "max": float(np.max(o_err)),
+                                        "n": len(o_err), "bound": ob}}
+    # X7: one padded batch at DEFAULT_BATCH, on the device and per call
+    qb = rq.DEFAULT_BATCH
+    m_np, o_np = masks[:qb], overlap[:qb]
+    m_dev = torch.from_numpy(m_np).to(mins.device)
+    o_dev = torch.from_numpy(o_np).to(mins.device)
+    for _ in range(3):
+        rq.batch_query(mins, regs, m_dev, o_dev)
+    _sync(device)
+    if device == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(REACH_TIMED_CALLS):
+            rq.batch_query(mins, regs, m_dev, o_dev)
+        end.record()
+        end.synchronize()
+        out["batch_query_device_ms"] = (start.elapsed_time(end)
+                                        / REACH_TIMED_CALLS)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rq.batch_query(mins, regs, m_dev, o_dev)
+        _sync(device)
+        out["batch_query_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                         - base)
+    else:
+        out["batch_query_device_ms"] = "not measured"
+        out["batch_query_peak_bytes"] = "not measured"
+    t0 = time.perf_counter()
+    for _ in range(REACH_TIMED_CALLS):
+        res = rq.batch_query(mins, regs, m_np, o_np)
+        [x.cpu() for x in res]
+    out["batch_query_call_ms"] = ((time.perf_counter() - t0) * 1e3
+                                  / REACH_TIMED_CALLS)
+    # device operations a call, over REACH_PROFILED_CALLS calls (a window
+    # of one call has come back without its device events)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for _ in range(REACH_PROFILED_CALLS):
+            rq.batch_query(mins, regs, m_dev, o_dev)
+        _sync(device)
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    out["batch_query_device_ops"] = (ops / REACH_PROFILED_CALLS if ops
+                                     else "not measured")
+    # the least the card could take: each plane and the mask read once,
+    # the four [Q] outputs written once, at HBM's rate
+    nbytes = (mins.numel() * mins.element_size()
+              + regs.numel() * regs.element_size() + m_np.size
+              + o_np.size + 4 * 4 * qb)
+    out["batch_query_bytes"] = nbytes
+    out["batch_query_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    out["shape"] = {"Q": qb, "C": int(mins.shape[0]), "k": k, "R": R}
+    print(f"[reach_queries] {json.dumps(out)}", flush=True)
+    if counter.dispatches != math.ceil(REACH_QUERIES / rq.DEFAULT_BATCH):
+        raise AssertionError(f"[reach_queries] {counter.dispatches} "
+                             "dispatches")
+    if not out["agree_equal_oracle"]:
+        raise AssertionError("[reach_queries] agree differs from the "
+                             "oracle's")
+    if not (out["union_rel_err"]["mean"] <= ub
+            and out["overlap_rel_err_vs_union"]["mean"] <= ob):
+        raise AssertionError(f"[reach_queries] errors past the bounds: "
+                             f"{out['union_rel_err']}, "
+                             f"{out['overlap_rel_err_vs_union']}")
+    return out
+
+
+def _reach_storm(engine, names: list, *, queries_n: int, clients: int,
+                 depth: int, batch: int, expect_shed: bool,
+                 phase: str) -> dict:
+    """19 (c): ``bench_reach.py:run_storm`` on the port: clients send
+    over ``PubSubServer`` to a held ``ReachQueryServer`` attached to the
+    engine, the queue fills (or sheds), then drains."""
+    import math
+
+    import numpy as np
+
+    from streambench_tpu_torch.dimensions.pubsub import (
+        PubSubClient,
+        PubSubServer,
+    )
+    from streambench_tpu_torch.reach.serve import ReachQueryServer
+
+    srv = ReachQueryServer(names, depth=depth, batch=batch, hold=True)
+    engine.attach_reach(srv)
+    ps = PubSubServer(port=0).start()
+    ps.register_query("reach", srv.handle)
+    host, port = ps.address
+    per = queries_n // clients
+    results: list = [None] * clients
+    errors: list = []
+    rng = np.random.default_rng(1234)
+    picks = [[list(rng.choice(len(names), size=int(rng.integers(1, 5)),
+                              replace=False)) for _ in range(per)]
+             for _ in range(clients)]
+
+    def run_client(ci: int) -> None:
+        try:
+            c = PubSubClient(host, port, timeout_s=120)
+            for qi, sel in enumerate(picks[ci]):
+                qid = ci * per + qi
+                c.request({"type": "reach", "id": qid,
+                           "campaigns": [names[j] for j in sel],
+                           "op": "overlap" if qid % 2 else "union"})
+            results[ci] = [c.recv()["data"] for _ in range(per)]
+            c.close()
+        except Exception as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run_client, args=(ci,))
+               for ci in range(clients)]
+    try:
+        t_sub = time.monotonic()
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120
+        want_pending = depth if expect_shed else queries_n
+        while (srv.pending() < want_pending
+               and srv.pending() + srv.shed < queries_n
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        submit_s = time.monotonic() - t_sub
+        t_drain = time.monotonic()
+        srv.resume()
+        for t in threads:
+            t.join(timeout=120)
+        drain_s = time.monotonic() - t_drain
+        summary = srv.summary()
+    finally:
+        ps.close()
+        srv.close()
+    answers = [m for got in results if got for m in got]
+    served = [m for m in answers if "estimate" in m]
+    shed = [m for m in answers if m.get("shed")]
+    out = {"phase": phase, "sent": clients * per, "clients": clients,
+           "served": summary["served"], "shed": summary["shed"],
+           "dispatches": summary["dispatches"], "batch": batch,
+           "queue_depth": depth, "submit_s": submit_s, "drain_s": drain_s,
+           "p50_ms": summary.get("p50_ms"), "p99_ms": summary.get("p99_ms"),
+           "qps": summary["served"] / max(drain_s, 1e-9),
+           "errors": errors}
+    print(f"[reach_{phase}] {json.dumps(out)}", flush=True)
+    if errors or len(answers) != clients * per:
+        raise AssertionError(f"[reach_{phase}] {len(answers)} answers of "
+                             f"{clients * per}: {errors[:3]}")
+    if (len(served) != summary["served"]
+            or len(served) + len(shed) != clients * per):
+        raise AssertionError(f"[reach_{phase}] served {len(served)} + shed "
+                             f"{len(shed)} != sent {clients * per}")
+    if expect_shed:
+        if summary["shed"] <= 0:
+            raise AssertionError(f"[reach_{phase}] nothing shed")
+    elif (summary["shed"] or summary["served"] != clients * per
+          or summary["dispatches"] > math.ceil(clients * per / batch)
+          or any(m["epoch"] != engine.reach_epoch for m in served)):
+        raise AssertionError(f"[reach_{phase}] {summary}")
+    return out
+
+
+def _reach_live(engine, data: ReachData, names: list, sets: dict,
+                device: str) -> dict:
+    """19 (d): serve REACH_LIVE_QUERIES queries while a second thread
+    folds a second journal (new devices) into the same engine, flushing
+    (pushing) between chunks.  Every push's planes are recorded; each
+    served answer's ``agree`` must be that of a state pushed while the
+    query was in flight (a read of planes folded after the push, or torn
+    by a fold, matches none), and REACH_FINAL_QUERIES queries after the
+    last push must equal the oracle over both journals; then
+    ``close()`` and the planes against that oracle."""
+    import numpy as np
+
+    from streambench_tpu_torch.dimensions.pubsub import (
+        PubSubClient,
+        PubSubServer,
+    )
+    from streambench_tpu_torch.ops import minhash
+    from streambench_tpu_torch.reach import oracle as ro
+    from streambench_tpu_torch.reach.serve import ReachQueryServer
+
+    path = data.extra("live", REACH_LIVE_EVENTS, REACH_LIVE_USERS,
+                      REACH_SEED + 7)
+    srv = ReachQueryServer(names, depth=512, batch=64)
+    # the planes of every push, recorded on the fold's thread before the
+    # server swaps them in: while a query is in flight the server answers
+    # from pushed[n_sent - 2] or a later state up to pushed[n_recv - 1]
+    pushed: list = []
+    push = srv.update_state
+
+    def recorded(mins, registers, epoch, shipped_ms=None):
+        pushed.append((minhash.mins_numpy(mins), registers.cpu().numpy()))
+        push(mins, registers, epoch, shipped_ms)
+
+    srv.update_state = recorded
+    engine.attach_reach(srv)
+    ps = PubSubServer(port=0).start()
+    ps.register_query("reach", srv.handle)
+    host, port = ps.address
+    errors: list = []
+    folded = {"events": 0, "pushes": 0}
+    answers: list = []      # (reply, pushes at send, pushes at receipt)
+    masks = np.zeros((REACH_LIVE_QUERIES, len(names)), bool)
+    rng = np.random.default_rng(77)
+
+    def fold() -> None:
+        try:
+            with open(path, "rb") as f:
+                lines = f.read().splitlines()
+            for off in range(0, len(lines), 4 * REACH_BATCH):
+                folded["events"] += engine.process_chunk(
+                    lines[off:off + 4 * REACH_BATCH])
+                engine.flush()
+                folded["pushes"] += 1
+        except Exception as e:
+            errors.append(f"fold: {e!r}")
+
+    def ask() -> None:
+        try:
+            c = PubSubClient(host, port, timeout_s=120)
+            for i in range(REACH_LIVE_QUERIES):
+                sel = rng.choice(len(names), size=int(rng.integers(1, 5)),
+                                 replace=False)
+                masks[i, sel] = True
+                sent = len(pushed)
+                c.request({"type": "reach", "id": i,
+                           "campaigns": [names[j] for j in sel],
+                           "op": "overlap" if i % 2 else "union"})
+                answers.append((c.recv()["data"], sent, len(pushed)))
+            c.close()
+        except Exception as e:
+            errors.append(f"client: {e!r}")
+
+    both = data.sets(path)
+    for c in both:
+        both[c] |= sets[c]
+    em, er = ro.expected_state(both, names, engine.k, engine.registers)
+    fmasks, _ = _make_queries(REACH_FINAL_QUERIES, len(names),
+                              REACH_SEED + 5)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=fold), threading.Thread(target=ask)]
+    final = None
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        n_pushed = len(pushed)        # close() pushes once more below
+        if not any(t.is_alive() for t in threads):
+            # after the last push: the answers are the whole oracle's
+            c = PubSubClient(host, port, timeout_s=120)
+            for i in range(REACH_FINAL_QUERIES):
+                c.request({"type": "reach", "id": i, "op": "overlap",
+                           "campaigns": [names[j] for j in
+                                         np.flatnonzero(fmasks[i])]})
+            final = {}
+            for _ in range(REACH_FINAL_QUERIES):
+                d = c.recv()["data"]
+                final[d["id"]] = d
+            c.close()
+        summary = srv.summary()
+    finally:
+        ps.close()
+        srv.close()
+    engine.close()
+    wall_s = time.perf_counter() - t0
+    k = engine.k
+    # each pushed state's agree for every query, [pushes, Q]
+    agrees = np.stack([ro.query_oracle_np(m, r, masks) for m, r in pushed])
+    served = shed = 0
+    bad, torn = [], []
+    for i, (d, sent, recv) in enumerate(answers):
+        if d.get("shed"):
+            shed += 1
+            continue
+        if "jaccard" not in d:
+            bad.append(d)
+            continue
+        served += 1
+        got = int(round(d["jaccard"] * k))
+        if got not in agrees[max(sent - 2, 0):recv, i]:
+            torn.append((i, got, sent, recv,
+                         agrees[max(sent - 2, 0):recv, i].tolist()))
+    want_final = ro.query_oracle_np(em, er, fmasks)
+    final_ok = bool(
+        final is not None and len(final) == REACH_FINAL_QUERIES
+        and all("jaccard" in final[i] for i in final)
+        and np.array_equal(
+            [round(final[i]["jaccard"] * k)
+             for i in range(REACH_FINAL_QUERIES)], want_final))
+    out = {"queries": REACH_LIVE_QUERIES, "answers": len(answers),
+           "served": served, "shed": shed, "bad": len(bad),
+           "pushes_recorded": n_pushed,
+           "answers_of_a_pushed_state": served - len(torn),
+           "final_queries_equal_oracle": final_ok,
+           "folded_events": folded["events"], "pushes": folded["pushes"],
+           "dispatches": summary["dispatches"],
+           "p50_ms": summary.get("p50_ms"), "p99_ms": summary.get("p99_ms"),
+           "wall_s": wall_s, "errors": errors}
+    print(f"[reach_live] {json.dumps(out)}", flush=True)
+    if (errors or bad or torn or not final_ok
+            or len(answers) != REACH_LIVE_QUERIES
+            or served + shed != REACH_LIVE_QUERIES
+            or folded["events"] != REACH_LIVE_EVENTS
+            or any(t.is_alive() for t in threads)):
+        raise AssertionError(f"[reach_live] {out}; {bad[:3]}; "
+                             f"not of a pushed state: {torn[:3]}")
+    _planes_equal("live", engine, em, er)
+    return out
+
+
+def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
+    """19 (e): ``python -m streambench_tpu_torch.engine --engine reach
+    --catchup`` on (a)'s journal and a tail over REACH_TAIL_CAMPAIGNS
+    campaigns appended to it, with a delta ship log (a flush and a ship
+    at every chunk: the chunks of the whole journal cut over to bases,
+    those of the tail alone ship deltas), a RESP store process for its
+    ``_reach`` hash, and a ``python -m streambench_tpu_torch.reach.replica``
+    process tailing the log; 64 queries through the replica's pub/sub
+    against the oracle over both, at least one delta shipped and folded
+    by the replica."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.dimensions.pubsub import PubSubClient
+    from streambench_tpu_torch.io.resp import RespClient
+    from streambench_tpu_torch.ops import minhash
+    from streambench_tpu_torch.reach import oracle as ro
+
+    wd = data.workdir
+    ship = os.path.join(wd, "ship")
+    os.makedirs(ship, exist_ok=True)
+    tail = data.tail(REACH_TAIL_EVENTS, REACH_TAIL_USERS, REACH_SEED + 9,
+                     REACH_TAIL_CAMPAIGNS)
+    tail_sets = data.sets(tail)
+    sets = {c: sets[c] | tail_sets[c] for c in sets}
+    events = data.events + REACH_TAIL_EVENTS
+    rport = _free_port()
+    cfg = data.config({"redis.host": "127.0.0.1", "redis.port": rport,
+                       "jax.reach.k": REACH_K, "jax.reach.ship.dir": ship,
+                       "jax.reach.ship.delta": "on",
+                       "jax.flush.interval.ms": 0,
+                       "jax.reach.ship.interval.ms": 1})
+    conf = os.path.join(wd, "benchmarkConf.yaml")
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1")
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        redis = subprocess.Popen(
+            [sys.executable, "-m", "streambench_tpu_torch.io.fakeredis",
+             "--port", str(rport)], env=env, cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        procs.append(redis)
+        replica = subprocess.Popen(
+            [sys.executable, "-m", "streambench_tpu_torch.reach.replica",
+             "--ship", ship, "--device", device, "--poll-ms", "50",
+             "--max-staleness-ms", "600000"], env=env, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(replica)
+        eng = subprocess.run(
+            [sys.executable, "-m", "streambench_tpu_torch.engine",
+             "--confPath", conf, "--workdir", wd, "--catchup",
+             "--engine", "reach", "--device", device],
+            env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+        engine_s = time.perf_counter() - t0
+        if eng.returncode != 0:
+            raise AssertionError(f"[reach_cli] engine exited "
+                                 f"{eng.returncode}: {eng.stderr[-2000:]}")
+        lines = eng.stdout.strip().splitlines()
+        stats = json.loads(lines[-1])
+        line = replica.stdout.readline()
+        if not line.startswith("replica: pubsub="):
+            raise AssertionError(f"[reach_cli] replica said {line!r}")
+        host, port = line.split()[1].split("=")[1].rsplit(":", 1)
+        names = list(data.campaigns)
+        em, er = ro.expected_state(sets, names, REACH_K, REACH_CLI_R)
+        masks, overlap = _make_queries(REACH_CLI_QUERIES, len(names),
+                                       REACH_SEED + 3)
+        want = ro.query_oracle_np(em, er, masks)
+        got = None
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            c = PubSubClient(host, int(port), timeout_s=60)
+            for i in range(REACH_CLI_QUERIES):
+                c.request({"type": "reach", "id": i, "op": "overlap",
+                           "campaigns": [names[j] for j in
+                                         np.flatnonzero(masks[i])]})
+            replies = {}
+            for _ in range(REACH_CLI_QUERIES):
+                d = c.recv()["data"]
+                replies[d["id"]] = d
+            c.close()
+            if all("jaccard" in replies[i] for i in replies):
+                got = np.asarray([round(replies[i]["jaccard"] * REACH_K)
+                                  for i in range(REACH_CLI_QUERIES)])
+                if np.array_equal(got, want):
+                    break
+            time.sleep(0.2)            # the final record not loaded yet
+        with RespClient("127.0.0.1", rport) as rc:
+            table = rc.hgetall(f"{cfg.redis_hashtable}_reach")
+        est = minhash.estimate(torch.from_numpy(er).to(device)).cpu()
+        rows = {n: str(int(round(float(e)))) for n, e in zip(names, est)
+                if e > 0}
+        replica.terminate()
+        rep_out, rep_err = replica.communicate(timeout=60)
+        rep_stats = json.loads(rep_out.strip().splitlines()[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    ship_stats = stats["reach"].get("ship") or {}
+    tailer = rep_stats.get("tailer") or {}
+    out = {"engine_rc": eng.returncode, "replica_rc": replica.returncode,
+           "events": stats["events"], "events_per_s": stats["events_per_s"],
+           "tail_events": REACH_TAIL_EVENTS,
+           "tail_campaigns": REACH_TAIL_CAMPAIGNS,
+           "ship": ship_stats,
+           "kernel_launches": stats["kernel_launches"],
+           "agree_equal_oracle": bool(got is not None
+                                      and np.array_equal(got, want)),
+           "reach_rows": len(table), "reach_rows_equal": table == rows,
+           "replica": {k: rep_stats.get(k) for k in
+                       ("device", "plane_loads", "epoch_loads", "tailer")},
+           "replica_served": rep_stats.get("serve", {}).get("served"),
+           "wall_s": time.perf_counter() - t0, "engine_s": engine_s}
+    print(f"[reach_cli] {json.dumps(out)}", flush=True)
+    if (replica.returncode != 0 or stats["events"] != events
+            or not out["agree_equal_oracle"] or table != rows
+            or not ship_stats.get("deltas")
+            or not tailer.get("deltas_folded")
+            or rep_stats.get("device") != str(torch.device(device))):
+        raise AssertionError(f"[reach_cli] {out}; replica stderr "
+                             f"{rep_err[-1000:]}")
+    return out
+
+
+def phase_reach(device: str = "cuda", events: int = REACH_EVENTS,
+                users: int = REACH_USERS) -> dict:
+    """Phase 19: reach serving on the card (module doc).  ``device`` and
+    the size are arguments so the phase can be rehearsed on the CPU at a
+    small size; the smoke runs it on ``cuda`` at the reference reach
+    benchmark's large rung."""
+    from streambench_tpu_torch.reach import oracle as ro
+
+    t0 = time.perf_counter()
+    data = ReachData(events, REACH_CAMPAIGNS, users, REACH_SEED)
+    out: dict = {"events": events, "users": users, "generate_s": data.gen_s,
+                 "k": REACH_K, "registers": REACH_R, "batch": REACH_BATCH}
+    try:
+        t1 = time.perf_counter()
+        sets = data.sets(data.journal)
+        names = list(data.campaigns)
+        mins, regs = ro.expected_state(sets, names, REACH_K, REACH_R)
+        out["distinct_devices"] = len(set().union(*sets.values()))
+        out["oracle_s"] = time.perf_counter() - t1
+        # (a) the fold, its resume and its profile
+        res, engine, _ = _reach_catchup(data, device)
+        _planes_equal("catchup", engine, mins, regs)
+        res["planes_equal_oracle"] = True
+        out["catchup"] = res
+        out["resume"] = _reach_resume(data, device, mins, regs)
+        out["profile"] = _reach_profile(data, device)
+        # (b) the queries, X7
+        out["queries"] = _reach_queries(engine, sets, names, device)
+        # (c) the storm and the shed rung
+        out["storm"] = _reach_storm(engine, names, phase="storm",
+                                    **REACH_STORM)
+        out["shed"] = _reach_storm(engine, names, phase="shed",
+                                   **REACH_SHED)
+        # (d) serving while folding
+        out["live"] = _reach_live(engine, data, names, sets, device)
+        del engine
+        # (e) the CLI and a replica, each its own process
+        out["cli"] = _reach_cli(data, sets, device)
+    finally:
+        data.remove()
+    out["phase_s"] = time.perf_counter() - t0
+    q, p = out["queries"], out["profile"]
+    print(f"[reach] {out['distinct_devices']} devices; catchup "
+          f"{out['catchup']['events_per_s']:.0f} ev/s "
+          f"({out['catchup']['events_per_s_with_close']:.0f} with close), "
+          f"peak {out['catchup']['peak_allocated_bytes']} B, planes equal "
+          f"the oracle's; X6 {p['device_ops_per_dispatch']} device ops and "
+          f"{p['device_ms_per_dispatch']} device ms a dispatch, "
+          f"{out['catchup']['fold_host_ms_per_batch']:.3f} host ms a batch; "
+          f"X7 batch_query {q['batch_query_device_ms']} device ms, "
+          f"{q['batch_query_call_ms']:.3f} ms a call, "
+          f"{q['batch_query_device_ops']} device ops, "
+          f"{q['batch_query_peak_bytes']} B; storm {out['storm']['served']}"
+          f" served in {out['storm']['dispatches']} dispatches, p50/p99 "
+          f"{out['storm']['p50_ms']}/{out['storm']['p99_ms']} ms; shed "
+          f"{out['shed']['shed']} of {out['shed']['sent']}; live "
+          f"{out['live']['served']} served, {out['live']['shed']} shed; "
+          f"CLI + replica agree exact; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def _reach_launches(reach: dict, kernel: str) -> dict:
+    """A kernel's launches on phase 19's paths (none of them launches a
+    hand-written kernel): (a)'s catchup and (e)'s engine process."""
+    return {f"reach_{run}": reach[run]["kernel_launches"][kernel]
+            for run in ("catchup", "cli")}
+
 def _sketch_phases(lap) -> tuple:
     """Phases 15, 16 and 18: the sketch engines, then their sharded forms
     over the same journals.  Returns ((phase 15, phase 16), phase 18)."""
@@ -4267,6 +5238,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--only-sharded-sketches", action="store_true",
                     help="a diagnostic: phases 1-3 (K1 and K3 cases), 15, "
                     "16 and 18 alone (no result line)")
+    ap.add_argument("--only-reach", action="store_true",
+                    help="a diagnostic: phases 1-3 and 19 alone (no result "
+                    "line)")
     args = ap.parse_args(argv)
     lap = Laps()
 
@@ -4328,6 +5302,19 @@ def main(argv: list[str] | None = None) -> int:
                           indent=1)
         print(smi, flush=True)
         return 0
+    if args.only_reach:
+        lap("1-3 device, build, K1 cases")
+        reach = phase_reach()
+        lap("19 reach")
+        laps = lap.as_dict()
+        print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "reach": reach,
+                           "phase_seconds": laps, "nvidia_smi": smi}, f,
+                          indent=1)
+        print(smi, flush=True)
+        return 0
     if args.only_sketches:
         sketch = phase_sketches()
         if args.out:
@@ -4369,6 +5356,8 @@ def main(argv: list[str] | None = None) -> int:
         config5.remove()
     del large_rows
     (sketch, session), sharded_sketch = _sketch_phases(lap)
+    reach = phase_reach()
+    lap("19 reach")
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -4440,7 +5429,8 @@ def main(argv: list[str] | None = None) -> int:
                for k in SESSION_RUNS},
             **{f"sharded_sketch_{k}":
                sharded_sketch[k]["count_cells_launches"]
-               for k in SHARDED_SKETCH_RUNS}},
+               for k in SHARDED_SKETCH_RUNS},
+            **_reach_launches(reach, "count_cells")},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -4468,7 +5458,8 @@ def main(argv: list[str] | None = None) -> int:
                 decode["pipelined"]["decode_rows_launches"],
             "paced_ysb_decode": paced_decode["decode_rows_launches"],
             "supervised_chaos_decode":
-                chaos["decode"]["decode_rows_launches"]},
+                chaos["decode"]["decode_rows_launches"],
+            **_reach_launches(reach, "decode_rows")},
         "shape": main_decode["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in decode_cases),
         "ms": main_decode["kernel_ms"],
@@ -4495,7 +5486,8 @@ def main(argv: list[str] | None = None) -> int:
                for k in SESSION_RUNS},
             **{f"sharded_session_{k}":
                sharded_sketch[k]["cms_rows_launches"]
-               for k in ("fixed", "salsa")}},
+               for k in ("fixed", "salsa")},
+            **_reach_launches(reach, "cms_rows")},
         "shape": main_cms["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cms_cases),
         "ms": update["kernel_ms"],
@@ -4556,6 +5548,7 @@ def main(argv: list[str] | None = None) -> int:
                        "cms_method_table": cms_methods,
                        "session": session,
                        "sharded_sketches": sharded_sketch,
+                       "reach": reach,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

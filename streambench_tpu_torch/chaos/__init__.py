@@ -13,11 +13,15 @@ imported from it).  See ROBUSTNESS.md for the failure model.
   the exactly-once check (:func:`check_exactly_once`) and the broker-edge
   delivery ledger (:func:`check_kafka_edge`)
 
-Not ported yet, each with the surface it needs: ``netchaos``
-(``ChaosPubSub``, the pub/sub query plane of reach serving),
-``fleet_supervisor`` (replica processes), ``ShipChaosFilter`` (the reach
-ship log) and the fleet checks of ``verify``.  Importing the package
-builds nothing and does not initialise CUDA.
+The supervisor, the crash scheduler and the sink faults also drive the
+reach engine with its query server and replica shipper attached (the
+reach storm under a sink outage and crashes).  Not ported yet, each
+waiting for the replica fleet and its router: ``netchaos``
+(``ChaosPubSub``, faults on the pub/sub query plane),
+``fleet_supervisor`` (replica processes), ``ShipChaosFilter`` /
+``ship_fault`` / ``attach_ship_chaos`` (faults on the reach ship log)
+and the fleet checks of ``verify``.
+Importing the package builds nothing and does not initialise CUDA.
 """
 
 from streambench_tpu_torch.chaos.inject import (  # noqa: F401

@@ -275,7 +275,7 @@ class BenchmarkConfig:
     jax_reach_ship_dir: str = ""           # non-empty: ship (epoch,
     #   planes, watermark) records into <dir>/dimensions.log at the
     #   interval below — the log replica processes tail
-    #   (python -m streambench_tpu.reach.replica --ship <dir>)
+    #   (python -m streambench_tpu_torch.reach.replica --ship <dir>)
     jax_reach_ship_interval_ms: int = 1000  # replica shipping cadence:
     #   the replica staleness bound is cadence + poll when healthy
     jax_reach_ship_delta: str = "off"      # O(ΔC) dirty-row delta

@@ -7,9 +7,17 @@ count of BASELINE config #1; ``hll``, HLL distinct users per window
 quantiles (config #3); ``session``, session windows of per-user clicks
 feeding a count-min sketch whose top-k heavy hitters go to
 ``<hashtable>_hh`` at close (config #4; ``jax.cms.mode``,
-``jax.cms.cell.bits`` and ``jax.cms.stages`` pick the sketch).  It
-tails the broker topic, flushes the canonical Redis window schema, and
-at the end (catchup drained, duration,
+``jax.cms.cell.bits`` and ``jax.cms.stages`` pick the sketch); ``reach``,
+cumulative MinHash ∪ HLL reach sketches per campaign, served live: a
+pub/sub endpoint answers the ``reach`` query verb through the bounded,
+load-shedding ``reach.serve.ReachQueryServer`` (``jax.reach.queue.depth``,
+the result cache ``jax.reach.cache.capacity``, the objective
+``jax.reach.slo.p99.ms``), ``jax.reach.ship.dir`` ships the planes to
+read replicas (``python -m streambench_tpu_torch.reach.replica``) every
+``jax.reach.ship.interval.ms``, as dirty-row deltas with
+``jax.reach.ship.delta``, and ``<hashtable>_reach`` gets the estimates
+at close.  It tails the broker topic, flushes the canonical Redis window
+schema, and at the end (catchup drained, duration,
 idle timeout, or SIGTERM, after folding what the topic holds) closes the
 engine and prints the same JSON stats
 line as ``python -m streambench_tpu.engine``.  ``--sharded`` runs the
@@ -45,7 +53,8 @@ an SLO breach, SIGUSR2 or a one-shot) and ``jax.slo.*``; ``--traceDir``
 profiles the whole run.
 
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
-        --workdir RUN_DIR --catchup [--engine exact|hll|sliding|session] \
+        --workdir RUN_DIR --catchup \
+        [--engine exact|hll|sliding|session|reach] \
         [--device cuda|cpu] [--checkpointDir D] [--sharded]
 
 ``jax.obs.shard`` with ``--sharded`` adds the per-shard skew
@@ -53,7 +62,7 @@ profiles the whole run.
 exact and HLL engines.
 
 Options and config keys that need parts of the JAX engine not ported yet
-(the reach and hllx engines, sharded or not, ``--sharded`` with more
+(the hllx engine, the sharded reach engine, ``--sharded`` with more
 than one process, the fork's micro-batch mode, tenants, the reach query
 and fleet observability) are refused with exit 2.
 """
@@ -71,10 +80,13 @@ import torch.distributed as dist
 from streambench_tpu_torch.checkpoint import Checkpointer
 from streambench_tpu_torch.config import ConfigError, find_and_read_config_file
 from streambench_tpu_torch.datagen import gen
+from streambench_tpu_torch.dimensions.pubsub import PubSubServer
+from streambench_tpu_torch.dimensions.store import DurableDimensionStore
 from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.engine.runner import StreamRunner
 from streambench_tpu_torch.engine.sketches import (
     HLLDistinctEngine,
+    ReachSketchEngine,
     SessionCMSEngine,
     SlidingTDigestEngine,
 )
@@ -108,6 +120,13 @@ from streambench_tpu_torch.parallel import (
     mesh_from_config,
 )
 from streambench_tpu_torch.parallel.mesh import CAMPAIGN_AXIS, DATA_AXIS
+from streambench_tpu_torch.reach.cache import ReachQueryCache
+from streambench_tpu_torch.reach.deltaship import (
+    DELTA_AUTO_MIN_CAMPAIGNS,
+    DeltaShipper,
+)
+from streambench_tpu_torch.reach.replica import SnapshotShipper
+from streambench_tpu_torch.reach.serve import ReachQueryServer
 from streambench_tpu_torch.trace import device_trace
 
 
@@ -136,8 +155,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="aggregation engine: exact window counts "
                         "(default), hll (HLL distinct users), sliding "
                         "(sliding-window counts + t-digest latency "
-                        "quantiles) or session (session windows + "
-                        "count-min heavy hitters): BASELINE configs #1-#4")
+                        "quantiles), session (session windows + "
+                        "count-min heavy hitters): BASELINE configs "
+                        "#1-#4; or reach (MinHash + HLL reach sketches "
+                        "served over pub/sub)")
     p.add_argument("--sharded", action="store_true",
                    help="run the engine sharded over the mesh of "
                         "jax.mesh.shape (exact, hll, sliding or session; "
@@ -152,7 +173,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: engines the port runs, by ``--engine`` name
 ENGINES = {"exact": AdAnalyticsEngine, "hll": HLLDistinctEngine,
-           "sliding": SlidingTDigestEngine, "session": SessionCMSEngine}
+           "sliding": SlidingTDigestEngine, "session": SessionCMSEngine,
+           "reach": ReachSketchEngine}
 #: their mesh-sharded forms (``--sharded``)
 SHARDED_ENGINES = {"exact": ShardedWindowEngine, "hll": ShardedHLLEngine,
                    "sliding": ShardedSlidingTDigestEngine,
@@ -161,11 +183,13 @@ SHARDED_ENGINES = {"exact": ShardedWindowEngine, "hll": ShardedHLLEngine,
 
 def unsupported(args, cfg) -> list[str]:
     """What this run asks for beyond what the port runs: the exact-count,
-    HLL, sliding and session engines on one device, at any key space, with
-    checkpoint/resume, the exactly-once sink, the staged ingest pipeline,
-    the encode pool, the dead-letter queue, the Kafka source, device
-    decode (exact engine), the single-engine observability layer, and the
-    same four engines sharded in one process (``--sharded``)."""
+    HLL, sliding, session and reach engines on one device, at any key
+    space, with checkpoint/resume, the exactly-once sink, the staged
+    ingest pipeline, the encode pool, the dead-letter queue, the Kafka
+    source, device decode (exact engine), the single-engine observability
+    layer, reach serving with its cache and replica shipping, and the
+    exact, HLL, sliding and session engines sharded in one process
+    (``--sharded``)."""
     out = []
     ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
     for flag, on in (("--sharded --engine " + str(args.engine),
@@ -185,6 +209,88 @@ def unsupported(args, cfg) -> list[str]:
         if on:
             out.append(key)
     return out
+
+
+class _ReachServing:
+    """The reach engine's serving side in the CLI: one pub/sub endpoint
+    (WebSocket and JSON lines on one port) whose ``reach`` verb goes
+    through the bounded, load-shedding query server, the result cache,
+    and, with ``jax.reach.ship.dir``, the replica shipper into
+    ``<dir>/dimensions.log``."""
+
+    def __init__(self, pubsub, server, store, shipper):
+        self.pubsub = pubsub
+        self.server = server
+        self.store = store
+        self.shipper = shipper
+
+    def close(self, engine) -> dict:
+        """Drain and stop the server, ship the close-time planes (the
+        replicas converge on them), and return the stats line's
+        ``reach`` block."""
+        self.server.close()
+        out = self.server.summary()
+        self.pubsub.close()
+        if self.shipper is not None:
+            planes = engine.planes()
+            self.shipper.note_state(
+                planes["mins"], planes["registers"], engine.reach_epoch,
+                int(engine.state.watermark), force=True,
+                folded_ms=engine._fold_wall_ms)
+            out["ship"] = self.shipper.summary()
+            self.store.close()
+        return out
+
+
+def _start_reach(cfg, engine, registry, spans, flightrec, sampler
+                 ) -> _ReachServing:
+    """Build and attach ``--engine reach``'s serving side (its first
+    push runs the query once, before ``engine up:``) and print the
+    ``reach:`` line."""
+    cache = (ReachQueryCache(cfg.jax_reach_cache_capacity,
+                             registry=registry)
+             if cfg.jax_reach_cache_capacity > 0 else None)
+    pubsub = PubSubServer(port=0).start()
+    server = ReachQueryServer(
+        list(engine.encoder.campaigns), depth=cfg.jax_reach_queue_depth,
+        registry=registry, spans=spans, flightrec=flightrec, cache=cache)
+    pubsub.register_query("reach", server.handle)
+    engine.attach_reach(server)
+    store = shipper = None
+    if cfg.jax_reach_ship_dir:
+        store = DurableDimensionStore(cfg.jax_reach_ship_dir)
+        host, port = pubsub.address
+        # dirty-row deltas between periodic bases: "auto" where the
+        # full gather hurts (large campaign counts)
+        mode = cfg.jax_reach_ship_delta
+        use_delta = (mode == "on"
+                     or (mode == "auto" and engine.encoder.num_campaigns
+                         >= DELTA_AUTO_MIN_CAMPAIGNS))
+        shipper = (DeltaShipper if use_delta else SnapshotShipper)(
+            store, list(engine.encoder.campaigns),
+            interval_ms=cfg.jax_reach_ship_interval_ms, registry=registry,
+            origin={"addr": f"{host}:{port}", "pid": os.getpid(),
+                    "role": "writer"})
+        engine.attach_shipper(shipper)
+    if sampler is not None:
+        # every metrics.jsonl record carries the serving picture under
+        # "reach_query" and the writer's per-tick ship cost under "ship"
+        def collect(rec, dt_s, srv=server, sh=shipper):
+            rec["reach_query"] = srv.summary()
+            if sh is not None:
+                rec["ship"] = sh.summary()
+
+        sampler.add_collector(collect)
+    host, port = pubsub.address
+    extra = (f" cache={cfg.jax_reach_cache_capacity}"
+             if cache is not None else "")
+    if shipper is not None:
+        extra += (f" ship={cfg.jax_reach_ship_dir}"
+                  f"@{cfg.jax_reach_ship_interval_ms}ms/{shipper.mode}")
+    print(f"reach: pubsub={host}:{port} "
+          f"queue_depth={cfg.jax_reach_queue_depth} k={engine.k} "
+          f"registers={engine.registers}{extra}", flush=True)
+    return _ReachServing(pubsub, server, store, shipper)
 
 
 def load_mapping(cfg, workdir: str) -> tuple[dict[str, str], list[str] | None]:
@@ -213,11 +319,12 @@ def main(argv: list[str] | None = None) -> int:
     missing = unsupported(args, cfg)
     if missing:
         print("error: not ported to the PyTorch engine yet (it runs the "
-              "exact, hll, sliding and session engines with checkpoints, "
-              "the exactly-once sink, the ingest pipeline, the encode pool, "
-              "the dead-letter queue, the Kafka source, the "
-              "single-engine observability layer and the four engines "
-              "sharded in one process): " + ", ".join(missing),
+              "exact, hll, sliding, session and reach engines with "
+              "checkpoints, the exactly-once sink, the ingest pipeline, the "
+              "encode pool, the dead-letter queue, the Kafka source, the "
+              "single-engine observability layer, reach serving, and the "
+              "exact, hll, sliding and session engines sharded in one "
+              "process): " + ", ".join(missing),
               file=sys.stderr)
         return 2
 
@@ -315,9 +422,11 @@ def main(argv: list[str] | None = None) -> int:
     # starts the sampler journaling snapshots to <workdir>/metrics.jsonl;
     # jax.metrics.port >= 0 serves the localhost Prometheus endpoint
     # (0 = ephemeral, the chosen port is printed below).
-    sampler = metrics_server = occupancy = slo = None
+    sampler = metrics_server = occupancy = slo = registry = None
     xfer = devmem = capture = shard = None
-    slo_wanted = cfg.jax_slo_p99_ms > 0 or cfg.jax_slo_rate_evps > 0
+    slo_wanted = (cfg.jax_slo_p99_ms > 0 or cfg.jax_slo_rate_evps > 0
+                  or (args.engine == "reach"
+                      and cfg.jax_reach_slo_p99_ms > 0))
     shard_wanted = cfg.jax_obs_shard and mesh is not None
     flush_hooks = []
     if (cfg.jax_metrics_interval_ms > 0 or cfg.jax_metrics_port >= 0
@@ -403,6 +512,8 @@ def main(argv: list[str] | None = None) -> int:
             slo = SloTracker(
                 registry, p99_ms=cfg.jax_slo_p99_ms,
                 rate_evps=cfg.jax_slo_rate_evps,
+                reach_p99_ms=(cfg.jax_reach_slo_p99_ms
+                              if args.engine == "reach" else 0),
                 budget=cfg.jax_slo_budget, fast_s=cfg.jax_slo_fast_s,
                 slow_s=cfg.jax_slo_slow_s,
                 use_lifecycle=cfg.jax_obs_lifecycle,
@@ -419,7 +530,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"metrics: interval={sampler.interval_ms}ms "
               f"jsonl={metrics_path}{endpoint}", flush=True)
     runner.flush_hooks = tuple(flush_hooks)
-    # everything is built now; a build from here on is a mid-run stall
+    reach = (_start_reach(cfg, engine, registry, spans, flightrec, sampler)
+             if args.engine == "reach" else None)
+    # everything is built now (the reach query ran once at the first
+    # push); a build from here on is a mid-run stall
     if occupancy is not None:
         occupancy.mark_steady()
     # the kernels' launches over the run itself (warmup's excluded); CPU
@@ -502,6 +616,10 @@ def main(argv: list[str] | None = None) -> int:
             if flightrec is not None:
                 flightrec.record("steady_compiles", count=steady)
         occupancy.close()
+    if reach is not None:
+        # close (and drain) the query server BEFORE the SLO verdict: the
+        # answers of the drain at close land in the histogram it judges
+        stats_line["reach"] = reach.close(engine)
     if slo is not None:
         stats_line["slo"] = slo.verdict()
     if engine._obs_lifecycle is not None:

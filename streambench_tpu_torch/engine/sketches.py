@@ -1,9 +1,9 @@
-"""Sketch-aggregation engines: BASELINE configs #2, #3 and #4.
+"""Sketch-aggregation engines: BASELINE configs #2, #3 and #4, and reach.
 
-The port of ``streambench_tpu/engine/sketches.py``'s HLL, sliding and
-session engines.  The host loop, encoder, Redis writer, runner and harness are
-the exact engine's (``engine.pipeline.AdAnalyticsEngine``); only the
-device state and its fold change:
+The port of ``streambench_tpu/engine/sketches.py``'s HLL, reach, sliding
+and session engines.  The host loop, encoder, Redis writer, runner and
+harness are the exact engine's (``engine.pipeline.AdAnalyticsEngine``);
+only the device state and its fold change:
 
 - ``HLLDistinctEngine``: distinct users per (campaign, 10 s window) in
   HyperLogLog registers (``ops.hll``).  Estimates are absolute, so the
@@ -21,6 +21,10 @@ device state and its fold change:
   SALSA, ``ops.salsa``), whose update and point query are the kernel K3
   on the card; a device-side heavy-hitter ring, whose top-k estimates go
   to ``<hashtable>_hh`` at close, and a close->absorb latency histogram.
+- ``ReachSketchEngine``: cumulative per-campaign MinHash signatures and
+  HLL planes (``ops.minhash``) served live to union/overlap queries
+  (``reach/``: the query server, its cache, and read replicas fed by
+  shipped snapshots and deltas); ``<hashtable>_reach`` at close.
 
 The JAX engines fuse each chunk's fold into one jitted program; here the
 six programs are plain functions that loop over the chunk's batches, as
@@ -43,6 +47,7 @@ from streambench_tpu_torch.io.redis_schema import RedisLike
 from streambench_tpu_torch.ops import (
     cms,
     hll,
+    minhash,
     salsa,
     session,
     sliding,
@@ -233,6 +238,252 @@ class HLLDistinctEngine(_SketchEngineBase):
                  base + wids[si].astype(np.int64) * self.divisor,
                  est[ci, si].astype(np.int64)))
         self._flush_cache = (est, wids)
+
+    @property
+    def dropped(self) -> int:
+        return int(self.state.dropped)
+
+
+class ReachSketchEngine(_SketchEngineBase):
+    """Cumulative per-campaign reach sketches: a MinHash signature and an
+    HLL plane (``ops.minhash``), served live.
+
+    Unlike the windowed engines, reach state is *cumulative audience*:
+    no ring, no lateness cutoff, nothing dropped.  ``flush()`` writes no
+    window rows; it pushes the planes to an attached
+    ``reach.serve.ReachQueryServer`` (``attach_reach``) and ships them to
+    an attached replica shipper (``attach_shipper``) at its cadence.
+    ``close()`` writes per-campaign reach estimates to
+    ``<redis.hashtable>_reach``.  No count kernel runs on this path: the
+    fold is the torch ops of ``minhash.step``.
+
+    The fold updates the planes in place, so a push hands the server
+    clones (``_reach_push``), and ``planes()``, snapshots and ship
+    records carry the reference's uint32 / int32 numpy arrays.  The
+    fleet freshness stamps of ``jax.obs.fleet`` are not ported."""
+
+    ENGINE_FAMILY = "reach"
+    # Reach reads user identity only through hashes (the HLL rationale):
+    # stateless crc32 ids, the parallel encode pool is sound, snapshots
+    # carry no intern tables.
+    HASHED_IDS = True
+    NEEDS_INTERNED_IDS = False
+    PARALLEL_ENCODE_OK = True
+    SCAN_SUPPORTED = True
+    SCAN_COLUMNS = ("ad_idx", "user_idx", "event_type", "event_time",
+                    "valid")
+    PACKED_EXTRA_COLS = ("user_idx",)
+
+    def __init__(self, cfg: BenchmarkConfig, ad_to_campaign: dict[str, str],
+                 campaigns: list[str] | None = None,
+                 redis: RedisLike | None = None,
+                 k: int | None = None, registers: int = 256,
+                 method: str | None = None,
+                 device: torch.device | str | None = None):
+        super().__init__(cfg, ad_to_campaign, campaigns=campaigns,
+                         redis=redis, method=method, device=device)
+        self.k = int(k if k is not None else cfg.jax_reach_k)
+        self.registers = int(registers)
+        self.state = minhash.init_state(self.encoder.num_campaigns,
+                                        self.k, self.registers,
+                                        device=self.device)
+        # no ring to overrun: the span guard would only send wide
+        # catchup groups down the per-batch path
+        self._span_guard = 2**31 - 1
+        self._reach_server = None
+        self._reach_shipper = None
+        # the epoch of the served state: bumped on every restore, so an
+        # answer computed before a crash recovery is told apart by it
+        self.reach_epoch = 0
+        # wall stamp of the last fold into the planes: a ship record's
+        # fold stamp
+        self._fold_wall_ms: int | None = None
+        # host-side [C] mask of campaigns folded since the last ship,
+        # unioned from the host columns each fold ships (no device
+        # work); None until a delta shipper (wants_dirty) attaches
+        self._dirty_mask: np.ndarray | None = None
+
+    # -- dirty-row tracking --------------------------------------------
+    def _mark_dirty(self, ad_idx, valid=None) -> None:
+        """Union the campaigns of these host rows into the dirty mask.
+        Marking a superset (rows a later predicate drops) is sound: a
+        clean row shipped early is idempotent under the min/max
+        merge."""
+        m = self._dirty_mask
+        if m is None:
+            return
+        ad = np.asarray(ad_idx).ravel()
+        if valid is not None:
+            v = np.asarray(valid).ravel().astype(bool)
+            if v.size == ad.size:
+                ad = ad[v]
+        ad = ad[(ad >= 0) & (ad < self._join_np.size)]
+        camp = self._join_np[ad]
+        m[camp[(camp >= 0) & (camp < m.size)]] = True
+
+    def _mark_dirty_packed(self, packed) -> None:
+        if self._dirty_mask is None:
+            return
+        w = np.asarray(packed).ravel().astype(np.int64)
+        valid = (w >> (wc.PACK_AD_BITS + 2)) & 1
+        self._mark_dirty(w & (wc.PACK_AD_MAX - 1), valid)
+
+    def _fold_stack(self, batches: list) -> list[np.ndarray]:
+        stacks = super()._fold_stack(batches)
+        self._fold_wall_ms = now_ms()
+        if self._dirty_mask is not None:
+            # the host stacks just shipped: the packed word first, or
+            # the unpacked columns in SCAN_COLUMNS order
+            if self._pack_ok:
+                self._mark_dirty_packed(stacks[0])
+            else:
+                self._mark_dirty(stacks[0], stacks[-1])
+        return stacks
+
+    # -- the fold ------------------------------------------------------
+    def _device_step(self, batch) -> None:
+        self.state = minhash.step(
+            self.state, self.join_table,
+            self._to_device(batch.ad_idx), self._to_device(batch.user_idx),
+            self._to_device(batch.event_type),
+            self._to_device(batch.event_time), self._to_device(batch.valid))
+        self._fold_wall_ms = now_ms()
+        if self._dirty_mask is not None:
+            self._mark_dirty(batch.ad_idx, batch.valid)
+
+    def _device_scan(self, ad_idx, user_idx, event_type, event_time,
+                     valid) -> None:
+        self.state = minhash.scan_steps(
+            self.state, self.join_table, ad_idx, user_idx, event_type,
+            event_time, valid)
+
+    def _device_scan_packed(self, packed, user_idx, event_time) -> None:
+        self.state = minhash.scan_steps_packed(
+            self.state, self.join_table, packed, user_idx, event_time)
+
+    def warmup(self) -> None:
+        """The base warmup, plus the close-time estimate (read-only, so
+        state-neutral)."""
+        super().warmup()
+        minhash.estimate(self.state.registers).cpu()
+
+    # -- serving -------------------------------------------------------
+    def attach_reach(self, server) -> None:
+        """Wire a ReachQueryServer: push at once (possibly empty state:
+        queries answer 0 until events fold), then push on every flush and
+        on restore."""
+        self._reach_server = server
+        self._reach_push()
+
+    def attach_shipper(self, shipper) -> None:
+        """Wire a replica SnapshotShipper (or DeltaShipper): it ships from
+        the same flush-cadence push.  The attach itself forces a ship, so
+        a writer restarted mid-lineage reaches its replicas at once."""
+        self._reach_shipper = shipper
+        if getattr(shipper, "wants_dirty", False):
+            self._dirty_mask = np.zeros(self.encoder.num_campaigns,
+                                        dtype=bool)
+        self._reach_push(force_ship=True)
+
+    def planes(self) -> dict:
+        """The named state planes a shipper consumes, as the reference's
+        numpy arrays: ``mins`` uint32 ``[C, k]``, ``registers`` int32
+        ``[C, R]`` (a device sync)."""
+        return {"mins": minhash.mins_numpy(self.state.mins),
+                "registers": self.state.registers.cpu().numpy().copy()}
+
+    def _reach_push(self, force_ship: bool = False) -> None:
+        if self._reach_server is not None:
+            # Clones, not the planes: the fold updates them in place, so
+            # a server holding them could answer from a half-folded
+            # batch.  The clone runs on the fold's stream, ordered after
+            # the folds before this push and before every later one.
+            self._reach_server.update_state(
+                self.state.mins.clone(), self.state.registers.clone(),
+                self.reach_epoch)
+        sh = self._reach_shipper
+        if sh is not None and (force_ship or sh.due(self.reach_epoch)):
+            # the due() pre-check keeps the planes' pull (a device sync)
+            # off the flushes between cadence ticks
+            dirty = (np.flatnonzero(self._dirty_mask)
+                     if self._dirty_mask is not None else None)
+            planes = self.planes()
+            shipped = sh.note_state(
+                planes["mins"], planes["registers"], self.reach_epoch,
+                int(self.state.watermark), force=force_ship,
+                folded_ms=self._fold_wall_ms, dirty_rows=dirty)
+            if shipped and self._dirty_mask is not None:
+                # rows shipped (in a delta or under a base) are clean
+                # until the next fold touches them
+                self._dirty_mask[:] = False
+
+    # -- harness hooks -------------------------------------------------
+    def _drain_device(self) -> None:
+        # nothing to drain: the sketches are cumulative, read (not
+        # reset) at flush and close
+        self._span_start = None
+
+    def flush(self, time_updated: int | None = None, *,
+              final: bool = False) -> int:
+        self._reach_push()
+        return 0    # reach writes no canonical window rows
+
+    def estimates(self) -> np.ndarray:
+        """Per-campaign distinct-device estimates ``[C]`` (HLL plane)."""
+        return minhash.estimate(self.state.registers).cpu().numpy()
+
+    def snapshot(self, offset) -> Snapshot:
+        self._snapshot_sync()
+        meta = self._snapshot_meta()
+        meta.update(reach_k=self.k, num_registers=self.registers,
+                    reach_epoch=self.reach_epoch)
+        planes = self.planes()
+        return self._xo_decorate(Snapshot(
+            offset=offset, meta=meta,
+            counts=np.zeros((0, 0), np.int32),
+            window_ids=np.zeros((0,), np.int32),     # no window ring
+            watermark=int(self.state.watermark),
+            dropped=int(self.state.dropped),
+            extra={"mh_mins": planes["mins"],
+                   "hll_plane": planes["registers"],
+                   **self._intern_extra()},
+        ))
+
+    def restore(self, snap: Snapshot) -> None:
+        self._check_geometry(snap, extra=dict(
+            reach_k=self.k, num_registers=self.registers))
+        self.state = minhash.ReachState(
+            mins=minhash.mins_tensor(snap.extra["mh_mins"], self.device),
+            registers=torch.from_numpy(np.array(
+                snap.extra["hll_plane"], np.int32)).to(self.device),
+            watermark=torch.tensor(int(snap.watermark), dtype=torch.int32,
+                                   device=self.device),
+            dropped=torch.tensor(int(snap.dropped), dtype=torch.int32,
+                                 device=self.device))
+        self._restore_interns(snap)
+        self._restore_host(snap)
+        # every restore starts a serving epoch STRICTLY ABOVE both the
+        # snapshot's and this engine's lineage: an answer computed
+        # against pre-crash state is then told apart by its epoch
+        self.reach_epoch = max(self.reach_epoch,
+                               int(snap.meta.get("reach_epoch", 0))) + 1
+        # the restart path ships at once: a replica behind a crashed
+        # writer must not serve the pre-crash epoch for a whole interval
+        self._reach_push(force_ship=True)
+
+    def close(self) -> None:
+        self._reach_push()
+        if self._encode_pool is not None:
+            self._encode_pool.close()
+            self._encode_pool = None
+        if self.redis is not None and self.cfg.redis_hashtable:
+            est = self.estimates()
+            table = f"{self.cfg.redis_hashtable}_reach"
+            cmds = [("HSET", table, name, str(int(round(float(e)))))
+                    for name, e in zip(self.encoder.campaigns, est)
+                    if e > 0]
+            if cmds:
+                self.redis.pipeline_execute(cmds)
 
     @property
     def dropped(self) -> int:

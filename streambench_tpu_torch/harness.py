@@ -21,7 +21,9 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``BROKER_DIR`` (the file journal; default ``WORKDIR/broker``), and
 ``DEVICE`` (``cuda`` by default, passed to the engine as ``--device``;
 ``cpu`` only when asked for), ``ENGINE`` (``exact`` by default, ``hll``,
-``sliding`` or ``session``; passed to the engine as ``--engine``),
+``sliding``, ``session`` or ``reach``; passed to the engine as
+``--engine``; the session and reach engines write no window rows, so
+``TORCH_TEST``'s evidence for them is the engine's stats line),
 ``SHARDED=1`` (the engine sharded over the mesh, ``--sharded``: the
 exact, hll, sliding and session engines; SETUP refuses it with
 ``ENGINE=reach``, whose sharded form is not ported yet).
@@ -88,7 +90,7 @@ CHECKPOINT_DIR = os.environ.get("CHECKPOINT_DIR", "")
 # the torch device the engine folds on: the card unless asked otherwise
 DEVICE = os.environ.get("DEVICE", "cuda")
 # the aggregation engine: exact | hll | sliding | session (BASELINE
-# configs #1-#4)
+# configs #1-#4) | reach (reach sketches served over pub/sub)
 ENGINE = os.environ.get("ENGINE", "exact")
 SHARDED = _flag("SHARDED")
 #: the engines SHARDED=1 runs (the CLI's --sharded)
@@ -582,9 +584,9 @@ def op_torch_test() -> None:
         op_stop_redis()
     # a composite test that produced load but measured NOTHING is a
     # failure (a stale or hung engine), not a quiet success.  The session
-    # engine writes no window rows: its evidence is the final stats line
-    # of this run's engine, as in the reference harness
-    if ENGINE == "session":
+    # and reach engines write no window rows: their evidence is the final
+    # stats line of this run's engine, as in the reference harness
+    if ENGINE in ("session", "reach"):
         evidence, what = _engine_stats_line(), "events"
         ok = evidence != "" and '"events": 0' not in evidence
     else:

@@ -31,6 +31,39 @@ def _s(v: Any) -> str:
     return v.decode("utf-8") if isinstance(v, bytes) else str(v)
 
 
+_M64 = (1 << 64) - 1
+
+
+def _fnv1a64(s: str) -> int:
+    h = 0xcbf29ce484222325
+    for c in s.encode("utf-8"):
+        h = ((h ^ c) * 0x100000001b3) & _M64
+    return h
+
+
+def _mix64(z: int) -> int:
+    z = ((z ^ (z >> 30)) * 0xbf58476d1ce4e5b9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94d049bb133111eb) & _M64
+    return z ^ (z >> 31)
+
+
+def window_digest_of(rows) -> dict:
+    """``{"windows", "seen", "digest"}`` of ``(campaign, window_ts,
+    seen_count)`` rows: their number, the total of their counts and an
+    order-independent 64-bit digest (the sum of one mixed hash a row,
+    FNV-1a and splitmix64's finalizer, as ``native/store.cpp`` computes
+    it).  Two stores with the same windows and counts have the same
+    digest; a window moved, added, dropped or miscounted changes it."""
+    n = seen = digest = 0
+    for campaign, ts, count in rows:
+        count = int(count)
+        n += 1
+        seen += count
+        digest = (digest + _mix64(_fnv1a64(campaign) ^ _mix64(
+            _fnv1a64(str(ts)) ^ _mix64(count & _M64)))) & _M64
+    return {"windows": n, "seen": seen, "digest": f"{digest:016x}"}
+
+
 class FakeRedisStore:
     """Dict-backed implementation of the YSB Redis command surface."""
 
@@ -162,6 +195,23 @@ class FakeRedisStore:
             return lst[i : j + 1]
 
     # ---- plumbing ----
+    def window_digest(self) -> dict:
+        """``window_digest_of`` every canonical window row in the store:
+        each hash field (campaign, window ts) whose value names a hash
+        holding an integer ``seen_count``."""
+        with self._lock:
+            rows = []
+            for key, h in self._hashes.items():
+                for field, val in h.items():
+                    if field == "windows":
+                        continue
+                    seen = self._hashes.get(val, {}).get("seen_count")
+                    try:
+                        rows.append((key, field, int(seen)))
+                    except (TypeError, ValueError):
+                        continue
+        return window_digest_of(rows)
+
     def _check_type(self, key: str, owner: dict) -> None:
         holders = (self._strings, self._hashes, self._sets, self._lists)
         for h in holders:
@@ -332,6 +382,13 @@ class NativeRedisStore(FakeRedisStore):
         return self._cmd(*args)
 
     # ---- native bulk writeback (redis_schema.write_windows_pipelined) --
+    def window_digest(self) -> dict:
+        out = (ctypes.c_int64 * 3)()
+        with self._cmd_lock:
+            self._lib.sbr_window_digest(self._h, out)
+        return {"windows": int(out[0]), "seen": int(out[1]),
+                "digest": f"{out[2] & 0xFFFFFFFFFFFFFFFF:016x}"}
+
     def write_windows_bulk(self, rows, stamp: str, absolute: bool) -> int:
         """Canonical-schema writeback of ``(campaign, wts, count)`` rows
         in one native call; observable state identical to issuing the

@@ -1,7 +1,8 @@
 """ctypes binding for the native host runtime, built at first use.
 
 The C++ sources here (JSON event encoder, event formatter, in-process
-Redis store) are copies of the JAX package's.  ``load()`` compiles them
+Redis store) are copies of the JAX package's; the store adds
+``sbr_window_digest`` (``io.fakeredis``' ``window_digest``).  ``load()`` compiles them
 with ``g++`` into the port's build directory (``utils.build``) the first
 time it is called and returns the library handle, or None when no
 toolchain is available; callers then fall back to the numpy/Python paths,
@@ -100,6 +101,8 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sbr_write_windows_idx.argtypes = [
         c_p, c_i64, ctypes.c_char_p, i64p, c_i64, i32p, i64p, i64p,
         ctypes.c_char_p, c_i64, c_i32]
+    lib.sbr_window_digest.restype = c_i64
+    lib.sbr_window_digest.argtypes = [c_p, i64p]
     return lib
 
 

@@ -243,6 +243,23 @@ struct Store {
   }
 };
 
+// FNV-1a over the bytes, and splitmix64's finalizer: the window digest's
+// hashes (io/fakeredis.py mirrors both).
+inline uint64_t fnv1a64(string_view s) {
+  uint64_t h = 0xcbf29ce484222325ULL;
+  for (unsigned char c : s) {
+    h ^= c;
+    h *= 0x100000001b3ULL;
+  }
+  return h;
+}
+
+inline uint64_t mix64(uint64_t z) {
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+  return z ^ (z >> 31);
+}
+
 const char* kWrongType =
     "WRONGTYPE Operation against a key holding the wrong kind of value";
 
@@ -641,6 +658,44 @@ int64_t sbr_write_windows_idx(void* store, int64_t n,
     applied++;
   }
   return applied;
+}
+
+// Whole-store summary of the canonical window rows: over every hash
+// field (campaign, window ts) whose value names a window hash, the
+// number of windows, the total of their seen_count and an
+// order-independent 64-bit digest of (campaign, ts, seen_count) — the
+// sum of one mixed hash a row.  Two stores are held to each other in one
+// call instead of one command a campaign.  out[0..2] = windows, seen
+// total, digest (as int64).
+int64_t sbr_window_digest(void* store, int64_t* out) {
+  auto* st = static_cast<Store*>(store);
+  std::lock_guard<std::mutex> g(st->mu);
+  int64_t n = 0, seen = 0;
+  uint64_t digest = 0;
+  for (const auto& [key, h] : st->hashes) {
+    uint64_t hc = fnv1a64(key);
+    for (const auto& [field, val] : h) {
+      if (field == "windows") continue;
+      int64_t count = 0;
+      auto wit = st->windows.find(string_view(val));
+      if (wit != st->windows.end()) {
+        count = wit->second.seen;
+      } else {
+        auto git = st->hashes.find(string_view(val));
+        if (git == st->hashes.end()) continue;
+        auto sit = git->second.find(string_view("seen_count"));
+        if (sit == git->second.end() || !parse_i64(sit->second, &count))
+          continue;
+      }
+      n++;
+      seen += count;
+      digest += mix64(hc ^ mix64(fnv1a64(field) ^ mix64((uint64_t)count)));
+    }
+  }
+  out[0] = n;
+  out[1] = seen;
+  out[2] = (int64_t)digest;
+  return 0;
 }
 
 }  // extern "C"

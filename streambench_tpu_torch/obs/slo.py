@@ -1,8 +1,8 @@
 """Config-driven latency/throughput objectives with burn-rate gates.
 
-The port of ``streambench_tpu/obs/slo.py``, without the reach-serving
-objective (``jax.reach.slo.p99.ms``) and the per-tenant trackers: the
-port has neither reach serving nor tenants yet.
+The port of ``streambench_tpu/obs/slo.py``, without the per-tenant
+trackers (the port has no tenants yet) and the reach objective's
+per-segment breach attribution (``obs/queryattr.py`` is not ported yet).
 
 ROADMAP item 4's live serving workload needs "load-shedding and latency
 SLOs measured by the obs stack"; until now a run could only be judged
@@ -18,6 +18,9 @@ objective explicit and machine-checked while the run is going:
 - ``jax.slo.rate.evps`` — ingest objective: a sample interval is *bad*
   when its event rate falls below this while the run is supposed to be
   under load.
+- ``jax.reach.slo.p99.ms`` — reach-serving objective: a served reach
+  query slower than this (submit -> reply) is *bad*, judged over the
+  reach server's latency histogram and reported under ``"reach"``.
 
 Judgment is the SRE *multi-window burn rate*, not a point threshold:
 an error budget (``jax.slo.budget``, default 1% of windows may be
@@ -59,12 +62,18 @@ class SloTracker:
     """
 
     def __init__(self, registry, p99_ms: int = 0, rate_evps: int = 0,
+                 reach_p99_ms: int = 0,
                  budget: float = 0.01, fast_s: float = 30.0,
                  slow_s: float = 180.0, use_lifecycle: bool = False,
                  annotate=None, flightrec=None, capture=None,
                  clock=time.monotonic):
         self.p99_ms = max(int(p99_ms), 0)
         self.rate_evps = max(int(rate_evps), 0)
+        # jax.reach.slo.p99.ms — reach-serving latency objective: a
+        # served reach query slower than this (submit -> reply) is
+        # "bad".  Judged over the reach server's latency histogram with
+        # the SAME two-window burn construction as the window objective.
+        self.reach_p99_ms = max(int(reach_p99_ms), 0)
         self.budget = min(max(float(budget), 1e-6), 1.0)
         self.fast_s = max(float(fast_s), 1.0)
         self.slow_s = max(float(slow_s), self.fast_s)
@@ -90,9 +99,19 @@ class SloTracker:
             self._hist = registry.histogram(
                 "streambench_window_latency_ms",
                 "window writeback latency (time_updated - window_ts), ms")
+        # reach latency source: get-or-create the SAME instrument the
+        # ReachQueryServer feeds (default geometry on both sides)
+        self._reach_hist = None
+        if self.reach_p99_ms:
+            from streambench_tpu_torch.reach.serve import LATENCY_HIST
+
+            self._reach_hist = registry.histogram(
+                LATENCY_HIST,
+                "reach query latency, submit to reply (ms)")
         # sample ring: (t, windows_total, windows_bad, rate_ticks,
-        # rate_bad_ticks) — bounded by the slow window at the sampler's
-        # cadence; 4096 covers a 1 s cadence for over an hour
+        # rate_bad_ticks, reach_total, reach_bad) — bounded by the slow
+        # window at the sampler's cadence; 4096 covers a 1 s cadence for
+        # over an hour
         self._ring: list[tuple] = []
         self._ring_cap = 4096
         self._rate_ticks = 0
@@ -114,6 +133,12 @@ class SloTracker:
             ("rate", "slow"): g("streambench_slo_burn_rate", "",
                                 labels={"objective": "rate",
                                         "window": "slow"}),
+            ("reach", "fast"): g("streambench_slo_burn_rate", "",
+                                 labels={"objective": "reach",
+                                         "window": "fast"}),
+            ("reach", "slow"): g("streambench_slo_burn_rate", "",
+                                 labels={"objective": "reach",
+                                         "window": "slow"}),
         }
         self._g_bad = g("streambench_slo_bad_windows_total",
                         "windows whose e2e latency exceeded the "
@@ -124,7 +149,7 @@ class SloTracker:
 
     @property
     def active(self) -> bool:
-        return bool(self.p99_ms or self.rate_evps)
+        return bool(self.p99_ms or self.rate_evps or self.reach_p99_ms)
 
     # ------------------------------------------------------------------
     def _window_burn(self, window_s: float, idx_total: int,
@@ -160,6 +185,10 @@ class SloTracker:
             out["rate"] = {
                 "fast": round(self._window_burn(self.fast_s, 3, 4), 3),
                 "slow": round(self._window_burn(self.slow_s, 3, 4), 3)}
+        if self.reach_p99_ms:
+            out["reach"] = {
+                "fast": round(self._window_burn(self.fast_s, 5, 6), 3),
+                "slow": round(self._window_burn(self.slow_s, 5, 6), 3)}
         return out
 
     # ------------------------------------------------------------------
@@ -184,8 +213,14 @@ class SloTracker:
                 self._rate_ticks += 1
                 if rate < self.rate_evps:
                     self._rate_bad += 1
+        r_total = r_bad = 0
+        if self._reach_hist is not None:
+            r_total = self._reach_hist.count
+            r_bad = r_total - self._reach_hist.count_le(
+                float(self.reach_p99_ms))
         self._ring.append((now, total, bad,
-                           self._rate_ticks, self._rate_bad))
+                           self._rate_ticks, self._rate_bad,
+                           r_total, r_bad))
         if len(self._ring) > self._ring_cap:
             del self._ring[:len(self._ring) - self._ring_cap]
         burns = self.burn_rates()
@@ -226,6 +261,9 @@ class SloTracker:
         block = {"burn": burns, "bad_windows": bad,
                  "total_windows": total, "breaches": self.breaches,
                  "in_breach": breaching}
+        if self.reach_p99_ms:
+            block["bad_reach"] = r_bad
+            block["total_reach"] = r_total
         rec["slo"] = block
 
     # ------------------------------------------------------------------
@@ -241,6 +279,8 @@ class SloTracker:
                 **({"p99_ms": self.p99_ms} if self.p99_ms else {}),
                 **({"rate_evps": self.rate_evps}
                    if self.rate_evps else {}),
+                **({"reach_p99_ms": self.reach_p99_ms}
+                   if self.reach_p99_ms else {}),
             },
             "budget": self.budget,
             "windows_s": {"fast": self.fast_s, "slow": self.slow_s},
@@ -250,4 +290,9 @@ class SloTracker:
             "breaches": self.breaches,
             "pass": self.breaches == 0 and not self._in_breach,
         }
+        if self._reach_hist is not None:
+            r_total = self._reach_hist.count
+            out["bad_reach"] = r_total - self._reach_hist.count_le(
+                float(self.reach_p99_ms))
+            out["total_reach"] = r_total
         return out

@@ -241,8 +241,8 @@ def test_cli_catchup_on_cpu(tmp_path):
     # --sharded runs the exact, hll, sliding and session engines;
     # sharded reach is not ported yet
     (["--sharded", "--engine", "reach"], "", "--sharded --engine reach"),
-    # hll, sliding and session are ported; reach is not yet
-    (["--engine", "reach"], "", "--engine reach"),
+    # hll, sliding, session and reach are ported; hllx is not yet
+    (["--engine", "hllx"], "", "--engine hllx"),
     # --traceDir is ported; what stays refused of tracing is the fleet
     # layer's cross-process trace stitching (jax.obs.fleet)
     ([], "jax.obs.fleet: true", "jax.obs.fleet"),

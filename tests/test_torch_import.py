@@ -26,6 +26,9 @@ OBS_MODULES = ("__main__", "capture", "devmem", "flightrec", "httpd",
 CHAOS_MODULES = ("inject", "plan", "supervisor", "verify")
 PARALLEL_MODULES = ("collectives", "controller", "distributed", "mesh",
                     "sharded", "sketches")
+REACH_MODULES = ("cache", "deltaship", "oracle", "query", "replica",
+                 "serve")
+DIMENSIONS_MODULES = ("pubsub", "store")
 
 CHILD = r"""
 import json, pkgutil, subprocess, sys
@@ -95,7 +98,12 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                     f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES} | {
                     f"streambench_tpu_torch.chaos.{m}" for m in CHAOS_MODULES} | {
                     f"streambench_tpu_torch.parallel.{m}"
-                    for m in PARALLEL_MODULES}
+                    for m in PARALLEL_MODULES} | {
+                    f"streambench_tpu_torch.reach.{m}"
+                    for m in REACH_MODULES} | {
+                    f"streambench_tpu_torch.dimensions.{m}"
+                    for m in DIMENSIONS_MODULES} | {
+                    "streambench_tpu_torch.ops.minhash"}
     assert expected <= set(got["modules"])
     assert got["jax"] == []
     assert got["cuda_initialized"] is False

@@ -52,6 +52,7 @@ from streambench_tpu_torch.io.journal import FileBroker
 from streambench_tpu_torch.io.redis_schema import (
     read_seen_counts,
     seed_campaigns,
+    write_window,
 )
 from streambench_tpu_torch.io.resp import RespClient
 from streambench_tpu_torch.ops import windowcount as wc
@@ -599,3 +600,65 @@ def test_cli_sharded_without_cuda_raises(tmp_path):
         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+# chip_smoke.py phase 17, rehearsed on the CPU at a small size
+def test_chip_smoke_phase17_runs_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 17 through the smoke's own code on a (1, 1) gloo mesh, held
+    to an unsharded CPU run that stands in for phase 6 (its record taken
+    by ``_config5_record``, the oracle-checked store's digest equal to
+    the journal's views): config #5's keys at 1,000 campaigns and 60,000
+    events, the row drains' threshold lowered so both engines take them.
+    Each sharded store's whole-store digest must be the unsharded one's;
+    a store holding one extra window must fail the phase.  The card runs
+    it at 1e6 campaigns and 1,000,000 events."""
+    import chip_smoke
+
+    def workdir(name):
+        path = tmp_path / name
+        path.mkdir()
+        return str(path)
+
+    monkeypatch.setattr(chip_smoke, "_workdir", workdir)
+    monkeypatch.setattr(AdAnalyticsEngine, "COMPACT_DRAIN_MIN_CELLS", 1 << 12)
+    data = chip_smoke.Config5Data(60_000, keys=dict(
+        chip_smoke.CONFIG5, **{"jax.num.campaigns": 1_000}))
+    try:
+        cfg = data.config()
+        r = data.store()
+        eng = AdAnalyticsEngine(cfg, data.mapping, campaigns=data.campaigns,
+                                redis=r, device="cpu")
+        t0 = time.perf_counter()
+        StreamRunner(eng, data.broker.reader(cfg.kafka_topic)).run_catchup()
+        eng.close()
+        run_s = time.perf_counter() - t0
+        assert eng.drain_stats.get("rows_host")
+        chip_smoke._oracle(r, data.workdir, cfg.jax_time_divisor_ms)
+        record, windows = chip_smoke._config5_record(data, r)
+        assert record["store_digest"]["seen"] == record["views"] > 0
+        assert 0 < len(windows) < record["store_digest"]["windows"]
+        unsharded = dict(record, events_per_s=60_000 / run_s,
+                         events_per_s_with_close=60_000 / run_s)
+        out = chip_smoke.phase_sharded(data, windows, unsharded,
+                                       device="cpu")
+        assert out["backend"] == "gloo"
+        for run in ("plain", "obs_shard"):
+            assert out[run]["events"] == 60_000 and out[run]["dropped"] == 0
+            assert out[run]["store_digest"] == record["store_digest"]
+        assert out["plain"]["windows_equal_phase6_sampled"] == min(
+            chip_smoke.STORE_SAMPLE, len(windows))
+        assert out["obs_shard"]["shard_skew"]["rows"] == [record["views"]]
+
+        # one extra window in each sharded store: the digest catches it
+        fresh = data.store
+
+        def store_with_an_extra_window():
+            s = fresh()
+            write_window(s, data.campaigns[0], 10**12, 1, time_updated=1)
+            return s
+
+        monkeypatch.setattr(data, "store", store_with_an_extra_window)
+        with pytest.raises(AssertionError, match="are not phase 6's"):
+            chip_smoke.phase_sharded(data, windows, unsharded, device="cpu")
+    finally:
+        data.remove()

@@ -653,6 +653,7 @@ def test_chip_smoke_phase18_runs_on_the_cpu(tmp_path, monkeypatch):
     assert out["hll"]["windows_equal_phase15"] > 1_000
     assert out["hll_obs_shard"]["shard_skew"]["rows"] == [sk["views"]]
     assert out["sliced"]["quantile_max_rel_err_phase15"] <= 2.0 ** -5
+    assert out["sliced"]["windows_equal_phase15_sampled"] > 1_000
     assert out["fixed"]["equal_arrays_phase16"] == 11
     assert out["salsa"]["equal_arrays_phase16"] == 13
     assert out["fixed"]["expired"] == out["fixed"]["expired_want"] > 0
