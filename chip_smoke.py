@@ -64,8 +64,9 @@ result line) when any phase fails:
    method table at Wd = 2048 (``methodbench.measure_cms``: flat, rowloop,
    twostage, salsa).
 4. End to end: BASELINE config #1 (``conf/benchmarkConf.yaml`` with the
-   in-process Redis store): generate the catchup journal (5,000,000
-   events by default), run ``AdAnalyticsEngine(device="cuda")`` under
+   in-process Redis store): generate the catchup journal (2,000,000
+   events by default: 10,000,000 cut to 5,000,000, then to 2,000,000 to
+   pay for phase 20), run ``AdAnalyticsEngine(device="cuda")`` under
    ``StreamRunner.run_catchup``, and require the generator's oracle
    (``gen.check_correct``) to find every window exact and the count
    kernel to have launched during the run; then replay the first
@@ -103,7 +104,7 @@ result line) when any phase fails:
 9. Paced YSB through the port's harness, as users run it: ``python -m
    streambench_tpu_torch.harness TORCH_TEST`` in a fresh workdir (a RESP
    server process, the engine process on ``cuda`` with the pipeline on
-   and four encode workers, the generator at 100,000 ev/s for 30 s over
+   and four encode workers, the generator at 100,000 ev/s for 15 s over
    the file journal, ``-g`` stats, ``VERIFY=1``).  The engine must exit
    0 having folded exactly the events the generator emitted, none
    dropped, with every window in Redis equal to the oracle over the
@@ -153,7 +154,7 @@ result line) when any phase fails:
    the card.  Each run's attempts come from a factory that builds a fresh
    engine on ``cuda``, a fault-wrapped reader and a runner, under a
    ``Supervisor`` (``max_no_progress_restarts=8``): (a) config #1 with
-   ``jax.sink.exactly_once: true``, 1,000,000 events, the reference's
+   ``jax.sink.exactly_once: true``, 500,000 events, the reference's
    exactly-once acceptance plan (seed 1234: sink faults with an outage
    and partial applies, torn/truncated/corrupt journal reads, crashes at
    batch 5, flush 1, batch 2, checkpoint 1), every window exact; (b) the
@@ -183,7 +184,7 @@ result line) when any phase fails:
    engine's.
 
 15. Sketch engines: BASELINE configs #2 and #3 on one generated journal
-   of 1,000,000 events of the stock topology (seed 61, the in-process
+   of 500,000 events of the stock topology (seed 61, the in-process
    store): (a) ``HLLDistinctEngine`` (R = 128): its windows are the
    golden's (exact distinct users per campaign and 10 s window over
    views), the estimates' mean relative error under 0.1, none dropped,
@@ -201,7 +202,7 @@ result line) when any phase fails:
    equal and the quantiles within one histogram bin (2^-5); (c) the
    same with ``jax.sliding.sliced: off``, its windows equal to (b)'s,
    its quantiles held as (b)'s; (d) per family, an engine that
-   snapshots after every flush is abandoned at 500,000 events and a
+   snapshots after every flush is abandoned half way and a
    fresh one resumes on the same store, its windows equal to (a)'s and
    (b)'s.  Each run's ev/s (and with ``close()``), its spans, the host
    ms of the fold per batch, K1's launches.  Phase 3 holds K1 on the
@@ -323,7 +324,48 @@ result line) when any phase fails:
    the oracle's over both (R = 256, the CLI engine's), the ``_reach`` hash
    the rounded estimates, both processes exiting 0.
 
-Each kernel's launches are counted over each of phases 4, 6-19, from 0
+20. The replica fleet (M13b): the reference reach benchmark's three fleet
+   rungs at their own parameters, the replicas on the card.  (a)
+   ``bench_reach.py:run_replica_scaleout``: a writer with phase 19's
+   large-rung engine (100 campaigns, k = 256, R = 1,024, B = 8,192)
+   folds 128 KB blocks of a 100,000-event journal 0.6 s apart and ships
+   every 400 ms, its pub/sub origin live; 1 and then 2 replica processes
+   (``chaos.fleet_supervisor.cli_spawn``: ``python -m
+   streambench_tpu_torch.reach.replica --device cuda --fleet
+   --metrics-dir ...`` at pinned ports) each answer 240 queries 4 ms
+   apart.  Shed + served = sent, every reply carries ``plane_epoch``,
+   ``staleness_ms`` and a freshness block whose hops sum to it, each
+   replica reports its clock estimate; replica 0 is SIGKILLed and the
+   supervisor respawns it at its port, and the card's memory in use
+   comes back within one replica context (the card's memory taken by the
+   first replica) of what it was before the kill; then the ingest
+   stops, the last planes ship, and 64 queries of 4-6 campaigns to each
+   replica give the oracle's ``agree``; ``obs fleet`` over the run's
+   journals renders the writer and the replicas, and ``obs trace
+   --merge`` of the writer's and the replicas' traces validates.  It
+   reports the off-writer contention ratio, staleness p50/p99, each
+   replica process's seconds to its ready line and to its first answer,
+   and the peak device memory per process.  (b)
+   ``run_fleet_chaos``: 2 in-process replicas on the card behind
+   ``ChaosPubSub`` proxies sharing one seeded injector, the router in
+   front, epochs shipped live through the ship-log fault hook and
+   queries at the reference's own smoke schedule (10 epochs 0.3 s
+   apart, 60 queries; the defaults, 14 and 160, are 134 s of timeouts),
+   each replica killed once mid-storm and respawned at its
+   port by the ``FleetSupervisor`` (its planes freed before its successor
+   loads); sent = answered + shed by id, no answer staler than the bound,
+   the final record bit-identical to the fault-free arm's; the router's
+   failover p99 and shed ratio.  (c) ``run_autoscale`` at its reduced
+   schedule (5 -> 30 qps over 8 s, bursts of 24, 8 s of tail; the
+   defaults, 6 -> 36 qps over 14 s and 7 s of tail, do not fit the
+   smoke's time) against in-process
+   replicas (K = 8,192, R = 4,096, 16 campaigns) without and with the
+   ``AutoscaleController`` (at most 3 replicas): the ON arm's breach
+   ratio below the OFF arm's, at least one scale-up, every decision
+   journaled with its freshness-hop evidence.  No kernel runs on this
+   path: K1-K3 launch 0 times.
+
+Each kernel's launches are counted over each of phases 4, 6-20, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -334,6 +376,7 @@ is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --only-session   # phases 1-3 and 16 alone
     python3 chip_smoke.py --only-sharded-sketches  # 1-3, 15, 16 and 18
     python3 chip_smoke.py --only-reach     # phases 1-3 and 19 alone
+    python3 chip_smoke.py --only-fleet     # phases 1-3 and 20 alone
 """
 
 from __future__ import annotations
@@ -364,7 +407,7 @@ CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
            "jax.batch.size": 8192, "jax.num.campaigns": 1_000_000,
            "jax.ads.per.campaign": 1}
 # phases 9, 10 and 13: (rate ev/s, seconds) of the paced load
-PACED_LOAD = (100_000, 30)
+PACED_LOAD = (100_000, 15)
 KAFKA_LOAD = (10_000, 15)
 PACED_DECODE_LOAD = (100_000, 15)
 # phase 11: the paced load and the harness's obs knobs
@@ -429,7 +472,7 @@ COLLIDING_UNKNOWN = "940eee3c-ba6f-475c-ae84-49715a2a4143"
 # phase 14: runs (a)-(c) at phase 7's and phase 6's size, run (d) over
 # the in-process fake Kafka; the sink retry of the reference's chaos
 # tests, so a faulted write is retried within milliseconds
-CHAOS_EVENTS = 1_000_000
+CHAOS_EVENTS = 500_000
 CHAOS_KAFKA_EVENTS = 200_000
 CHAOS_KAFKA_TAIL = 1_024            # produced through the armed cluster
 CHAOS_RUNS = ("xo", "decode", "config5", "kafka")
@@ -492,9 +535,9 @@ CASES = (
      1000, 2048, "sliced"),
 )
 # the phase 15 dataset: the stock topology (conf/benchmarkConf.yaml),
-# 1,000,000 events 10 ms apart, its own seed (run (d) crashes half way)
+# 500,000 events 10 ms apart, its own seed (run (d) crashes half way)
 STORE_SAMPLE = 10_000             # windows phases 17 and 18 (b) read back
-SKETCH_EVENTS = 1_000_000
+SKETCH_EVENTS = 500_000
 SKETCH_SEED = 61
 SLIDE_CLASSES = 10                 # S = 10 s / 1 s
 # K3's cases: (label, rows, D, Wd, Ws of the two-stage refresh or None,
@@ -4871,9 +4914,9 @@ def _reach_live(engine, data: ReachData, names: list, sets: dict,
     pushed: list = []
     push = srv.update_state
 
-    def recorded(mins, registers, epoch, shipped_ms=None):
+    def recorded(mins, registers, epoch, shipped_ms=None, freshness=None):
         pushed.append((minhash.mins_numpy(mins), registers.cpu().numpy()))
-        push(mins, registers, epoch, shipped_ms)
+        push(mins, registers, epoch, shipped_ms, freshness)
 
     srv.update_state = recorded
     engine.attach_reach(srv)
@@ -5189,6 +5232,1181 @@ def _reach_launches(reach: dict, kernel: str) -> dict:
     return {f"reach_{run}": reach[run]["kernel_launches"][kernel]
             for run in ("catchup", "cli")}
 
+
+# ---------------------------------------------------------------------
+# phase 20: the replica fleet
+FLEET_SEED = 29
+FLEET_EVENTS = 100_000            # (a): the writer's journal, folded in loops
+FLEET_USERS = 40_000
+FLEET_SCALEOUT = {"replica_counts": (1, 2), "queries_n": 240,
+                  "gap_s": 0.004, "ship_ms": 400, "ingest_gap_s": 0.6}
+FLEET_AGREE_QUERIES = 64          # (a): asked of each replica at the end
+FLEET_READY_S = 30.0              # fleet_supervisor.wait_ready's default
+# (b) at the reference's own smoke schedule (bench_reach.py:2231: 60
+# queries over 10 epochs shipped 0.3 s apart): its defaults, 160 queries
+# over 14 epochs, are 134 s of the plan's 1.5 s timeouts (PERF.md §4)
+FLEET_CHAOS = {"seed": 7, "replicas_n": 2, "epochs_n": 10,
+               "queries_n": 60, "ship_gap_s": 0.3, "gap_s": 0.02,
+               "max_staleness_ms": 10_000}
+# (c) at the reference's reduced schedule (bench_reach.py:2237, 8 s + 8 s,
+# 5 -> 30 qps): the defaults' 14 s + 7 s, 6 -> 36 qps do not fit the
+# whole smoke's time (PERF.md §4)
+FLEET_AUTOSCALE = {"seed": 13, "duration_s": 8.0, "tail_s": 8.0,
+                   "qps0": 5.0, "qps1": 30.0, "burst_n": 24, "camps_n": 16,
+                   "K": 8192, "R": 4096, "ship0_ms": 2000,
+                   "objective_staleness_ms": 1000, "objective_p99_ms": 15,
+                   "max_replicas": 3, "clients": 16}
+
+
+def _used_bytes(device: str):
+    """Device memory in use on the card by every process, contexts
+    included (``torch.cuda.mem_get_info``), or "not measured" off the
+    card."""
+    import torch
+
+    if device != "cuda":
+        return "not measured"
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def _merge_ns(raw: list) -> list:
+    merged: list = []
+    for s, e in sorted(raw):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def _ask_until_served(host: str, port: int, campaign: str, tag: str,
+                      timeout_s: float) -> float | None:
+    """Seconds until ``host:port`` answers a reach query (not a shed),
+    asking with a fresh id each time; None if it never does."""
+    from streambench_tpu_torch.dimensions.pubsub import PubSubClient
+
+    t0 = time.monotonic()
+    deadline = t0 + timeout_s
+    n = 0
+    while time.monotonic() < deadline:
+        n += 1
+        try:
+            c = PubSubClient(host, port, timeout_s=5)
+            try:
+                d = c.request({"type": "reach", "campaigns": [campaign],
+                               "op": "union", "id": f"{tag}{n}"},
+                              timeout_s=5.0)
+            finally:
+                c.close()
+            if "estimate" in d:
+                return time.monotonic() - t0
+        except (TimeoutError, ConnectionError, OSError):
+            pass
+        time.sleep(0.05)
+    return None
+
+
+def _replica_stats(out_path: str) -> dict:
+    """The last JSON line a replica process wrote (its exit stats)."""
+    with open(out_path, encoding="utf-8", errors="replace") as f:
+        lines = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1]) if lines else {}
+
+
+def _fleet_scaleout(device: str, *, events: int = FLEET_EVENTS,
+                    users: int = FLEET_USERS, replica_counts=(1, 2),
+                    queries_n: int = 240, gap_s: float = 0.004,
+                    ship_ms: int = 400, ingest_gap_s: float = 0.6,
+                    agree_queries: int = FLEET_AGREE_QUERIES,
+                    ready_s: float = FLEET_READY_S) -> dict:
+    """20 (a): ``bench_reach.py:run_replica_scaleout`` at its defaults on
+    the port (module doc)."""
+    import numpy as np
+
+    from streambench_tpu_torch.chaos.fleet_supervisor import (
+        FleetSupervisor,
+        cli_spawn,
+        wait_ready,
+    )
+    from streambench_tpu_torch.dimensions.pubsub import (
+        PubSubClient,
+        PubSubServer,
+    )
+    from streambench_tpu_torch.dimensions.store import (
+        LOG_NAME,
+        DurableDimensionStore,
+    )
+    from streambench_tpu_torch.io.fakeredis import make_store
+    from streambench_tpu_torch.io.redis_schema import as_redis
+    from streambench_tpu_torch.obs import MetricsSampler, SpanTracer
+    from streambench_tpu_torch.reach import oracle as ro
+    from streambench_tpu_torch.reach.replica import SnapshotShipper
+
+    t_phase = time.perf_counter()
+    data = ReachData(events, REACH_CAMPAIGNS, users, FLEET_SEED,
+                     name="smoke_fleet")
+    names = list(data.campaigns)
+    fleet_dir = os.path.join(data.workdir, "fleet")
+    os.makedirs(fleet_dir)
+    engine = _reach_engine(data, data.config(), as_redis(make_store()),
+                           device)
+    engine.warmup()
+    _reset_peak(device)
+    ship_dir = os.path.join(data.workdir, "ship")
+    store = DurableDimensionStore(ship_dir)
+    ship_path = os.path.join(ship_dir, LOG_NAME)
+    # the writer's pub/sub origin: the replicas ping it for their clock
+    # offset, and every shipped record names it
+    origin = PubSubServer(port=0).start()
+    o_host, o_port = origin.address
+    shipper = SnapshotShipper(store, names, interval_ms=ship_ms,
+                              origin={"addr": f"{o_host}:{o_port}",
+                                      "pid": os.getpid(), "role": "writer"})
+    eng_lock = threading.Lock()
+    with eng_lock:
+        engine.attach_shipper(shipper)
+    spans = SpanTracer(capacity=8192)
+    folded = {"events0": engine.events_processed, "events": 0, "wall": 0.0}
+    sampler = MetricsSampler(os.path.join(fleet_dir, "metrics.jsonl"),
+                             interval_ms=250, role="writer")
+
+    def collect(rec, dt_s):
+        rec["events"] = folded["events"]
+        rec["events_per_s"] = round(
+            folded["events"] / max(folded["wall"], 1e-9), 1)
+        rec["ship"] = shipper.summary()
+
+    sampler.add_collector(collect)
+    sampler.start()
+
+    def force_ship(*_):
+        with eng_lock:
+            p = engine.planes()
+            shipper.note_state(p["mins"], p["registers"], engine.reach_epoch,
+                               int(engine.state.watermark), force=True,
+                               folded_ms=engine._fold_wall_ms)
+
+    ingest_stop = threading.Event()
+    busy: list = []
+    errors: list = []
+
+    def ingest() -> None:
+        try:
+            t_start = time.monotonic()
+            while not ingest_stop.is_set():
+                with open(data.journal, "rb") as f:
+                    carry = b""
+                    while not ingest_stop.is_set():
+                        chunk = f.read(128 << 10)
+                        if not chunk:
+                            break
+                        chunk = carry + chunk
+                        nl = chunk.rfind(b"\n") + 1
+                        carry = chunk[nl:]
+                        with eng_lock, spans.span("fold", cat="stage"):
+                            engine.process_block(chunk[:nl])
+                            t0 = time.monotonic_ns()
+                            _sync(device)
+                            busy.append((t0, time.monotonic_ns()))
+                            engine.flush()      # ships at the cadence
+                        folded["events"] = (engine.events_processed
+                                            - folded["events0"])
+                        folded["wall"] = time.monotonic() - t_start
+                        ingest_stop.wait(ingest_gap_s)
+        except Exception as e:
+            errors.append(f"ingest: {e!r}")
+
+    t_ing = threading.Thread(target=ingest, daemon=True)
+    ladder: dict = {}
+    all_waits: list = []
+    stats_all: list = []
+    out: dict = {"events": events, "users": users, "k": engine.k,
+                 "registers": engine.registers,
+                 "batch": engine.batch_size, "device": device,
+                 "ship_interval_ms": ship_ms, "ingest_gap_s": ingest_gap_s,
+                 "queries_n": queries_n, "gap_s": gap_s}
+    mem: dict = {}
+    env_pp = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = REPO + (os.pathsep + env_pp if env_pp
+                                       else "")
+    sup = None
+    final_n = max(replica_counts)
+    try:
+        force_ship()                       # a record to load at once
+        t_ing.start()
+        for n_rep in replica_counts:
+            rung_dir = (fleet_dir if n_rep == final_n
+                        else os.path.join(data.workdir, f"r{n_rep}"))
+            ports = [_free_port() for _ in range(n_rep)]
+            spawn = cli_spawn(
+                ship_path, rung_dir, ports=ports, poll_ms=150, fleet=True,
+                metrics=True, device=device,
+                extra_args=("--batch", "64", "--dump-queue-waits",
+                            "--metrics-interval-ms", "250"))
+            _sync(device)
+            used_before = _used_bytes(device)
+            sup = FleetSupervisor(spawn, n_rep, backoff_base_ms=40.0,
+                                  backoff_cap_ms=400.0, healthy_after_s=0.3,
+                                  seed=FLEET_SEED, on_restart=force_ship)
+            t_spawn = time.monotonic()
+            sup.start()
+            addrs: list = [None] * n_rep
+            ready: list = [None] * n_rep
+
+            def await_ready(idx, d=rung_dir):
+                try:
+                    addrs[idx] = wait_ready(
+                        os.path.join(d, f"replica_{idx}.out"),
+                        timeout_s=ready_s)
+                    line_s = time.monotonic() - t_spawn
+                    first = _ask_until_served(*addrs[idx], names[0],
+                                              f"warm{idx}-", ready_s)
+                    ready[idx] = {"ready_line_s": line_s,
+                                  "first_answer_s": (
+                                      None if first is None
+                                      else time.monotonic() - t_spawn)}
+                except Exception as e:
+                    errors.append(f"replica {idx} of {n_rep}: {e!r}")
+
+            waits = [threading.Thread(target=await_ready, args=(i,))
+                     for i in range(n_rep)]
+            for t in waits:
+                t.start()
+            for t in waits:
+                t.join(timeout=2 * ready_s + 10)
+            if (errors or any(r is None or r["first_answer_s"] is None
+                              for r in ready)):
+                raise AssertionError(
+                    f"[fleet_scaleout] {n_rep} replica(s) not ready within "
+                    f"{ready_s} s on {device}: {ready}; {errors[:3]}")
+            _sync(device)
+            used_up = _used_bytes(device)
+            if n_rep == 1 and device == "cuda":
+                mem["replica_context_bytes"] = used_up - used_before
+            answers: list = [[] for _ in range(n_rep)]
+
+            def storm(ci: int) -> None:
+                try:
+                    c = PubSubClient(*addrs[ci], timeout_s=120)
+                    rng = np.random.default_rng(1000 + ci)
+                    pending = 0
+                    for qi in range(queries_n):
+                        sel = [names[j] for j in rng.choice(
+                            len(names), size=int(rng.integers(1, 4)),
+                            replace=False)]
+                        c.request({"type": "reach", "campaigns": sel,
+                                   "op": "overlap" if qi % 2 else "union",
+                                   "id": qi})
+                        pending += 1
+                        while pending > 32:
+                            answers[ci].append(c.recv()["data"])
+                            pending -= 1
+                        time.sleep(gap_s)
+                    for _ in range(pending):
+                        answers[ci].append(c.recv()["data"])
+                    c.close()
+                except Exception as e:
+                    errors.append(f"storm {ci}: {e!r}")
+
+            t0 = time.monotonic()
+            threads = [threading.Thread(target=storm, args=(ci,))
+                       for ci in range(n_rep)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            storm_s = time.monotonic() - t0
+            if n_rep == final_n:
+                # (d), while the writer still folds and ships (a fleet
+                # replica's staleness anchors at the last fold): SIGKILL
+                # replica 0; the supervisor respawns it at its pinned
+                # port, and the card's memory in use comes back
+                _sync(device)
+                used_kill = _used_bytes(device)
+                t_kill = time.monotonic()
+                if not sup.kill(0):
+                    raise AssertionError("[fleet_scaleout] replica 0 was "
+                                         "not alive to kill")
+                deadline = t_kill + ready_s
+                while time.monotonic() < deadline:
+                    sup.step()
+                    if sup.slots[0].restarts and sup.alive(0):
+                        break
+                    time.sleep(0.02)
+                respawned_s = time.monotonic() - t_kill
+                first = _ask_until_served(*addrs[0], names[0], "respawn",
+                                          ready_s)
+                if first is None or not sup.slots[0].restarts:
+                    with open(os.path.join(rung_dir, "replica_0.out"),
+                              errors="replace") as f:
+                        tail = f.read()[-2000:]
+                    raise AssertionError(
+                        f"[fleet_scaleout] the killed replica did not come "
+                        f"back at {addrs[0]} within {ready_s} s: "
+                        f"{sup.summary()}; its output: {tail}")
+                _sync(device)
+                used_back = _used_bytes(device)
+                mem.update({"used_before_kill_bytes": used_kill,
+                            "used_after_respawn_bytes": used_back,
+                            "respawn_s": respawned_s,
+                            "respawn_to_answer_s": time.monotonic()
+                            - t_kill})
+                # the end of the ingest: the last fold's planes, shipped,
+                # and each replica's answers against the oracle on them
+                ingest_stop.set()
+                t_ing.join(timeout=120)
+                force_ship()
+                with eng_lock:
+                    p = engine.planes()
+                rng = np.random.default_rng(FLEET_SEED + 2)
+                masks = np.zeros((agree_queries, len(names)), bool)
+                for i in range(agree_queries):
+                    # 4-6 campaigns: no set the storm asked (1-3), so no
+                    # cached answer of older planes can come back
+                    masks[i, rng.choice(len(names), size=int(
+                        rng.integers(4, 7)), replace=False)] = True
+                want = ro.query_oracle_np(p["mins"], p["registers"],
+                                          masks)
+                time.sleep(max(1.5, 10 * 0.15))   # ten tailer polls
+                agree_ok = []
+                for ci, addr in enumerate(addrs):
+                    c = PubSubClient(*addr, timeout_s=60)
+                    got = [c.request({"type": "reach", "op": "overlap",
+                                      "id": f"agree{ci}-{i}",
+                                      "campaigns": [names[j] for j in
+                                                    np.flatnonzero(m)]},
+                                     timeout_s=30.0)
+                           for i, m in enumerate(masks)]
+                    c.close()
+                    agree_ok.append(all("jaccard" in d for d in got)
+                                    and [round(d["jaccard"] * engine.k)
+                                         for d in got] == want.tolist())
+                out["agree_equal_oracle"] = agree_ok
+            sup.stop(grace_s=30.0)
+            codes = [s.handle.poll() for s in sup.slots]
+            stats = [_replica_stats(os.path.join(rung_dir,
+                                                 f"replica_{i}.out"))
+                     for i in range(n_rep)]
+            stats_all.extend(stats)
+            flat = [d for got in answers for d in got]
+            served = [d for d in flat if "estimate" in d]
+            shed = [d for d in flat if d.get("shed")]
+            stales = sorted(d["staleness_ms"] for d in served)
+            hop_bad = [d for d in served if abs(
+                sum(d["freshness"][f"{h}_ms"] for h in
+                    ("fold_lag", "ship_wait", "tail_lag", "serve"))
+                - d["freshness"]["staleness_ms"]) > 0.25
+                or d["staleness_ms"] != d["freshness"]["staleness_ms"]]
+            for s in stats:
+                all_waits.extend(s.get("queue_waits_ns") or [])
+            clocks = [s.get("clock") for s in stats]
+            ladder[f"r{n_rep}"] = {
+                "replicas": n_rep, "sent": n_rep * queries_n,
+                "served": len(served), "shed": len(shed),
+                "qps": len(served) / max(storm_s, 1e-9),
+                "storm_s": storm_s,
+                "staleness_p50_ms": (stales[len(stales) // 2]
+                                     if stales else None),
+                "staleness_p99_ms": (stales[min(len(stales) - 1, int(
+                    len(stales) * 0.99))] if stales else None),
+                "staleness_max_ms": stales[-1] if stales else None,
+                "clock": clocks,
+                "clock_applied": [bool((c or {}).get("applied"))
+                                  for c in clocks],
+                "cache_hits": sum(((s.get("serve") or {}).get("cache")
+                                   or {}).get("hits", 0) for s in stats),
+                "ready": ready, "exit_codes": codes,
+                "peak_device_bytes": [
+                    (s.get("device_memory") or {}).get(
+                        "peak_allocated_bytes", "not measured")
+                    for s in stats],
+                "ingest_events_folded": folded["events"]}
+            print(f"[fleet_scaleout] r{n_rep} "
+                  f"{json.dumps(ladder[f'r{n_rep}'])}", flush=True)
+            if (errors or len(flat) != n_rep * queries_n
+                    or len(served) + len(shed) != n_rep * queries_n
+                    or not served
+                    or not all("plane_epoch" in d for d in flat)
+                    or hop_bad or any(c is None for c in clocks)
+                    or any(code != 0 for code in codes)):
+                raise AssertionError(
+                    f"[fleet_scaleout] r{n_rep}: {len(flat)} replies of "
+                    f"{n_rep * queries_n}, {len(served)} served + "
+                    f"{len(shed)} shed, hop sums off {hop_bad[:2]}, "
+                    f"clocks {clocks}, exit codes {codes}; {errors[:3]}")
+            sup = None
+    finally:
+        ingest_stop.set()
+        t_ing.join(timeout=120)
+        if sup is not None:
+            sup.stop(grace_s=10.0)
+        if env_pp is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = env_pp
+        sampler.close()
+        origin.close()
+        store.close()
+    spans.dump(os.path.join(fleet_dir, "trace_writer.json"),
+               run="fleet-writer")
+    from streambench_tpu_torch.obs.queryattr import _interval_overlap_ns
+
+    merged_busy = _merge_ns([list(b) for b in busy])
+    wait_total = sum(max(b - a, 0) for a, b in all_waits)
+    overlap = sum(_interval_overlap_ns(a, b, merged_busy)
+                  for a, b in all_waits if b > a)
+    busy_ns = sum(e - s for s, e in merged_busy)
+    span_ns = ((merged_busy[-1][1] - merged_busy[0][0]) if merged_busy
+               else 0)
+    out.update({
+        "ladder": ladder,
+        "offwriter_contention_ratio": (overlap / wait_total
+                                       if wait_total else 0.0),
+        "ingest_busy_duty": busy_ns / span_ns if span_ns else 0.0,
+        "queue_wait_ms": wait_total / 1e6,
+        "ingest_overlap_ms": overlap / 1e6, "busy_windows": len(busy),
+        "ingest_events_folded": folded["events"],
+        "ingest_events_per_s": folded["events"] / max(folded["wall"],
+                                                      1e-9),
+        "ships": shipper.ships, "writer_peak_device_bytes": _peak(device),
+        "memory": mem})
+    # the fleet read back by its own instruments
+    import glob
+
+    fleet = _obs_cli("fleet", fleet_dir)
+    roles = sorted(a["role"] for a in fleet["roles"])
+    traces = [f"writer={os.path.join(fleet_dir, 'trace_writer.json')}"]
+    for i in range(final_n):
+        traces += [f"replica={p}" for p in sorted(glob.glob(os.path.join(
+            fleet_dir, f"replica_{i}", "trace_*.json")))]
+    merged = _obs_cli("trace", *traces, "--merge", "--out",
+                      os.path.join(fleet_dir, "merged_trace.json"))
+    out["obs_fleet"] = {"roles": roles, "processes": fleet["processes"]}
+    out["trace_merge"] = {"processes": merged["processes"],
+                          "traces": len(traces)}
+    stales = [s for r in ladder.values()
+              for s in (r["staleness_p50_ms"], r["staleness_p99_ms"])]
+    out["phase_s"] = time.perf_counter() - t_phase
+    data.remove()
+    brief = {k: v for k, v in out.items() if k != "ladder"}
+    print(f"[fleet_scaleout] {json.dumps(brief)}", flush=True)
+    ctx = mem.get("replica_context_bytes")
+    if device == "cuda" and (
+            not isinstance(ctx, int) or ctx <= 0
+            or mem["used_after_respawn_bytes"]
+            - mem["used_before_kill_bytes"] >= ctx):
+        raise AssertionError(f"[fleet_scaleout] (d): device memory after "
+                             f"the kill and respawn {mem}")
+    if (not all(out["agree_equal_oracle"])
+            or "writer" not in roles or roles.count("replica") < final_n
+            or sorted(set(merged["processes"].values()))
+            != ["replica", "writer"] or None in stales):
+        raise AssertionError(f"[fleet_scaleout] agree {out['agree_equal_oracle']}"
+                             f", obs fleet roles {roles}, merged trace "
+                             f"{merged['processes']}")
+    return out
+
+
+def _fleet_chaos(device: str, *, seed: int = 7, replicas_n: int = 2,
+                 epochs_n: int = 14, queries_n: int = 160,
+                 ship_gap_s: float = 0.4, gap_s: float = 0.02,
+                 max_staleness_ms: int = 10_000) -> dict:
+    """20 (b): ``bench_reach.py:run_fleet_chaos`` at its defaults on the
+    port (module doc): in-process replicas on ``device`` behind
+    ``ChaosPubSub`` proxies and the router, the plan's network and
+    ship-log faults, each replica killed once and respawned at its port."""
+    import numpy as np
+
+    from streambench_tpu_torch.chaos import (
+        ChaosPubSub,
+        FaultInjector,
+        FaultPlan,
+        FleetSupervisor,
+        check_fleet_accounting,
+        check_fleet_convergence,
+        check_staleness_bound,
+        ship_epoch_timeline,
+    )
+    from streambench_tpu_torch.dimensions.pubsub import PubSubClient
+    from streambench_tpu_torch.dimensions.store import (
+        LOG_NAME,
+        DurableDimensionStore,
+    )
+    from streambench_tpu_torch.reach.replica import ReachReplica
+    from streambench_tpu_torch.reach.router import ReachRouter
+    from streambench_tpu_torch.utils.ids import now_ms
+
+    t_phase = time.perf_counter()
+    workdir = _workdir("smoke_fleet_chaos")
+    camps = [f"fleet-c{i}" for i in range(8)]
+    K, R = 64, 128
+
+    def planes(epoch: int):
+        rng = np.random.default_rng(seed * 1000 + epoch)
+        mins = rng.integers(0, 1 << 32, size=(len(camps), K),
+                            dtype=np.uint32)
+        regs = rng.integers(0, 30, size=(len(camps), R)).astype(np.int32)
+        return mins, regs
+
+    # the clean arm: the fault-free ship log, written up front
+    clean_dir = os.path.join(workdir, "fleet_clean")
+    clean_store = DurableDimensionStore(clean_dir)
+    for e in range(1, epochs_n + 1):
+        m, r = planes(e)
+        clean_store.put_reach_sketches(m, r, camps, e, submit_ms=now_ms(),
+                                       folded_ms=now_ms())
+    clean_store.close()
+    # the chaos arm: a live writer at a cadence through the fault hook
+    plan = FaultPlan.generate(
+        seed, net_drop_rate=0.06, net_delay_rate=0.04, net_delay_ms=20,
+        net_dup_rate=0.06, net_torn_rate=0.04, net_msgs=6000,
+        partition_windows=((120, 30),), ship_rate=0.3, ship_ops=epochs_n)
+    injector = FaultInjector(plan)
+    chaos_dir = os.path.join(workdir, "fleet_chaos")
+    chaos_store = DurableDimensionStore(chaos_dir)
+    ship_filter = injector.attach_ship_chaos(chaos_store)
+    chaos_log = os.path.join(chaos_dir, LOG_NAME)
+    ship_lock = threading.Lock()
+    last_epoch = {"e": 0}
+
+    def ship(epoch: int) -> None:
+        m, r = planes(epoch)
+        with ship_lock:
+            chaos_store.put_reach_sketches(m, r, camps, epoch,
+                                           submit_ms=now_ms(),
+                                           folded_ms=now_ms())
+            last_epoch["e"] = max(last_epoch["e"], epoch)
+
+    chaos_store.ship_fault_hook = None     # the boot record, intact
+    ship(1)
+    chaos_store.ship_fault_hook = ship_filter
+    writer_stop = threading.Event()
+
+    def writer() -> None:
+        for e in range(2, epochs_n + 1):
+            if writer_stop.wait(ship_gap_s):
+                return
+            ship(e)
+
+    t_writer = threading.Thread(target=writer, daemon=True)
+    rep_ports = [_free_port() for _ in range(replicas_n)]
+    reps: dict = {}
+    proxies: list = []
+    kills: list = []
+
+    class _Handle:
+        """In-process stand-in for a replica process: a kill closes the
+        live replica, drops its planes and severs its proxied
+        connections; whether its plane tensors were freed is recorded."""
+
+        def __init__(self, idx: int):
+            self.idx = idx
+            self.pid = os.getpid()
+            self._code = None
+
+        def poll(self):
+            return self._code
+
+        def kill(self):
+            if self._code is not None:
+                return
+            rep = reps.pop(self.idx, None)
+            if rep is not None:
+                st = rep.server._state if rep.server is not None else None
+                refs = (list(map(weakref.ref, st[:2])) if st is not None
+                        else [])
+                del st
+                rep.close()
+                del rep
+                gc.collect()
+                kills.append({"idx": self.idx, "planes": len(refs),
+                              "freed": all(r() is None for r in refs)})
+            proxies[self.idx].drop_conns()
+            self._code = -9
+
+        terminate = kill
+
+    def spawn(idx: int, attempt: int):
+        rep = ReachReplica(chaos_log, host="127.0.0.1",
+                           port=rep_ports[idx], poll_ms=100,
+                           max_staleness_ms=max_staleness_ms,
+                           depth=256, batch=32, device=device).start()
+        reps[idx] = rep
+        return _Handle(idx)
+
+    def on_restart(idx: int, attempt: int) -> None:
+        # the restart-path forced ship: the respawned replica finds a
+        # recent record instead of shedding stale until the cadence
+        if last_epoch["e"]:
+            ship(last_epoch["e"])
+
+    sup = FleetSupervisor(spawn, replicas_n, backoff_base_ms=40.0,
+                          backoff_cap_ms=400.0, max_restarts=5,
+                          healthy_after_s=0.3, seed=seed,
+                          on_restart=on_restart,
+                          counters=injector.counters).start()
+    for idx in range(replicas_n):
+        proxies.append(ChaosPubSub(("127.0.0.1", rep_ports[idx]), injector,
+                                   name=f"-r{idx}").start())
+    watch_stop = threading.Event()
+
+    def watch() -> None:
+        while not watch_stop.is_set():
+            sup.step()
+            watch_stop.wait(0.05)
+
+    t_watch = threading.Thread(target=watch, daemon=True)
+    router = ReachRouter([f"{h}:{p}" for h, p in
+                          (pr.address for pr in proxies)],
+                         timeout_s=1.5, retries=1).start()
+    r_host, r_port = router.address
+    sent_ids: list = []
+    replies: list = []
+    stamped: list = []
+    kill_at = {queries_n // 3: 0, (2 * queries_n) // 3: 1}
+    rng = np.random.default_rng(seed)
+    warm_s = []
+    try:
+        # warm each replica directly, off the proxies (no plan index spent)
+        for idx in range(replicas_n):
+            s = _ask_until_served("127.0.0.1", rep_ports[idx], camps[0],
+                                  f"warm{idx}-", 60.0)
+            if s is None:
+                raise AssertionError(f"[fleet_chaos] replica {idx} never "
+                                     "answered before the storm")
+            warm_s.append(s)
+        t_writer.start()
+        t_watch.start()
+        c = PubSubClient(r_host, r_port, timeout_s=120)
+        t0 = time.monotonic()
+        for qi in range(queries_n):
+            idx = kill_at.get(qi)
+            if idx is not None:
+                sup.kill(idx)
+            sel = sorted(camps[j] for j in rng.choice(
+                len(camps), size=int(rng.integers(1, 4)), replace=False))
+            qid = f"fc{qi}"
+            submit_ms = now_ms()
+            # the client's link to the router is clean: the router always
+            # terminates a query, so ids stay one to one
+            data = c.request({"type": "reach", "campaigns": sel,
+                              "op": "overlap" if qi % 3 == 0 else "union",
+                              "id": qid}, timeout_s=60.0)
+            sent_ids.append(qid)
+            replies.append(data)
+            stamped.append((submit_ms, data))
+            time.sleep(gap_s)
+        storm_s = time.monotonic() - t0
+        c.close()
+        t_writer.join(timeout=60)
+        # heal: respawns settle, then the clean close ship, twice (a
+        # trailing torn stub eats one following append)
+        deadline = time.monotonic() + 15
+        while time.monotonic() < deadline:
+            if all(sup.alive(i) for i in range(replicas_n)):
+                break
+            time.sleep(0.05)
+        ship(epochs_n)
+        ship(epochs_n)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            eps = [reps[i].server.epoch
+                   if i in reps and reps[i].server is not None else None
+                   for i in range(replicas_n)]
+            if all(e == epochs_n for e in eps):
+                break
+            time.sleep(0.1)
+        replica_epochs = [
+            (reps[i].server.epoch
+             if i in reps and reps[i].server is not None else None)
+            for i in range(replicas_n)]
+    finally:
+        watch_stop.set()
+        if t_watch.is_alive():
+            t_watch.join(timeout=10)
+        writer_stop.set()
+        router.close()
+        for rep in list(reps.values()):
+            rep.close()
+        for pr in proxies:
+            pr.close()
+        chaos_store.close()
+    v = check_fleet_accounting(sent_ids, replies,
+                               repro=f"chip_smoke.py phase 20 (b) "
+                                     f"seed={seed}")
+    check_staleness_bound(stamped, ship_epoch_timeline(chaos_log),
+                          max_staleness_ms, verdict=v, slack_ms=50)
+    check_fleet_convergence(chaos_log, replica_epochs,
+                            clean_ship_path=os.path.join(clean_dir,
+                                                         LOG_NAME),
+                            verdict=v)
+    rt = router.summary()
+    proxy_stats: dict = {}
+    for pr in proxies:
+        for k2, n in pr.stats.items():
+            proxy_stats[k2] = proxy_stats.get(k2, 0) + n
+    sup_sum = sup.summary()
+    out = {"seed": seed, "replicas": replicas_n, "epochs": epochs_n,
+           "device": device, "sent": v.sent, "answered": v.answered,
+           "shed": v.shed,
+           "accounting_exact": not (v.duplicate_ids or v.missing_ids
+                                    or v.unexpected_ids),
+           "stale_violations": len(v.stale_violations),
+           "max_staleness_ms": max_staleness_ms,
+           "lagging_replicas": v.lagging_replicas,
+           "bit_identical_final": not v.divergent,
+           "writer_epoch": v.writer_epoch, "storm_s": storm_s,
+           "warm_s": warm_s,
+           "router": {k2: rt.get(k2) for k2 in
+                      ("routed", "answered", "shed", "failovers",
+                       "shed_ratio", "failover_p50_ms", "failover_p99_ms",
+                       "qps")},
+           "proxy": proxy_stats,
+           "supervisor": {k2: sup_sum[k2] for k2 in
+                          ("restarts", "kills", "gave_up")},
+           "kills": kills, "faults": injector.counters.snapshot(),
+           "phase_s": time.perf_counter() - t_phase}
+    shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[fleet_chaos] {json.dumps(out)}", flush=True)
+    if (not v.ok or sup_sum["restarts"] < replicas_n
+            or rt.get("failovers", 0) < 1 or "failover_p99_ms" not in rt
+            or len(kills) != replicas_n
+            or not all(k["freed"] and k["planes"] == 2 for k in kills)):
+        raise AssertionError(f"[fleet_chaos] {v.summary()}; supervisor "
+                             f"{sup_sum}; router {rt}; kills {kills}")
+    return out
+
+
+def _qps_ramp_schedule(*, seed: int, duration_s: float, qps0: float,
+                       qps1: float, ramp=(0.2, 0.7),
+                       burst_rate_hz: float = 0.5,
+                       burst_n: int = 8) -> list:
+    """``bench_reach.py:qps_ramp_schedule``: seeded Poisson arrivals whose
+    rate ramps ``qps0 -> qps1`` between the ``ramp`` fractions of the
+    run, plus Poisson bursts of ``burst_n`` simultaneous arrivals."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = ramp
+    t, out = 0.0, []
+    while True:
+        frac = min(t / duration_s, 1.0)
+        if frac <= lo:
+            rate = qps0
+        elif frac >= hi:
+            rate = qps1
+        else:
+            rate = qps0 + (qps1 - qps0) * (frac - lo) / (hi - lo)
+        t += float(rng.exponential(1.0 / rate))
+        if t >= duration_s:
+            return out
+        out.append(round(t, 4))
+        if float(rng.random()) < burst_rate_hz / rate:
+            out.extend([round(t, 4)] * (burst_n - 1))
+
+
+def _fleet_autoscale(device: str, *, seed: int = 13,
+                     duration_s: float = 14.0, tail_s: float = 7.0,
+                     qps0: float = 6.0, qps1: float = 36.0,
+                     burst_n: int = 24, camps_n: int = 16, K: int = 8192,
+                     R: int = 4096, ship0_ms: int = 2000,
+                     objective_staleness_ms: int = 1000,
+                     objective_p99_ms: int = 15, max_replicas: int = 3,
+                     clients: int = 16) -> dict:
+    """20 (c): ``bench_reach.py:run_autoscale`` at its defaults on the
+    port (module doc): one seeded ramp with bursts against in-process
+    replicas on ``device``, without the controller and with it."""
+    import numpy as np
+
+    from streambench_tpu_torch.chaos import FleetSupervisor
+    from streambench_tpu_torch.dimensions.pubsub import PubSubClient
+    from streambench_tpu_torch.dimensions.store import (
+        LOG_NAME,
+        DurableDimensionStore,
+    )
+    from streambench_tpu_torch.obs import (
+        AutoscaleController,
+        FlightRecorder,
+        MetricsRegistry,
+        MetricsSampler,
+        SpanTracer,
+    )
+    from streambench_tpu_torch.reach.replica import (
+        ReachReplica,
+        SnapshotShipper,
+    )
+    from streambench_tpu_torch.reach.router import ReachRouter
+    from streambench_tpu_torch.utils.ids import now_ms
+
+    t_phase = time.perf_counter()
+    workdir = _workdir("smoke_fleet_autoscale")
+    camps = [f"as-c{i}" for i in range(camps_n)]
+    rng0 = np.random.default_rng(seed * 1000)
+    mins0 = rng0.integers(0, 1 << 32, size=(len(camps), K),
+                          dtype=np.uint32)
+    regs0 = rng0.integers(0, 30, size=(len(camps), R)).astype(np.int32)
+    objective = {"staleness_ms": objective_staleness_ms,
+                 "p99_ms": objective_p99_ms}
+    schedule = _qps_ramp_schedule(seed=seed, duration_s=duration_s,
+                                  qps0=qps0, qps1=qps1, burst_n=burst_n)
+    qrng = np.random.default_rng(seed + 1)
+    qsets = [sorted(camps[j] for j in qrng.choice(
+        len(camps), size=int(qrng.integers(2, 7)), replace=False))
+        for _ in range(len(schedule))]
+    fleet_dir = os.path.join(workdir, "autoscale_fleet")
+    os.makedirs(fleet_dir)
+
+    def arm(on: bool) -> dict:
+        arm_dir = os.path.join(workdir, f"autoscale_{'on' if on else 'off'}")
+        store = DurableDimensionStore(arm_dir)
+        ship_log = os.path.join(arm_dir, LOG_NAME)
+        shipper = SnapshotShipper(store, camps, interval_ms=ship0_ms)
+        ship_lock = threading.Lock()
+        folds = {"n": 0}
+        writer_stop = threading.Event()
+
+        def fold_tick(force: bool = False) -> None:
+            # the epoch stays 1: due()'s epoch-bump bypass must not
+            # defeat the cadence the controller tunes
+            with ship_lock:
+                folds["n"] += 1
+                shipper.note_state(mins0, regs0, 1, watermark=folds["n"],
+                                   force=force, folded_ms=now_ms())
+
+        def writer() -> None:
+            while not writer_stop.is_set():
+                fold_tick()
+                writer_stop.wait(0.2)
+
+        rep_ports = [_free_port() for _ in range(max_replicas)]
+        reps: dict = {}
+        tracer = SpanTracer(capacity=8192) if on else None
+
+        class _Handle:
+            """In-process replica stand-in (as in (b))."""
+
+            def __init__(self, idx: int):
+                self.idx = idx
+                self.pid = os.getpid()
+                self._code = None
+
+            def poll(self):
+                return self._code
+
+            def _stop(self, code: int) -> None:
+                if self._code is not None:
+                    return
+                rep = reps.pop(self.idx, None)
+                if rep is not None:
+                    rep.close()
+                self._code = code
+
+            def kill(self):
+                self._stop(-9)
+
+            def terminate(self):
+                self._stop(0)
+
+        def spawn(idx: int, attempt: int):
+            # cache off: under one epoch the result cache would absorb
+            # the whole ramp; this rung loads the dispatch path
+            rep = ReachReplica(ship_log, host="127.0.0.1",
+                               port=rep_ports[idx], poll_ms=100,
+                               max_staleness_ms=30_000, cache_capacity=0,
+                               depth=2, batch=2, fleet=True, spans=tracer,
+                               device=device).start()
+            reps[idx] = rep
+            return _Handle(idx)
+
+        fold_tick(force=True)
+        sup = FleetSupervisor(spawn, 1, backoff_base_ms=40.0,
+                              backoff_cap_ms=400.0, healthy_after_s=0.3,
+                              seed=seed).start()
+        router = ReachRouter([f"127.0.0.1:{rep_ports[0]}"], timeout_s=5.0,
+                             retries=1).start()
+        r_host, r_port = router.address
+        warm = _ask_until_served("127.0.0.1", rep_ports[0], camps[0],
+                                 f"aswarm{int(on)}-", 60.0)
+        if warm is None:
+            raise AssertionError("[fleet_autoscale] the first replica "
+                                 "never answered")
+        ctrl = sampler = t_ctrl = None
+        ctrl_stop = threading.Event()
+        if on:
+            registry = MetricsRegistry()
+            ctrl_dir = os.path.join(fleet_dir, "controller")
+            os.makedirs(ctrl_dir, exist_ok=True)
+            sampler = MetricsSampler(os.path.join(ctrl_dir, "metrics.jsonl"),
+                                     interval_ms=500, registry=registry,
+                                     role="controller")
+            flightrec = FlightRecorder(ctrl_dir)
+
+            def collect():
+                ts = now_ms()
+                recs = []
+                for idx, rep in list(reps.items()):
+                    srv = rep.server
+                    if srv is not None:
+                        recs.append({"kind": "snapshot", "role": "replica",
+                                     "pid": 1000 + idx, "ts_ms": ts,
+                                     "reach_query": srv.summary()})
+                recs.append({"kind": "snapshot", "role": "router",
+                             "pid": os.getpid(), "ts_ms": ts,
+                             "router": router.summary()})
+                recs.append({"kind": "snapshot", "role": "writer",
+                             "pid": os.getpid(), "ts_ms": ts,
+                             "reach_ship": shipper.summary()})
+                return recs
+
+            def spawn_hook() -> bool:
+                if len(sup.slots) >= len(rep_ports):
+                    return False
+                idx = sup.spawn()
+                # a forced ship: the newcomer loads within one poll
+                fold_tick(force=True)
+                router.add_replica(f"127.0.0.1:{rep_ports[idx]}")
+                return True
+
+            def retire_hook() -> bool:
+                for idx in range(len(sup.slots) - 1, 0, -1):
+                    slot = sup.slots[idx]
+                    if slot.retired or slot.gave_up or not sup.alive(idx):
+                        continue
+                    addr = f"127.0.0.1:{rep_ports[idx]}"
+                    return sup.retire(
+                        idx,
+                        deregister=lambda i, a=addr: router.remove_replica(a),
+                        drain_s=0.1, grace_s=2.0)
+                return False
+
+            ctrl = AutoscaleController(
+                collect, objective=objective, spawn_replica=spawn_hook,
+                retire_replica=retire_hook, shipper=shipper,
+                min_ship_interval_ms=400, replicas=1, min_replicas=1,
+                max_replicas=max_replicas, breach_ticks=2, healthy_ticks=4,
+                cooldown_s=1.5, window_steps=6, sampler=sampler,
+                flightrec=flightrec, registry=registry)
+
+            def ctrl_loop() -> None:
+                while not ctrl_stop.is_set():
+                    with tracer.span("autoscale_step", cat="autoscale"):
+                        dec = ctrl.step()
+                    if dec is not None:
+                        with tracer.span(f"autoscale_{dec['decision']}",
+                                         cat="autoscale"):
+                            pass
+                        print(f"[fleet_autoscale] {dec['decision']} "
+                              f"[{dec['verdict']}->{dec['knob']}] "
+                              f"replicas={dec['replicas']}", flush=True)
+                    ctrl_stop.wait(0.25)
+
+            t_ctrl = threading.Thread(target=ctrl_loop, daemon=True)
+            sampler.add_collector(lambda rec, dt_s: rec.__setitem__(
+                "autoscale", ctrl.summary()))
+            sampler.start()
+        t_writer = threading.Thread(target=writer, daemon=True)
+        results: list = []
+        res_lock = threading.Lock()
+        pos = {"i": 0}
+        rep_finals: dict = {}
+        try:
+            t_writer.start()
+            if t_ctrl is not None:
+                t_ctrl.start()
+            t0 = time.monotonic()
+
+            def client_worker() -> None:
+                c = PubSubClient(r_host, r_port, timeout_s=60)
+                while True:
+                    with res_lock:
+                        i = pos["i"]
+                        pos["i"] += 1
+                    if i >= len(schedule):
+                        break
+                    wait = t0 + schedule[i] - time.monotonic()
+                    if wait > 0:
+                        time.sleep(wait)
+                    submit = time.perf_counter()
+                    try:
+                        data = c.request(
+                            {"type": "reach", "campaigns": qsets[i],
+                             "op": "overlap" if i % 3 == 0 else "union",
+                             "id": f"as{int(on)}-{i}"}, timeout_s=30.0)
+                    except (TimeoutError, ConnectionError, OSError) as e:
+                        data = {"error": f"transport:{e!r}"}
+                    e2e_ms = (time.perf_counter() - submit) * 1000.0
+                    with res_lock:
+                        results.append((i, e2e_ms, data))
+                c.close()
+
+            workers = [threading.Thread(target=client_worker, daemon=True)
+                       for _ in range(clients)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=duration_s + 90)
+            storm_s = time.monotonic() - t0
+            if on:
+                # the post-ramp tail: traffic stops, the writer folds on,
+                # and the controller may go healthy and retire
+                deadline = time.monotonic() + tail_s
+                while time.monotonic() < deadline:
+                    if ctrl.actions.get("scale_down"):
+                        break
+                    time.sleep(0.2)
+        finally:
+            ctrl_stop.set()
+            if t_ctrl is not None and t_ctrl.is_alive():
+                t_ctrl.join(timeout=10)
+            writer_stop.set()
+            if t_writer.is_alive():
+                t_writer.join(timeout=10)
+            if sampler is not None:
+                sampler.close(final={"autoscale": ctrl.summary()})
+            for idx, rep in list(reps.items()):
+                if rep.server is not None:
+                    rep_finals[idx] = rep.server.summary()
+            router.close()
+            sup.stop(grace_s=2.0)
+            for rep in list(reps.values()):
+                rep.close()
+            store.close()
+        answered = shed = breaches = stale_breaches = lat_breaches = 0
+        lat: list = []
+        stales: list = []
+        for _, e2e_ms, data in results:
+            if data.get("shed"):
+                shed += 1
+                breaches += 1
+                continue
+            if data.get("error"):
+                breaches += 1
+                continue
+            answered += 1
+            lat.append(e2e_ms)
+            st = data.get("staleness_ms")
+            if isinstance(st, (int, float)):
+                stales.append(float(st))
+                if st > objective_staleness_ms:
+                    stale_breaches += 1
+                    breaches += 1
+            if e2e_ms > objective_p99_ms:
+                lat_breaches += 1
+        stales.sort()
+        lat.sort()
+        rt = router.summary()
+        res = {"sent": len(results), "answered": answered, "shed": shed,
+               "breaches": breaches, "stale_breaches": stale_breaches,
+               "lat_breaches": lat_breaches,
+               "breach_ratio": (breaches / len(results) if results
+                                else None),
+               "staleness_p50_ms": (stales[len(stales) // 2]
+                                    if stales else None),
+               "staleness_p99_ms": (stales[min(len(stales) - 1, int(
+                   len(stales) * 0.99))] if stales else None),
+               "e2e_p50_ms": lat[len(lat) // 2] if lat else None,
+               "e2e_p99_ms": (lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+                              if lat else None),
+               "storm_s": storm_s, "warm_s": warm,
+               "router": {k: rt.get(k) for k in
+                          ("routed", "answered", "shed", "failovers",
+                           "shed_ratio", "failover_p99_ms", "e2e_p50_ms",
+                           "e2e_p99_ms", "qps")},
+               "ship_interval_final_ms": shipper.interval_ms,
+               "ships": shipper.ships}
+        if on:
+            sup_sum = sup.summary()
+            res["controller"] = ctrl.summary()
+            res["decisions"] = [
+                {k: d.get(k) for k in ("decision", "verdict", "knob",
+                                       "replicas", "step", "from_ms",
+                                       "to_ms", "evidence") if k in d}
+                for d in ctrl.decisions]
+            res["replicas_max"] = len(sup.slots)
+            res["retired"] = sup_sum["retired"]
+            res["replica_finals"] = len(rep_finals)
+            tracer.dump(os.path.join(fleet_dir, "trace_controller.json"),
+                        run="autoscale")
+        return res
+
+    off = arm(False)
+    on = arm(True)
+    out = {"seed": seed, "device": device, "duration_s": duration_s,
+           "tail_s": tail_s, "qps0": qps0, "qps1": qps1,
+           "ramp_x": qps1 / qps0, "schedule_n": len(schedule),
+           "objective": objective, "ship0_ms": ship0_ms, "K": K, "R": R,
+           "off": off, "on": on,
+           "breach_ratio_off": off["breach_ratio"],
+           "breach_ratio_on": on["breach_ratio"],
+           "decisions": on["controller"]["decisions"],
+           "phase_s": time.perf_counter() - t_phase}
+    shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[fleet_autoscale] {json.dumps(out)}", flush=True)
+    missing = [d for d in on["decisions"]
+               if not (d.get("evidence") or {}).get("hop_p99_ms")]
+    if (off["breach_ratio"] is None or on["breach_ratio"] is None
+            or not on["breach_ratio"] < off["breach_ratio"]
+            or on["controller"]["scale_ups"] < 1
+            or not on["decisions"] or missing):
+        raise AssertionError(
+            f"[fleet_autoscale] breach ratio {off['breach_ratio']} -> "
+            f"{on['breach_ratio']}, controller {on['controller']}, "
+            f"decisions without freshness-hop evidence {missing[:2]}")
+    return out
+
+
+def phase_fleet(device: str = "cuda", scaleout: dict | None = None,
+                chaos: dict | None = None,
+                autoscale: dict | None = None) -> dict:
+    """Phase 20: the replica fleet (module doc).  ``device`` and the
+    rungs' sizes are arguments so the phase can be rehearsed on the CPU
+    at a small size; the smoke runs the reference's three fleet rungs at
+    their own parameters on ``cuda``."""
+    t0 = time.perf_counter()
+    _reset_launches()                     # this path starts here
+    out = {"scaleout": _fleet_scaleout(
+        device, **(FLEET_SCALEOUT if scaleout is None else scaleout))}
+    out["chaos"] = _fleet_chaos(device,
+                                **(FLEET_CHAOS if chaos is None else chaos))
+    out["autoscale"] = _fleet_autoscale(
+        device, **(FLEET_AUTOSCALE if autoscale is None else autoscale))
+    out["kernel_launches"] = _launches()  # this path ends here
+    out["phase_s"] = time.perf_counter() - t0
+    a, b, c = out["scaleout"], out["chaos"], out["autoscale"]
+    print(f"[fleet] (a) off-writer contention "
+          f"{a['offwriter_contention_ratio']:.4f} at ingest duty "
+          f"{a['ingest_busy_duty']:.4f}; staleness p50/p99 "
+          + ", ".join(f"{k} {r['staleness_p50_ms']}/{r['staleness_p99_ms']}"
+                      " ms" for k, r in a["ladder"].items())
+          + "; ready (line, first answer) s "
+          + ", ".join(f"{k} {[(x['ready_line_s'], x['first_answer_s']) for x in r['ready']]}"
+                      for k, r in a["ladder"].items())
+          + f"; respawn to answer {a['memory'].get('respawn_to_answer_s')} s"
+          f"; peak device bytes per replica "
+          + ", ".join(f"{k} {r['peak_device_bytes']}"
+                      for k, r in a["ladder"].items())
+          + f", writer {a['writer_peak_device_bytes']}; memory {a['memory']}"
+          f"; (b) {b['answered']} answered + {b['shed']} shed = "
+          f"{b['sent']} sent, {b['supervisor']['restarts']} restarts, "
+          f"failover p99 {b['router']['failover_p99_ms']} ms, shed ratio "
+          f"{b['router']['shed_ratio']}, final record bit-identical; (c) "
+          f"breach ratio {c['breach_ratio_off']:.4f} -> "
+          f"{c['breach_ratio_on']:.4f}, {c['decisions']} decisions, "
+          f"{c['on']['controller']['scale_ups']} scale-ups; launches "
+          f"{out['kernel_launches']}; {out['phase_s']:.1f} s", flush=True)
+    if any(v for v in out["kernel_launches"].values()):
+        raise AssertionError(f"[fleet] a kernel launched on the fleet "
+                             f"path: {out['kernel_launches']}")
+    return out
+
+
+def _fleet_launches(fleet: dict, kernel: str) -> dict:
+    """A kernel's launches on phase 20's path, in this process (the
+    replica processes of (a) launch no hand-written kernel either)."""
+    return {"fleet": fleet["kernel_launches"][kernel]}
+
+
 def _sketch_phases(lap) -> tuple:
     """Phases 15, 16 and 18: the sketch engines, then their sharded forms
     over the same journals.  Returns ((phase 15, phase 16), phase 18)."""
@@ -5225,7 +6443,7 @@ class Laps:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--events", type=int, default=5_000_000,
+    ap.add_argument("--events", type=int, default=2_000_000,
                     help="catchup events for the end-to-end phase")
     ap.add_argument("--out", help="also write every phase's result to "
                     "this JSON file")
@@ -5240,6 +6458,9 @@ def main(argv: list[str] | None = None) -> int:
                     "16 and 18 alone (no result line)")
     ap.add_argument("--only-reach", action="store_true",
                     help="a diagnostic: phases 1-3 and 19 alone (no result "
+                    "line)")
+    ap.add_argument("--only-fleet", action="store_true",
+                    help="a diagnostic: phases 1-3 and 20 alone (no result "
                     "line)")
     args = ap.parse_args(argv)
     lap = Laps()
@@ -5315,6 +6536,19 @@ def main(argv: list[str] | None = None) -> int:
                           indent=1)
         print(smi, flush=True)
         return 0
+    if args.only_fleet:
+        lap("1-3 device, build, K1 cases")
+        fleet = phase_fleet()
+        lap("20 fleet")
+        laps = lap.as_dict()
+        print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "fleet": fleet,
+                           "phase_seconds": laps, "nvidia_smi": smi}, f,
+                          indent=1)
+        print(smi, flush=True)
+        return 0
     if args.only_sketches:
         sketch = phase_sketches()
         if args.out:
@@ -5358,6 +6592,8 @@ def main(argv: list[str] | None = None) -> int:
     (sketch, session), sharded_sketch = _sketch_phases(lap)
     reach = phase_reach()
     lap("19 reach")
+    fleet = phase_fleet()
+    lap("20 fleet")
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -5430,7 +6666,8 @@ def main(argv: list[str] | None = None) -> int:
             **{f"sharded_sketch_{k}":
                sharded_sketch[k]["count_cells_launches"]
                for k in SHARDED_SKETCH_RUNS},
-            **_reach_launches(reach, "count_cells")},
+            **_reach_launches(reach, "count_cells"),
+            **_fleet_launches(fleet, "count_cells")},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -5459,7 +6696,8 @@ def main(argv: list[str] | None = None) -> int:
             "paced_ysb_decode": paced_decode["decode_rows_launches"],
             "supervised_chaos_decode":
                 chaos["decode"]["decode_rows_launches"],
-            **_reach_launches(reach, "decode_rows")},
+            **_reach_launches(reach, "decode_rows"),
+            **_fleet_launches(fleet, "decode_rows")},
         "shape": main_decode["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in decode_cases),
         "ms": main_decode["kernel_ms"],
@@ -5487,7 +6725,8 @@ def main(argv: list[str] | None = None) -> int:
             **{f"sharded_session_{k}":
                sharded_sketch[k]["cms_rows_launches"]
                for k in ("fixed", "salsa")},
-            **_reach_launches(reach, "cms_rows")},
+            **_reach_launches(reach, "cms_rows"),
+            **_fleet_launches(fleet, "cms_rows")},
         "shape": main_cms["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cms_cases),
         "ms": update["kernel_ms"],
@@ -5549,6 +6788,7 @@ def main(argv: list[str] | None = None) -> int:
                        "session": session,
                        "sharded_sketches": sharded_sketch,
                        "reach": reach,
+                       "fleet": fleet,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,6 +14,14 @@ FaultPlan` plus the *global* operation counters, and hands out wrappers:
   damaged bytes are rewound and re-delivered intact on the next poll;
 - :attr:`FaultInjector.scheduler` -- the crash scheduler a
   ``StreamRunner`` takes as ``crash_points``;
+- :meth:`FaultInjector.net_fault` -- the per-message draw the
+  :class:`~streambench_tpu_torch.chaos.netchaos.ChaosPubSub` proxy
+  consumes (partition windows outrank the rolled kind);
+- :meth:`FaultInjector.attach_ship_chaos` -- installs a
+  ``ship_fault_hook`` on a ``DurableDimensionStore`` so
+  ``put_reach_sketches`` appends are damaged per the plan's ship
+  schedule (torn / corrupt / delayed), proving the replica tailer's
+  skip-and-resync;
 - :meth:`FaultInjector.kafka_fault` -- the per-op draw the fake Kafka
   cluster (``io.fakekafka.FakeCluster.attach_chaos``) consumes.
 
@@ -21,10 +29,6 @@ Operation indices are owned by the injector, NOT the wrappers, so a
 supervised restart (which re-wraps fresh engine and reader objects)
 continues the plan where the crashed attempt left it instead of replaying
 the same faults forever.
-
-Not ported yet, with the surface each needs: ``net_fault`` (the pub/sub
-proxy ``ChaosPubSub``), ``ship_fault``, ``attach_ship_chaos`` and
-``ShipChaosFilter`` (the reach ship log).
 """
 
 from __future__ import annotations
@@ -197,6 +201,48 @@ class ChaosJournalReader:
                 + b"\x00" * (len(victim) - half) + b"\n")
 
 
+class ShipChaosFilter:
+    """The ship-log append filter ``attach_ship_chaos`` installs.
+
+    Called by ``DurableDimensionStore.put_reach_sketches`` with the
+    serialized record line (newline included); returns ``(data,
+    intact)`` where ``data`` is what actually hits the file and
+    ``intact`` says whether the store may absorb the record into its
+    in-memory index (a damaged append must not leave the writer's OWN
+    view ahead of what it durably wrote).
+
+    - ``torn``    — a prefix with NO newline: the next append
+      concatenates into one undecodable garbage line (the tailer's
+      ``_carry`` holds the stub until that newline lands, then the
+      combined line fails to parse and is skipped);
+    - ``corrupt`` — the line's tail is NUL-smashed, newline intact:
+      one self-contained garbage line;
+    - ``delayed`` — the record is held and prepended to the NEXT
+      append: late and out of order, which the tailer's
+      newest-decodable rule must absorb.
+    """
+
+    def __init__(self, injector: "FaultInjector"):
+        self._injector = injector
+        self._held = ""
+
+    def __call__(self, data: str) -> tuple[str, bool]:
+        kind = self._injector.ship_fault()
+        held, self._held = self._held, ""
+        if kind is None:
+            return held + data, True
+        if kind == "torn":
+            return held + data[: max(len(data) // 2, 1)], False
+        if kind == "corrupt":
+            half = max(len(data) // 2, 1)
+            return (held + data[:half]
+                    + "\x00" * (len(data) - half - 1) + "\n"), False
+        # delayed: hold the record for the next append (nothing written
+        # now beyond any previously-held record)
+        self._held = data
+        return held, False
+
+
 class FaultInjector:
     """The plan's executor: wraps surfaces, owns global fault indices.
 
@@ -213,6 +259,8 @@ class FaultInjector:
         self._lock = threading.Lock()
         self._sink_idx = 0
         self._journal_idx = 0
+        self._net_idx = 0
+        self._ship_idx = 0
         self._kafka_idx = 0
 
     def sink_fault(self) -> str | None:
@@ -233,6 +281,36 @@ class FaultInjector:
             self.counters.inc("journal_faults")
         return kind
 
+    # -- fleet surfaces ------------------------------------------------
+    def net_fault(self) -> str | None:
+        """One per-message draw for the ChaosPubSub proxy.  Partition
+        windows outrank the rolled kind: a message inside one is
+        dropped no matter what the rate draw said (a partition is not
+        a probability)."""
+        with self._lock:
+            i = self._net_idx
+            self._net_idx += 1
+        for start, length in self.plan.partition_windows:
+            if start <= i < start + length:
+                self.counters.inc("net_faults")
+                self.counters.inc("net_partition_drops")
+                return "drop"
+        kind = self.plan.net_faults.get(i)
+        if kind is not None:
+            self.counters.inc("net_faults")
+            self.counters.inc(f"net_{kind}")
+        return kind
+
+    def ship_fault(self) -> str | None:
+        with self._lock:
+            i = self._ship_idx
+            self._ship_idx += 1
+        kind = self.plan.ship_faults.get(i)
+        if kind is not None:
+            self.counters.inc("ship_faults")
+        return kind
+
+    # -- broker surface ------------------------------------------------
     def kafka_fault(self) -> str | None:
         """One per-broker-op draw for the fake Kafka cluster.  Down
         windows outrank the rolled kind (an outage is not a
@@ -251,6 +329,10 @@ class FaultInjector:
             self.counters.inc(f"chaos_kafka_{kind}")
         return kind
 
+    @property
+    def net_delay_s(self) -> float:
+        return max(self.plan.net_delay_ms, 0) / 1000.0
+
     def wrap_redis(self, target) -> ChaosRedis:
         return ChaosRedis(target, self)
 
@@ -260,3 +342,10 @@ class FaultInjector:
                 "ChaosJournalReader wraps a single-partition "
                 "JournalReader (MultiReader has no scalar offset)")
         return ChaosJournalReader(delegate, self)
+
+    def attach_ship_chaos(self, store) -> ShipChaosFilter:
+        """Install the ship-log append filter on ``store`` (a
+        ``DurableDimensionStore``); returns the filter for tests."""
+        filt = ShipChaosFilter(self)
+        store.ship_fault_hook = filt
+        return filt

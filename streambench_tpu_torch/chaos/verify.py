@@ -27,9 +27,22 @@ must hold for every window.  :func:`check_kafka_edge` balances the
 broker edge's delivery ledger (``consumed == delivered + redelivered``,
 ``delivered == sent``).
 
-Not ported yet: the fleet checks (``check_fleet_accounting``,
-``check_staleness_bound``, ``check_fleet_convergence`` and the ship-log
-epoch timeline), which need the reach serving tier and its fleet.
+Fleet invariants: a fleet chaos run (network faults on the query plane,
+ship-log faults on the replica feed, crash-faulted replicas behind the
+router) must additionally satisfy, by :class:`FleetVerdict`:
+
+- **shed-or-answer accounting**: every request id sent gets EXACTLY one
+  terminal reply, an answer or an honest shed, so ``sent == answered +
+  shed`` with no duplicates and no silent drops
+  (:func:`check_fleet_accounting`);
+- **staleness honesty**: every ANSWER's ``plane_epoch`` is at least the
+  epoch that was durable in the ship log one staleness bound before the
+  query was submitted (:func:`check_staleness_bound`, over the ship
+  log's epoch timeline);
+- **post-heal convergence**: once faults stop and a final forced ship
+  lands, every surviving replica reaches the writer's final epoch, and
+  the close-time reach record is bit-identical to the fault-free arm's
+  (:func:`check_fleet_convergence`).
 """
 
 from __future__ import annotations
@@ -213,6 +226,213 @@ def check_at_least_once(redis, workdir: str, topic_path: str,
             v.ok = False
             v.overcounts.append((key, have, want, slack))
             v.max_overcount = max(v.max_overcount, have - want)
+    return v
+
+
+# ---------------------------------------------------------------------
+# fleet invariants
+# ---------------------------------------------------------------------
+
+@dataclass
+class FleetVerdict:
+    """The fleet chaos run's full report (``ok`` is the headline)."""
+
+    ok: bool
+    sent: int = 0
+    answered: int = 0
+    shed: int = 0
+    # accounting violations: ids answered/shed more than once, ids that
+    # got no terminal reply at all, reply ids nobody sent
+    duplicate_ids: list = field(default_factory=list)
+    missing_ids: list = field(default_factory=list)
+    unexpected_ids: list = field(default_factory=list)
+    # staleness violations: (id, plane_epoch, floor_epoch, submit_ms)
+    stale_violations: list = field(default_factory=list)
+    # convergence: replicas that never reached the writer's final epoch
+    # ((idx, replica_epoch, writer_epoch)); divergent = the close-time
+    # reach record differs bit-for-bit from the fault-free arm's
+    lagging_replicas: list = field(default_factory=list)
+    divergent: bool = False
+    writer_epoch: int | None = None
+    repro: str | None = None
+
+    def summary(self) -> str:
+        s = (f"fleet verdict: ok={self.ok} sent={self.sent} "
+             f"answered={self.answered} shed={self.shed} "
+             f"dup={len(self.duplicate_ids)} "
+             f"missing={len(self.missing_ids)} "
+             f"unexpected={len(self.unexpected_ids)} "
+             f"stale_violations={len(self.stale_violations)} "
+             f"lagging={len(self.lagging_replicas)} "
+             f"divergent={self.divergent}")
+        if self.repro:
+            s += "\n" + self.repro
+        return s
+
+
+def check_fleet_accounting(sent_ids, replies,
+                           repro: str | None = None) -> FleetVerdict:
+    """Assert ``sent == answered + shed`` EXACTLY, by request id.
+
+    ``sent_ids`` is every id the client submitted; ``replies`` is every
+    terminal reply payload it received (answers, sheds, error replies —
+    an error IS an answer: the client heard back).  Each sent id must
+    appear exactly once; a duplicate means the dedup/dup-fault machinery
+    double-answered, a missing id means a query was silently dropped
+    (the one thing the router contract forbids), an unexpected id means
+    a stale retry leaked through the client's discard set.
+    """
+    v = FleetVerdict(ok=True, repro=repro)
+    sent = list(sent_ids)
+    v.sent = len(sent)
+    sent_set = set(sent)
+    seen: dict = {}
+    for rep in replies:
+        rid = rep.get("id")
+        if rid not in sent_set:
+            v.ok = False
+            v.unexpected_ids.append(rid)
+            continue
+        if rid in seen:
+            v.ok = False
+            v.duplicate_ids.append(rid)
+            continue
+        seen[rid] = rep
+        if rep.get("shed"):
+            v.shed += 1
+        else:
+            v.answered += 1
+    for rid in sent:
+        if rid not in seen:
+            v.ok = False
+            v.missing_ids.append(rid)
+    return v
+
+
+def ship_epoch_timeline(ship_path: str) -> list:
+    """``(stamp_ms, epoch)`` per decodable reach-sketch record in the
+    ship log, append order.  The stamp is the writer's submit stamp
+    (``sm``) falling back to the record stamp (``t``) — the moment the
+    record became durable, which is what the staleness bound is
+    measured against."""
+    out = []
+    try:
+        f = open(ship_path, "rb")
+    except OSError:
+        return out
+    with f:
+        for line in f:
+            line = line.strip()
+            if not line or b'"reach_sketch"' not in line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue  # torn/corrupted by the chaos layer: not durable
+            if rec.get("kind") != "reach_sketch":
+                continue
+            stamp = rec.get("sm", rec.get("t", 0))
+            out.append((int(stamp), int(rec.get("epoch", 0))))
+    return out
+
+
+def durable_epoch_at(timeline, stamp_ms: int) -> int | None:
+    """Newest epoch durable at ``stamp_ms`` (None: nothing was)."""
+    epoch = None
+    for t, e in timeline:
+        if t <= stamp_ms:
+            epoch = e if epoch is None else max(epoch, e)
+    return epoch
+
+
+def check_staleness_bound(queries, timeline, max_staleness_ms: int,
+                          verdict: FleetVerdict | None = None,
+                          slack_ms: int = 0) -> FleetVerdict:
+    """Assert no answer served planes staler than the bound.
+
+    ``queries`` is ``(submit_ms, reply)`` per request the client made
+    (client-clock submit stamp; single-host runs share the clock with
+    the ship log's stamps).  For every ANSWERED reply carrying a
+    ``plane_epoch``, the epoch must be at least the newest epoch that
+    was durable at ``submit_ms - max_staleness_ms`` — a reply below
+    that floor means some replica silently served beyond-bound planes
+    instead of shedding or being failed over.  Sheds and error replies
+    are exempt (they are the honest path).  ``slack_ms`` absorbs stamp
+    granularity at the window edge.
+    """
+    v = verdict if verdict is not None else FleetVerdict(ok=True)
+    for submit_ms, rep in queries:
+        if rep is None or rep.get("shed") or rep.get("error"):
+            continue
+        epoch = rep.get("plane_epoch", rep.get("epoch"))
+        if epoch is None:
+            continue
+        floor = durable_epoch_at(
+            timeline, int(submit_ms) - int(max_staleness_ms) - slack_ms)
+        if floor is not None and int(epoch) < floor:
+            v.ok = False
+            v.stale_violations.append(
+                (rep.get("id"), int(epoch), floor, int(submit_ms)))
+    return v
+
+
+def final_reach_record(ship_path: str) -> dict | None:
+    """The last decodable reach-sketch record in a ship log, raw (the
+    base64 plane fields uncompared-decoded — bit-identity is judged on
+    the encoded bytes)."""
+    newest = None
+    try:
+        f = open(ship_path, "rb")
+    except OSError:
+        return None
+    with f:
+        for line in f:
+            line = line.strip()
+            if not line or b'"reach_sketch"' not in line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if rec.get("kind") == "reach_sketch" and "mins" in rec:
+                newest = rec
+    return newest
+
+
+def check_fleet_convergence(ship_path: str, replica_epochs,
+                            clean_ship_path: str | None = None,
+                            verdict: FleetVerdict | None = None
+                            ) -> FleetVerdict:
+    """Assert post-heal convergence.
+
+    ``replica_epochs`` is each surviving replica's final loaded
+    ``plane_epoch`` (index order).  Every one must equal the writer's
+    final shipped epoch — after faults stop, the forced close-time ship
+    lands intact and one poll later the fleet agrees.  With
+    ``clean_ship_path`` (the fault-free arm's ship log), the close-time
+    reach record must match it bit-for-bit on the plane payloads —
+    chaos may delay convergence, it must never change what is converged
+    TO.
+    """
+    v = verdict if verdict is not None else FleetVerdict(ok=True)
+    final = final_reach_record(ship_path)
+    if final is None:
+        v.ok = False
+        v.divergent = True
+        return v
+    v.writer_epoch = int(final.get("epoch", 0))
+    for idx, epoch in enumerate(replica_epochs):
+        if epoch is None or int(epoch) != v.writer_epoch:
+            v.ok = False
+            v.lagging_replicas.append((idx, epoch, v.writer_epoch))
+    if clean_ship_path is not None:
+        clean = final_reach_record(clean_ship_path)
+        same = (clean is not None and
+                all(final.get(k) == clean.get(k)
+                    for k in ("mins", "regs", "c", "k", "r", "epoch")))
+        if not same:
+            v.ok = False
+            v.divergent = True
     return v
 
 

@@ -50,7 +50,11 @@ Observability (``obs/``, all default-off) takes the JAX CLI's keys:
 (``trace_<pid>.json``), ``jax.obs.occupancy``, ``jax.obs.xfer``,
 ``jax.obs.devmem``, ``jax.obs.capture.*`` (``torch.profiler`` windows on
 an SLO breach, SIGUSR2 or a one-shot) and ``jax.slo.*``; ``--traceDir``
-profiles the whole run.
+profiles the whole run.  With ``--engine reach``, ``jax.obs.query``
+decomposes every query into queue/batch/dispatch/reply segments
+(``obs serve``), and ``jax.obs.fleet`` turns the role-stamped
+(``writer``) journal on for the fleet view (``obs fleet``); the shipped
+records always carry the writer's origin and freshness stamps.
 
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
         --workdir RUN_DIR --catchup \
@@ -63,8 +67,8 @@ exact and HLL engines.
 
 Options and config keys that need parts of the JAX engine not ported yet
 (the hllx engine, the sharded reach engine, ``--sharded`` with more
-than one process, the fork's micro-batch mode, tenants, the reach query
-and fleet observability) are refused with exit 2.
+than one process, the fork's micro-batch mode and tenants) are refused
+with exit 2.
 """
 
 from __future__ import annotations
@@ -102,6 +106,7 @@ from streambench_tpu_torch.obs import (
     MetricsSampler,
     MetricsServer,
     OccupancySampler,
+    QueryLifecycle,
     ShardSkew,
     SloTracker,
     SpanTracer,
@@ -186,9 +191,10 @@ def unsupported(args, cfg) -> list[str]:
     HLL, sliding, session and reach engines on one device, at any key
     space, with checkpoint/resume, the exactly-once sink, the staged
     ingest pipeline, the encode pool, the dead-letter queue, the Kafka
-    source, device decode (exact engine), the single-engine observability
-    layer, reach serving with its cache and replica shipping, and the
-    exact, HLL, sliding and session engines sharded in one process
+    source, device decode (exact engine), the observability layer
+    without tenants (the reach query and fleet keys included), reach
+    serving with its cache and replica shipping, and the exact, HLL,
+    sliding and session engines sharded in one process
     (``--sharded``)."""
     out = []
     ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
@@ -202,12 +208,8 @@ def unsupported(args, cfg) -> list[str]:
                      ("--tenants", args.tenants)):
         if on:
             out.append(flag)
-    for key, on in (
-            ("jax.tenants", cfg.jax_tenants),
-            ("jax.obs.query", cfg.jax_obs_query),
-            ("jax.obs.fleet", cfg.jax_obs_fleet)):
-        if on:
-            out.append(key)
+    if cfg.jax_tenants:
+        out.append("jax.tenants")
     return out
 
 
@@ -242,8 +244,8 @@ class _ReachServing:
         return out
 
 
-def _start_reach(cfg, engine, registry, spans, flightrec, sampler
-                 ) -> _ReachServing:
+def _start_reach(cfg, engine, registry, spans, flightrec, sampler,
+                 query_obs=None) -> _ReachServing:
     """Build and attach ``--engine reach``'s serving side (its first
     push runs the query once, before ``engine up:``) and print the
     ``reach:`` line."""
@@ -253,7 +255,8 @@ def _start_reach(cfg, engine, registry, spans, flightrec, sampler
     pubsub = PubSubServer(port=0).start()
     server = ReachQueryServer(
         list(engine.encoder.campaigns), depth=cfg.jax_reach_queue_depth,
-        registry=registry, spans=spans, flightrec=flightrec, cache=cache)
+        registry=registry, queryattr=query_obs, spans=spans,
+        flightrec=flightrec, cache=cache)
     pubsub.register_query("reach", server.handle)
     engine.attach_reach(server)
     store = shipper = None
@@ -274,7 +277,9 @@ def _start_reach(cfg, engine, registry, spans, flightrec, sampler
         engine.attach_shipper(shipper)
     if sampler is not None:
         # every metrics.jsonl record carries the serving picture under
-        # "reach_query" and the writer's per-tick ship cost under "ship"
+        # "reach_query" (segments and contention with jax.obs.query on)
+        # and the writer's per-tick ship cost under "ship" — the blocks
+        # `obs serve` and `obs fleet` render
         def collect(rec, dt_s, srv=server, sh=shipper):
             rec["reach_query"] = srv.summary()
             if sh is not None:
@@ -282,8 +287,9 @@ def _start_reach(cfg, engine, registry, spans, flightrec, sampler
 
         sampler.add_collector(collect)
     host, port = pubsub.address
-    extra = (f" cache={cfg.jax_reach_cache_capacity}"
-             if cache is not None else "")
+    extra = " query_obs=on" if query_obs is not None else ""
+    extra += (f" cache={cfg.jax_reach_cache_capacity}"
+              if cache is not None else "")
     if shipper is not None:
         extra += (f" ship={cfg.jax_reach_ship_dir}"
                   f"@{cfg.jax_reach_ship_interval_ms}ms/{shipper.mode}")
@@ -322,9 +328,9 @@ def main(argv: list[str] | None = None) -> int:
               "exact, hll, sliding, session and reach engines with "
               "checkpoints, the exactly-once sink, the ingest pipeline, the "
               "encode pool, the dead-letter queue, the Kafka source, the "
-              "single-engine observability layer, reach serving, and the "
-              "exact, hll, sliding and session engines sharded in one "
-              "process): " + ", ".join(missing),
+              "observability layer, reach serving with its query and "
+              "fleet observability, and the exact, hll, sliding and "
+              "session engines sharded in one process): " + ", ".join(missing),
               file=sys.stderr)
         return 2
 
@@ -423,17 +429,19 @@ def main(argv: list[str] | None = None) -> int:
     # jax.metrics.port >= 0 serves the localhost Prometheus endpoint
     # (0 = ephemeral, the chosen port is printed below).
     sampler = metrics_server = occupancy = slo = registry = None
-    xfer = devmem = capture = shard = None
+    xfer = devmem = capture = shard = query_obs = None
     slo_wanted = (cfg.jax_slo_p99_ms > 0 or cfg.jax_slo_rate_evps > 0
                   or (args.engine == "reach"
                       and cfg.jax_reach_slo_p99_ms > 0))
     shard_wanted = cfg.jax_obs_shard and mesh is not None
+    query_obs_wanted = args.engine == "reach" and cfg.jax_obs_query
     flush_hooks = []
     if (cfg.jax_metrics_interval_ms > 0 or cfg.jax_metrics_port >= 0
             or cfg.jax_obs_lifecycle or cfg.jax_obs_spans
             or cfg.jax_obs_occupancy or slo_wanted
             or cfg.jax_obs_xfer or cfg.jax_obs_devmem
-            or cfg.jax_obs_capture or shard_wanted):
+            or cfg.jax_obs_capture or shard_wanted
+            or query_obs_wanted or cfg.jax_obs_fleet):
         registry = MetricsRegistry()
         # jax.obs.occupancy: sampled CUDA-event-timed dispatches -> the
         # MEASURED device_busy_ratio, plus the kernel-library build
@@ -460,12 +468,32 @@ def main(argv: list[str] | None = None) -> int:
             devmem.analyze_engine(engine)
             devmem.poll()
             flush_hooks.append(devmem.poll)
+        # jax.obs.query: per-query lifecycle attribution for the reach
+        # serving tier (the query-side WindowLifecycle).  Built here so
+        # the SLO tracker below can attach segment attribution to breach
+        # events; the ReachQueryServer gets it in _start_reach.  With
+        # spans also on, the queue-wait/ingest-dispatch overlap feeds
+        # streambench_reach_contention_ratio.
+        if query_obs_wanted:
+            query_obs = QueryLifecycle(
+                registry, slo_ms=cfg.jax_reach_slo_p99_ms,
+                slowlog_max=cfg.jax_obs_query_slowlog,
+                sample_every=cfg.jax_obs_query_sample, spans=spans)
+            if occupancy is not None:
+                # the contention numerator's production evidence: the
+                # occupancy sampler's measured busy windows (async
+                # ingest dispatch spans cover only the submit call)
+                occupancy.busy_sink = query_obs.note_ingest_busy
         metrics_path = os.path.join(args.workdir, "metrics.jsonl")
+        # fleet attribution: the engine CLI is the fleet's single
+        # writer; role-stamping its journal lets the FleetCollector
+        # merge it with replica journals unambiguously
         sampler = MetricsSampler(
             metrics_path,
             interval_ms=cfg.jax_metrics_interval_ms or 1000,
             registry=registry,
-            max_bytes=cfg.jax_metrics_max_bytes)
+            max_bytes=cfg.jax_metrics_max_bytes,
+            role="writer")
         sampler.add_collector(engine_collector(
             engine, reader=reader, runner=runner, registry=registry))
         # Kafka delivery ledger: the adapter's shared FaultCounters carry
@@ -518,7 +546,7 @@ def main(argv: list[str] | None = None) -> int:
                 slow_s=cfg.jax_slo_slow_s,
                 use_lifecycle=cfg.jax_obs_lifecycle,
                 annotate=sampler.annotate, flightrec=flightrec,
-                capture=capture)
+                capture=capture, queryattr=query_obs)
             sampler.add_collector(slo.collect)
         sampler.start()
         endpoint = ""
@@ -530,7 +558,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"metrics: interval={sampler.interval_ms}ms "
               f"jsonl={metrics_path}{endpoint}", flush=True)
     runner.flush_hooks = tuple(flush_hooks)
-    reach = (_start_reach(cfg, engine, registry, spans, flightrec, sampler)
+    reach = (_start_reach(cfg, engine, registry, spans, flightrec, sampler,
+                          query_obs)
              if args.engine == "reach" else None)
     # everything is built now (the reach query ran once at the first
     # push); a build from here on is a mid-run stall

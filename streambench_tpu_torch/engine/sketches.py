@@ -259,8 +259,9 @@ class ReachSketchEngine(_SketchEngineBase):
 
     The fold updates the planes in place, so a push hands the server
     clones (``_reach_push``), and ``planes()``, snapshots and ship
-    records carry the reference's uint32 / int32 numpy arrays.  The
-    fleet freshness stamps of ``jax.obs.fleet`` are not ported."""
+    records carry the reference's uint32 / int32 numpy arrays.  With
+    ``jax.obs.fleet`` each push carries the writer-attached freshness
+    stamps (``_fleet_stamps``)."""
 
     ENGINE_FAMILY = "reach"
     # Reach reads user identity only through hashes (the HLL rationale):
@@ -400,7 +401,7 @@ class ReachSketchEngine(_SketchEngineBase):
             # the folds before this push and before every later one.
             self._reach_server.update_state(
                 self.state.mins.clone(), self.state.registers.clone(),
-                self.reach_epoch)
+                self.reach_epoch, freshness=self._fleet_stamps())
         sh = self._reach_shipper
         if sh is not None and (force_ship or sh.due(self.reach_epoch)):
             # the due() pre-check keeps the planes' pull (a device sync)
@@ -416,6 +417,19 @@ class ReachSketchEngine(_SketchEngineBase):
                 # rows shipped (in a delta or under a base) are clean
                 # until the next fold touches them
                 self._dirty_mask[:] = False
+
+    def _fleet_stamps(self) -> dict | None:
+        """Writer-attached freshness stamps (``jax.obs.fleet``): the
+        server answers against live planes, so submit/ship/load all
+        collapse to the push stamp — only ``fold_lag`` (push minus last
+        fold) and ``serve`` (reply minus push) have width.  None when
+        fleet obs is off, keeping replies byte-identical."""
+        if not getattr(self.cfg, "jax_obs_fleet", False):
+            return None
+        push = now_ms()
+        return {"folded_ms": self._fold_wall_ms or push,
+                "submit_ms": push, "shipped_ms": push,
+                "loaded_ms": push}
 
     # -- harness hooks -------------------------------------------------
     def _drain_device(self) -> None:

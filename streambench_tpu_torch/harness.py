@@ -42,8 +42,11 @@ attribution``), ``FLIGHTREC`` (``WORKDIR/flight_<reason>.jsonl``),
 ``SLO_P99_MS``, ``SLO_RATE_EVPS``, ``OBS_XFER``, ``OBS_DEVMEM`` and
 ``OBS_CAPTURE`` (a ``torch.profiler`` one-shot into
 ``WORKDIR/xprof_<ms>_oneshot/``) and ``OBS_SHARD`` (with ``SHARDED=1``:
-the per-shard skew, ``jax.obs.shard``, of the exact and hll engines).  ``OBS_QUERY`` and ``OBS_FLEET``
-need surfaces not ported yet and are refused.
+the per-shard skew, ``jax.obs.shard``, of the exact and hll engines),
+``OBS_QUERY`` (with ``ENGINE=reach``: per-query segment attribution,
+``python -m streambench_tpu_torch.obs serve WORKDIR/metrics.jsonl``) and
+``OBS_FLEET`` (the writer's role-stamped journal, read by ``python -m
+streambench_tpu_torch.obs fleet``).
 
 Services are subprocesses with ``<pid> <starttime>`` pidfiles
 (``utils.pidfile``), so STOP never signals a recycled pid.  An engine that
@@ -134,8 +137,8 @@ OBS_XFER = _flag("OBS_XFER")
 OBS_DEVMEM = _flag("OBS_DEVMEM")
 OBS_CAPTURE = _flag("OBS_CAPTURE")
 OBS_SHARD = _flag("OBS_SHARD")
-#: knobs of the JAX harness whose surfaces the port does not have yet
-NOT_PORTED_KNOBS = ("OBS_QUERY", "OBS_FLEET")
+OBS_QUERY = _flag("OBS_QUERY")
+OBS_FLEET = _flag("OBS_FLEET")
 
 PID_DIR = os.path.join(WORKDIR, "pids")
 LOG_DIR = os.path.join(WORKDIR, "logs")
@@ -256,14 +259,16 @@ def op_setup() -> None:
     from streambench_tpu_torch import native
     from streambench_tpu_torch.config import write_local_conf
 
-    refused = [k for k in NOT_PORTED_KNOBS if _flag(k)]
     if SHARDED and ENGINE not in SHARDED_ENGINES:
-        # sharded reach is not ported yet
-        refused.append(f"SHARDED with ENGINE={ENGINE}"
-                       + (" (and its OBS_SHARD)" if OBS_SHARD else ""))
-    if refused:
+        # sharded reach is not ported yet; the refusal names the obs
+        # knobs asked for with it
+        knobs = [k for k, on in (("OBS_SHARD", OBS_SHARD),
+                                 ("OBS_QUERY", OBS_QUERY),
+                                 ("OBS_FLEET", OBS_FLEET)) if on]
         raise SystemExit("not ported to the PyTorch harness yet: "
-                         + ", ".join(refused))
+                         f"SHARDED with ENGINE={ENGINE}"
+                         + (f" (and its {', '.join(knobs)})"
+                            if knobs else ""))
     if VERIFY and ENGINE != "exact":
         # gen.dostats counts exact views per tumbling window: it has no
         # answer for distinct-user estimates, sliding windows or sessions
@@ -310,6 +315,8 @@ def op_setup() -> None:
         # of the stream, so every such run leaves an xprof dir
         "jax.obs.capture.oneshot": OBS_CAPTURE,
         "jax.obs.shard": OBS_SHARD,
+        "jax.obs.query": OBS_QUERY,
+        "jax.obs.fleet": OBS_FLEET,
     })
     log(f"wrote {CONF_FILE}")
     native.build()

@@ -1,5 +1,5 @@
-"""Live telemetry of the PyTorch port: the single-engine half of
-``streambench_tpu/obs/``.
+"""Live telemetry of the PyTorch port: ``streambench_tpu/obs/`` without
+its tenant layers.
 
 All default-off; importing the package builds nothing and does not
 initialise CUDA (the device modules import torch inside the calls that
@@ -40,11 +40,26 @@ need it):
   breach / SIGUSR2 / config one-shot, with cooldown + cap;
   ``jax.obs.capture.*``); also owns the one profiler start/stop path
   ``trace.device_trace`` delegates to
+- ``queryattr`` — per-query latency attribution for the reach serving
+  tier (``jax.obs.query``): submit->reply decomposed into
+  queue/batch/dispatch/reply segments that sum to it, a bounded
+  slow-query log, and the ingest-contention ratio
+  (``streambench_reach_contention_ratio``); ``python -m
+  streambench_tpu_torch.obs serve`` renders it
+- ``fleet``     — fleet observability (``jax.obs.fleet``): every role's
+  ``metrics.jsonl`` merged into one attributed ``fleet.jsonl``
+  (``python -m streambench_tpu_torch.obs fleet``), cross-process trace
+  stitching (``obs trace --merge``), and the end-to-end reply-freshness
+  ledger (``streambench_fleet_freshness_ms{hop=}``)
+- ``clock``     — cross-process clock-offset estimation (midpoint method
+  over the pub/sub ``ping`` verb, bounded uncertainty, never silently
+  applied past a jitter threshold)
+- ``diagnose``  — fleet evidence -> ranked bottleneck verdicts, each
+  with its knob (pure)
+- ``autoscale`` — the controller that turns those verdicts into replica
+  count, ship cadence and poll interval actuations
 
-Not ported yet, each with the surface it observes: ``fleet`` and
-``clock`` (the pub/sub fleet), ``queryattr`` (reach serving),
-``tenancy`` and ``admission`` (tenants), ``autoscale`` and ``diagnose``
-(the SLO autoscaler with chaos).
+Not ported yet: ``tenancy`` and ``admission`` (the multi-tenant host).
 
 Enable on the engine CLI via config keys (``jax.metrics.interval.ms``
 > 0 and/or ``jax.metrics.port`` >= 0); embed via::
@@ -59,11 +74,27 @@ Enable on the engine CLI via config keys (``jax.metrics.interval.ms``
     server = MetricsServer(registry, port=0, refresh=sampler.collect_now)
 """
 
+from streambench_tpu_torch.obs.autoscale import (  # noqa: F401
+    AutoscaleController,
+)
 from streambench_tpu_torch.obs.capture import (  # noqa: F401
     CaptureManager,
     profiler_window,
 )
+from streambench_tpu_torch.obs.clock import (  # noqa: F401
+    offset_from_samples,
+    sync_pubsub,
+)
 from streambench_tpu_torch.obs.devmem import DeviceMemoryLedger  # noqa: F401
+from streambench_tpu_torch.obs.diagnose import (  # noqa: F401
+    diagnose,
+    evidence_window,
+)
+from streambench_tpu_torch.obs.fleet import (  # noqa: F401
+    FleetCollector,
+    merge_traces,
+    summarize_fleet,
+)
 from streambench_tpu_torch.obs.flightrec import FlightRecorder  # noqa: F401
 from streambench_tpu_torch.obs.httpd import MetricsServer  # noqa: F401
 from streambench_tpu_torch.obs.lifecycle import WindowLifecycle  # noqa: F401
@@ -71,6 +102,7 @@ from streambench_tpu_torch.obs.occupancy import (  # noqa: F401
     CompileWatcher,
     OccupancySampler,
 )
+from streambench_tpu_torch.obs.queryattr import QueryLifecycle  # noqa: F401
 from streambench_tpu_torch.obs.registry import (  # noqa: F401
     Counter,
     Gauge,

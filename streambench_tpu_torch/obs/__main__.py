@@ -4,6 +4,10 @@
     python -m streambench_tpu_torch.obs diff  A/metrics.jsonl B/metrics.jsonl
     python -m streambench_tpu_torch.obs attribution RUN/metrics.jsonl [B/metrics.jsonl]
     python -m streambench_tpu_torch.obs trace RUN/trace_1234.json
+    python -m streambench_tpu_torch.obs trace writer=A/trace_1.json \
+        replica=B/trace_2.json --merge --out merged_trace.json
+    python -m streambench_tpu_torch.obs fleet writer=A/metrics.jsonl \
+        replica=B/metrics.jsonl [--out fleet.jsonl]
     python -m streambench_tpu_torch.obs regress BASELINE.json CANDIDATE.json
 
 ``report`` renders one run's time series as a summary (throughput,
@@ -18,10 +22,6 @@ metrics journals under per-metric tolerances and exits non-zero on a
 regression (the CI gate — ``--advisory`` reports without gating).
 ``--json`` emits the summary dict(s) instead, for harness consumption.
 Rotated journals (``metrics.jsonl.1``) are stitched in automatically.
-
-The JAX package's ``serve`` (reach serving attribution), ``fleet`` and
-``trace --merge`` need surfaces the port does not have yet: they exit 2
-with "not ported".
 """
 
 from __future__ import annotations
@@ -46,12 +46,12 @@ from streambench_tpu_torch.obs.report import (
     render_attribution_diff,
     render_diff,
     render_report,
+    render_serve,
+    render_serve_diff,
     summarize,
     summarize_attribution,
+    summarize_serve,
 )
-
-#: subcommands of the JAX package's CLI whose surfaces are not ported
-NOT_PORTED = ("serve", "fleet")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,19 +74,54 @@ def build_parser() -> argparse.ArgumentParser:
     att.add_argument("path_b", nargs="?", default=None)
     att.add_argument("--json", action="store_true",
                      help="emit the attribution dict(s) instead of text")
+    srv = sub.add_parser(
+        "serve",
+        help="reach serving-layer attribution (query segment table, "
+             "contention ratio, slow-query log; give a second path to "
+             "diff B vs A)")
+    srv.add_argument("path")
+    srv.add_argument("path_b", nargs="?", default=None)
+    srv.add_argument("--json", action="store_true",
+                     help="emit the serving dict(s) instead of text")
     trc = sub.add_parser(
         "trace", help="validate + summarize a Chrome trace-event file "
-                      "(obs.spans trace_<run>.json)")
+                      "(obs.spans trace_<run>.json); several paths + "
+                      "--merge stitch one perfetto-loadable fleet "
+                      "trace with a process_name lane per file")
     trc.add_argument("paths", nargs="+", metavar="path",
-                     help="trace file (stitching several is not ported)")
+                     help="trace file(s); with --merge each may be "
+                          "role=path to name its process lane")
     trc.add_argument("--merge", action="store_true",
-                     help=argparse.SUPPRESS)
-    trc.add_argument("--out", default=None, help=argparse.SUPPRESS)
+                     help="stitch all inputs into one trace (clocks "
+                          "aligned on each file's wall0_ms epoch)")
+    trc.add_argument("--out", default=None,
+                     help="where --merge writes the stitched trace "
+                          "(default: merged_trace.json)")
     trc.add_argument("--json", action="store_true",
                      help="emit the summary dict instead of text")
-    for name in NOT_PORTED:
-        np_ = sub.add_parser(name, help=argparse.SUPPRESS)
-        np_.add_argument("rest", nargs="*")
+    flt = sub.add_parser(
+        "fleet", help="merge every role's metrics.jsonl into one "
+                      "fleet.jsonl and render the per-role table "
+                      "(ingest rate, qps, cache hits, staleness, "
+                      "freshness hops, restarts)")
+    flt.add_argument("paths", nargs="+", metavar="path",
+                     help="role=metrics.jsonl specs, bare journal "
+                          "paths (role inferred), or ONE fleet "
+                          "directory to scan")
+    flt.add_argument("--out", default=None,
+                     help="write the merged attributed journal here "
+                          "(default: no file, table only)")
+    flt.add_argument("--json", action="store_true",
+                     help="emit the summary dict instead of text")
+    flt.add_argument("--watch", action="store_true",
+                     help="re-render periodically (re-scanning a "
+                          "directory spec, so replicas the autoscaler "
+                          "spawns appear as they journal)")
+    flt.add_argument("--interval-s", type=float, default=2.0,
+                     help="--watch re-render period (default 2 s)")
+    flt.add_argument("--iterations", type=int, default=0,
+                     help="with --watch: stop after N renders "
+                          "(0 = until interrupted; CI/tests bound it)")
     reg = sub.add_parser(
         "regress",
         help="compare candidate B against baseline A under per-metric "
@@ -123,10 +158,41 @@ def main(argv: list[str] | None = None) -> int:
             )
 
             if args.merge or len(args.paths) > 1:
-                print("error: stitching several traces (trace --merge) "
-                      "is not ported to the PyTorch package yet",
-                      file=sys.stderr)
-                return 2
+                from streambench_tpu_torch.obs.fleet import (
+                    merge_traces,
+                    parse_role_spec,
+                    trace_process_names,
+                )
+
+                if not args.merge:
+                    print("error: several trace paths need --merge",
+                          file=sys.stderr)
+                    return 2
+                inputs = [parse_role_spec(p) for p in args.paths]
+                try:
+                    doc = merge_traces(inputs)
+                except (OSError, json.JSONDecodeError) as e:
+                    print(f"error: {e}", file=sys.stderr)
+                    return 2
+                problems = validate_chrome_trace(doc)
+                if problems:
+                    print("error: merged trace failed validation:",
+                          file=sys.stderr)
+                    for pr in problems:
+                        print(f"  {pr}", file=sys.stderr)
+                    return 2
+                out_path = args.out or "merged_trace.json"
+                with open(out_path, "w", encoding="utf-8") as f:
+                    json.dump(doc, f)
+                s = summarize_trace(doc, path=out_path)
+                s["processes"] = {str(pid): name for pid, name in
+                                  sorted(trace_process_names(doc).items())}
+                print(json.dumps(s) if args.json
+                      else render_trace_summary(s)
+                      + "\n  processes: "
+                      + ", ".join(f"{pid}={name}" for pid, name in
+                                  s["processes"].items()))
+                return 0
             path = args.paths[0]
             with open(path, "r", encoding="utf-8") as f:
                 try:
@@ -146,10 +212,57 @@ def main(argv: list[str] | None = None) -> int:
             print(json.dumps(s) if args.json
                   else render_trace_summary(s))
             return 0
-        if args.cmd in NOT_PORTED:
-            print(f"error: obs {args.cmd} is not ported to the PyTorch "
-                  "package yet", file=sys.stderr)
-            return 2
+        if args.cmd == "fleet":
+            from streambench_tpu_torch.obs.fleet import (
+                FleetCollector,
+                discover_roles,
+                parse_role_spec,
+                render_fleet,
+                summarize_fleet,
+            )
+
+            import time as _time
+
+            is_dir = (len(args.paths) == 1
+                      and os.path.isdir(args.paths[0]))
+            n = 0
+            while True:
+                # a directory spec re-scans each iteration: replicas
+                # spawned mid-watch appear as soon as they journal
+                if is_dir:
+                    roles = discover_roles(args.paths[0])
+                    if not roles and not args.watch:
+                        print(f"error: no metrics.jsonl under "
+                              f"{args.paths[0]}", file=sys.stderr)
+                        return 2
+                else:
+                    roles = [parse_role_spec(p) for p in args.paths]
+                coll = FleetCollector(roles, out_path=args.out)
+                records = coll.collect()
+                s = summarize_fleet(records,
+                                    path=args.out or args.paths[0])
+                s["sources"] = coll.sources
+                print(json.dumps(s) if args.json else render_fleet(s),
+                      flush=True)
+                n += 1
+                if not args.watch or (args.iterations
+                                      and n >= args.iterations):
+                    return 0
+                try:
+                    _time.sleep(args.interval_s)
+                except KeyboardInterrupt:
+                    return 0
+        if args.cmd == "serve":
+            a = summarize_serve(load_records(args.path),
+                                path=args.path)
+            if args.path_b:
+                b = summarize_serve(load_records(args.path_b),
+                                    path=args.path_b)
+                print(json.dumps({"a": a, "b": b}) if args.json
+                      else render_serve_diff(a, b))
+            else:
+                print(json.dumps(a) if args.json else render_serve(a))
+            return 0
         if args.cmd == "report":
             s = summarize(load_records(args.path), path=args.path)
             print(json.dumps(s) if args.json else render_report(s))

@@ -121,6 +121,12 @@ class OccupancySampler:
         self.dispatches = 0
         self.sampled = 0
         self.busy_ns = 0
+        # Optional ``fn(start_ns, end_ns)`` fed every sampled busy
+        # window (obs.queryattr.QueryLifecycle.note_ingest_busy): the
+        # reach contention ratio's production evidence — an async
+        # dispatch span cannot cover device time, a sampled CUDA-event
+        # wait does.
+        self.busy_sink = None
         self._lock = threading.Lock()
         self._t0 = time.monotonic()
         self._hist = self._g_ratio = None
@@ -153,15 +159,23 @@ class OccupancySampler:
             self._c_disp.set_total(self.dispatches)
         if self.dispatches % self.sample_every:
             return
-        counts = state.counts
+        # any tensor of the engine's state names its device (the exact
+        # engine's counts, the reach engine's mins, ...)
+        plane = next((v for v in state if getattr(v, "is_cuda", False)),
+                     None)
         t0 = time.perf_counter_ns()
-        if counts.is_cuda:
+        if plane is not None:
             import torch
 
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(counts.device))
+            done.record(torch.cuda.current_stream(plane.device))
             done.synchronize()
         dt = time.perf_counter_ns() - t0
+        if self.busy_sink is not None:
+            try:
+                self.busy_sink(t0, t0 + dt)
+            except Exception:
+                pass   # a broken sink must not kill the hot path
         with self._lock:
             self.sampled += 1
             self.busy_ns += dt

@@ -332,6 +332,147 @@ def render_report(s: dict) -> str:
 
 
 # ----------------------------------------------------------------------
+# serving-layer query attribution (obs.queryattr): the "reach_query"
+# block each snapshot carries, rendered by `obs serve A [B]`
+def summarize_serve(records: list[dict], path: str = "") -> dict:
+    """Newest ``reach_query`` block out of one run's records (final
+    record first, torn tail falls back to the last intact snapshot)."""
+    rq = None
+    for r in reversed(records):
+        if isinstance(r.get("reach_query"), dict):
+            rq = r["reach_query"]
+            break
+    return {"path": path, "reach_query": rq}
+
+
+def render_serve(s: dict) -> str:
+    """One run's serving-layer table: admission/shed counters, the
+    segment decomposition, contention, and the slow-query log tail."""
+    rq = s.get("reach_query") or {}
+    qobs = rq.get("query_obs")
+    lines = [f"reach serving attribution: {s['path'] or '(records)'}"]
+    if not qobs:
+        lines.append("  no reach_query records "
+                     "(run --engine reach with jax.obs.query: true)")
+        return "\n".join(lines)
+    lines.append(f"  served {_fmt(rq.get('served'))}  "
+                 f"shed {_fmt(rq.get('shed'))}  "
+                 f"rejected {_fmt(rq.get('rejected'))}  "
+                 f"dispatches {_fmt(rq.get('dispatches'))}  "
+                 f"queue high-water {_fmt(rq.get('queue_high_water'))}"
+                 f"/{_fmt(rq.get('queue_depth'))}")
+    # scale-out rows: planes epoch/staleness + cache hit mix
+    if rq.get("plane_epoch") is not None:
+        stale = rq.get("staleness_ms")
+        lines.append(
+            f"  plane epoch {_fmt(rq['plane_epoch'])}"
+            + (f"  staleness {_fmt(stale)} ms"
+               f"/{_fmt(rq.get('max_staleness_ms'))} bound"
+               if stale is not None else "")
+            + (f"  stale sheds {_fmt(rq['shed_stale'])}"
+               if rq.get("shed_stale") else ""))
+    cache = rq.get("cache")
+    if isinstance(cache, dict):
+        lines.append(
+            f"  cache hit ratio {_fmt(cache.get('hit_ratio'))} "
+            f"({_fmt(cache.get('hits'))} hits / "
+            f"{_fmt(cache.get('misses'))} misses; "
+            f"{_fmt(cache.get('entries'))}/{_fmt(cache.get('capacity'))}"
+            f" entries, {_fmt(cache.get('evictions'))} evicted, "
+            f"{_fmt(cache.get('invalidations'))} epoch invalidations)")
+    fr = rq.get("freshness")
+    if isinstance(fr, dict) and fr.get("hops"):
+        lines.append("  reply freshness p99 (ms): " + "  ".join(
+            f"{hop} {_fmt((fr['hops'].get(hop) or {}).get('p99'))}"
+            for hop in ("fold_lag", "ship_wait", "tail_lag", "serve",
+                        "total"))
+            + f"  (high water {_fmt(fr.get('high_water_ms'))})")
+    lines.append(f"  lifecycle records: {_fmt(qobs.get('served_records'))}"
+                 f" served + {_fmt(qobs.get('shed_records'))} shed")
+    segs = qobs.get("segments") or {}
+    p50_sum = sum(_p50(v) for v in segs.values())
+    lines.append(f"  {'segment':<10} {'count':>8} {'p50_ms':>12} "
+                 f"{'p95_ms':>12} {'p99_ms':>12} {'share':>7}")
+    for name, summ in segs.items():
+        share = (f"{_p50(summ) / p50_sum * 100:.1f}%" if p50_sum else "-")
+        lines.append(
+            f"  {name:<10} {_fmt(summ.get('count') or 0):>8} "
+            f"{_fmt(summ.get('p50')):>12} {_fmt(summ.get('p95')):>12} "
+            f"{_fmt(summ.get('p99')):>12} {share:>7}")
+    e2e = qobs.get("e2e_ms") or {}
+    lines.append(f"  {'e2e':<10} {_fmt(e2e.get('count') or 0):>8} "
+                 f"{_fmt(e2e.get('p50')):>12} {_fmt(e2e.get('p95')):>12} "
+                 f"{_fmt(e2e.get('p99')):>12}")
+    if _p50(e2e):
+        cov = p50_sum / _p50(e2e) * 100
+        lines.append(f"  segment p50 sum {p50_sum:,.1f} ms = {cov:.1f}% "
+                     "of e2e p50")
+    shed_q = qobs.get("shed_queue_ms") or {}
+    if shed_q.get("count"):
+        lines.append(f"  shed queue wait    p50 {_fmt(shed_q.get('p50'))}"
+                     f" ms over {_fmt(shed_q['count'])} shed records")
+    cont = qobs.get("contention") or {}
+    lines.append(f"  contention ratio {_fmt(cont.get('ratio'))} "
+                 f"(ingest overlap {_fmt(cont.get('ingest_overlap_ms'))}"
+                 f" ms of {_fmt(cont.get('queue_wait_ms'))} ms queue "
+                 f"wait; busy evidence: "
+                 f"{_fmt(cont.get('busy_intervals'))} windows)")
+    if qobs.get("slow_queries"):
+        lines.append(f"  slow queries {_fmt(qobs['slow_queries'])} "
+                     f"(> {_fmt(qobs.get('slo_ms'))} ms; "
+                     f"{_fmt(qobs.get('slowlog_evicted'))} evicted)")
+        for e in (qobs.get("slowlog") or [])[-5:]:
+            lines.append(
+                f"    id={e.get('id')} e2e {_fmt(e.get('e2e_ms'))} ms = "
+                f"queue {_fmt(e.get('queue_ms'))} + batch "
+                f"{_fmt(e.get('batch_ms'))} + dispatch "
+                f"{_fmt(e.get('dispatch_ms'))} + reply "
+                f"{_fmt(e.get('reply_ms'))}")
+    return "\n".join(lines)
+
+
+def render_serve_diff(a: dict, b: dict) -> str:
+    """Two runs' serving segment p50/p99 side by side (B vs A)."""
+    lines = ["reach serving diff:",
+             f"  A: {a['path']}",
+             f"  B: {b['path']}"]
+    qa = (a.get("reach_query") or {}).get("query_obs")
+    qb = (b.get("reach_query") or {}).get("query_obs")
+    if not qa or not qb:
+        lines.append("  missing reach_query records in "
+                     + ("both runs" if not (qa or qb)
+                        else ("A" if not qa else "B")))
+        return "\n".join(lines)
+    lines.append(f"  {'segment':<10} {'A p50':>12} {'B p50':>12} "
+                 f"{'delta':>12} {'A p99':>12} {'B p99':>12}")
+    segs = list((qa.get("segments") or {}).keys())
+    for extra in (qb.get("segments") or {}):
+        if extra not in segs:
+            segs.append(extra)
+    rows = [(name, (qa.get("segments") or {}).get(name),
+             (qb.get("segments") or {}).get(name)) for name in segs]
+    rows.append(("e2e", qa.get("e2e_ms"), qb.get("e2e_ms")))
+    for name, sa, sb in rows:
+        pa, pb = _p50(sa), _p50(sb)
+        lines.append(
+            f"  {name:<10} {_fmt((sa or {}).get('p50')):>12} "
+            f"{_fmt((sb or {}).get('p50')):>12} "
+            f"{_fmt(round(pb - pa, 3)):>12} "
+            f"{_fmt((sa or {}).get('p99')):>12} "
+            f"{_fmt((sb or {}).get('p99')):>12}")
+    ca = (qa.get("contention") or {}).get("ratio")
+    cb = (qb.get("contention") or {}).get("ratio")
+    lines.append(f"  contention ratio: A {_fmt(ca)}  B {_fmt(cb)}")
+    ha = ((a.get("reach_query") or {}).get("cache") or {}).get(
+        "hit_ratio")
+    hb = ((b.get("reach_query") or {}).get("cache") or {}).get(
+        "hit_ratio")
+    if ha is not None or hb is not None:
+        lines.append(f"  cache hit ratio:  A {_fmt(ha)}  B {_fmt(hb)}")
+    return "\n".join(lines)
+
+
+# ----------------------------------------------------------------------
 # per-window latency attribution (obs.lifecycle): the "attribution"
 # block each snapshot carries, summarized from the run's last word
 def summarize_attribution(records: list[dict], path: str = "") -> dict:

@@ -295,12 +295,18 @@ class MetricsSampler:
     """
 
     def __init__(self, path: str, interval_ms: int = 1000,
-                 registry=None, max_bytes: int = 0):
+                 registry=None, max_bytes: int = 0,
+                 role: "str | None" = None):
         self.path = path
         self.interval_ms = max(int(interval_ms), 1)
         self.registry = registry
-        # every record carries this process's pid: one int per record
-        # makes any journal self-identifying
+        # fleet attribution: every record carries this process's pid, and
+        # its fleet role when one is declared ("writer", "replica",
+        # "router", "controller"), so the FleetCollector can merge many
+        # roles' journals into one attributed stream.  pid is stamped
+        # unconditionally: one int per record makes any journal
+        # self-identifying.
+        self.role = role
         self._pid = os.getpid()
         # journal size cap (``jax.metrics.max.bytes``; 0 = unbounded):
         # a record that would push past it rotates metrics.jsonl to
@@ -350,6 +356,8 @@ class MetricsSampler:
             rec = {"kind": kind, "seq": self._seq, "ts_ms": now_ms(),
                    "uptime_ms": int((now - self._t0) * 1000),
                    "pid": self._pid}
+            if self.role is not None:
+                rec["role"] = self.role
             self._seq += 1
             for fn in self._collectors:
                 fn(rec, dt_s)
@@ -365,6 +373,8 @@ class MetricsSampler:
         rec = {"kind": "event", "event": event, "ts_ms": now_ms(),
                "uptime_ms": int((time.monotonic() - self._t0) * 1000),
                "pid": self._pid}
+        if self.role is not None:
+            rec["role"] = self.role
         rec.update(fields)
         self._write(rec)
 

@@ -1,8 +1,7 @@
 """Config-driven latency/throughput objectives with burn-rate gates.
 
 The port of ``streambench_tpu/obs/slo.py``, without the per-tenant
-trackers (the port has no tenants yet) and the reach objective's
-per-segment breach attribution (``obs/queryattr.py`` is not ported yet).
+trackers (the port has no tenants yet).
 
 ROADMAP item 4's live serving workload needs "load-shedding and latency
 SLOs measured by the obs stack"; until now a run could only be judged
@@ -66,7 +65,7 @@ class SloTracker:
                  budget: float = 0.01, fast_s: float = 30.0,
                  slow_s: float = 180.0, use_lifecycle: bool = False,
                  annotate=None, flightrec=None, capture=None,
-                 clock=time.monotonic):
+                 queryattr=None, clock=time.monotonic):
         self.p99_ms = max(int(p99_ms), 0)
         self.rate_evps = max(int(rate_evps), 0)
         # jax.reach.slo.p99.ms — reach-serving latency objective: a
@@ -85,6 +84,11 @@ class SloTracker:
         # was".  The manager owns cooldown/cap policy, so a flapping
         # breach cannot profile the run to death.
         self.capture = capture
+        # obs.queryattr.QueryLifecycle (or None): when the reach
+        # objective breaches, the breach event carries the per-segment
+        # attribution — WHICH segment (queue/batch/dispatch/reply) was
+        # burning the budget, not just that the budget burned.
+        self.queryattr = queryattr
         self._clock = clock
         # latency source: get-or-create with the SAME geometry as the
         # producer so the registry hands back the shared instrument
@@ -236,6 +240,14 @@ class SloTracker:
             self._c_breach.inc()
             fields = {"burn": burns, "bad_windows": bad,
                       "total_windows": total}
+            if self.reach_p99_ms and self.queryattr is not None:
+                # per-segment burn attribution: the breach event says
+                # where the slow queries' time went
+                segs = self.queryattr.segment_quantiles()
+                if segs:
+                    fields["reach_segments"] = segs
+                fields["reach_contention_ratio"] = round(
+                    self.queryattr.contention_ratio(), 4)
             if self.annotate is not None:
                 try:
                     self.annotate("slo_breach", **fields)
@@ -295,4 +307,10 @@ class SloTracker:
             out["bad_reach"] = r_total - self._reach_hist.count_le(
                 float(self.reach_p99_ms))
             out["total_reach"] = r_total
+            if self.queryattr is not None:
+                segs = self.queryattr.segment_quantiles()
+                if segs:
+                    out["reach_segments"] = segs
+                out["reach_contention_ratio"] = round(
+                    self.queryattr.contention_ratio(), 4)
         return out

@@ -12,11 +12,13 @@ The port of ``streambench_tpu/reach/``:
   feeding the ``jax.reach.slo.p99.ms`` objective (obs/slo.py);
 - ``reach.cache`` — the (epoch, campaign set) result cache;
 - ``reach.replica`` / ``reach.deltaship`` — read replicas fed by
-  shipped snapshots and dirty-row deltas;
+  shipped snapshots and dirty-row deltas (``--fleet``: clock offsets
+  and per-reply freshness hops);
+- ``reach.router`` — the freshness-aware failover router fronting a
+  replica fleet: sticky by campaign set, failover in freshness order,
+  honest shed;
 - ``reach.oracle`` — exact set-arithmetic ground truth and a numpy
   mirror of the sketch algebra for bit-exact checks.
-
-The replica fleet's router (``reach/router.py``) is not ported yet.
 """
 
 from streambench_tpu_torch.reach.query import (
@@ -25,10 +27,18 @@ from streambench_tpu_torch.reach.query import (
     query_chunks,
     union_bound,
 )
+from streambench_tpu_torch.reach.router import (
+    ReachRouter,
+    ReplicaHandle,
+    campaign_shard,
+)
 from streambench_tpu_torch.reach.serve import ReachQueryServer
 
 __all__ = [
     "ReachQueryServer",
+    "ReachRouter",
+    "ReplicaHandle",
+    "campaign_shard",
     "batch_query",
     "overlap_bound",
     "query_chunks",

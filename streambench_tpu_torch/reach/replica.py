@@ -5,9 +5,9 @@ tailer are the reference's, pure numpy over the same wire format, so a
 log either package's shipper wrote tails into either package's replica.
 A replica loads each record's planes into tensors on its device
 (``--device``, ``cuda`` by default) and answers through the port's
-``ReachQueryServer``; the fleet mode (``--fleet``: clock-offset
-estimates and freshness hops, ``obs/clock.py``) is not ported yet and
-is refused.
+``ReachQueryServer``.  The fleet mode (``--fleet``) estimates the clock
+offset to the writer (``obs/clock.py``) and stamps each load once its
+planes are on the device, so every reply carries the freshness hops.
 
 The reach-forecasting paper (PAPERS.md, arXiv 2502.14785) serves
 audience-overlap queries at ad-platform scale by exploiting what the
@@ -280,7 +280,9 @@ class ReachReplica:
                  port: int = 0, poll_ms: int = 200,
                  max_staleness_ms: int = DEFAULT_MAX_STALENESS_MS,
                  cache_capacity: int = 4096, depth: int = 512,
-                 batch: int = 64, registry=None, device=None):
+                 batch: int = 64, registry=None, queryattr=None,
+                 fleet: bool = False, spans=None, flightrec=None,
+                 device=None):
         from streambench_tpu_torch.dimensions.pubsub import PubSubServer
         from streambench_tpu_torch.obs import MetricsRegistry
         from streambench_tpu_torch.utils.device import resolve_device
@@ -299,6 +301,16 @@ class ReachReplica:
         # base-only (full-ship) log it behaves exactly like the legacy
         # ShipLogTailer
         self._tailer = ChainTailer(ship_path)
+        self._queryattr = queryattr
+        # fleet freshness: pass the shipped records' stamp chain through
+        # to the server (replies then carry the hop decomposition) and
+        # estimate the clock offset to the writer's pub/sub origin so
+        # cross-host stamp deltas are honest
+        self.fleet = bool(fleet)
+        self._spans = spans
+        self._flightrec = flightrec
+        self.clock: dict | None = None        # last offset estimate
+        self._clock_origin: str | None = None  # addr it was made against
         self._depth = depth
         self._batch = batch
         self._cache_capacity = int(cache_capacity)
@@ -330,6 +342,47 @@ class ReachReplica:
             return
         srv.handle(msg, reply)
 
+    # -- clock-domain correction (fleet mode) --------------------------
+    def _sync_clock(self, origin: dict | None) -> None:
+        """One midpoint-method offset estimate against the writer's
+        pub/sub origin, refreshed when the origin address changes.  A
+        failed sync (writer gone, port closed) records ``applied:
+        False`` — raw stamps are then used as-is, never corrected by a
+        guess."""
+        addr = (origin or {}).get("addr")
+        if not addr or addr == self._clock_origin:
+            return
+        from streambench_tpu_torch.obs import clock as obs_clock
+
+        self._clock_origin = addr
+        try:
+            host, port = addr.rsplit(":", 1)
+            self.clock = obs_clock.sync_pubsub(host, int(port), n=8,
+                                               timeout_s=2.0)
+        except (OSError, ValueError) as e:
+            self.clock = {"offset_ms": 0.0, "applied": False,
+                          "error": repr(e), "endpoint": addr}
+
+    def _freshness(self, rec: dict, loaded_ms: int) -> dict | None:
+        """The stamp dict a fleet-mode state push carries: writer-clock
+        stamps mapped into this replica's clock (when the offset
+        estimate passed the jitter gate) + the local load stamp."""
+        if not self.fleet:
+            return None
+        from streambench_tpu_torch.obs import clock as obs_clock
+
+        def local(stamp):
+            return (None if stamp is None
+                    else obs_clock.to_local_ms(stamp, self.clock))
+
+        out = {"folded_ms": local(rec.get("folded_ms")),
+               "submit_ms": local(rec.get("submit_ms")),
+               "shipped_ms": local(rec.get("shipped_ms")),
+               "loaded_ms": int(loaded_ms)}
+        if self.clock is not None:
+            out["clock"] = dict(self.clock)
+        return out
+
     # -- plane loading -------------------------------------------------
     def _load(self, rec: dict) -> None:
         import torch
@@ -338,6 +391,10 @@ class ReachReplica:
         from streambench_tpu_torch.reach.cache import ReachQueryCache
         from streambench_tpu_torch.reach.serve import ReachQueryServer
 
+        if self.fleet:
+            # outside the lock: a slow/failed ping must not stall the
+            # admission path's server lookup
+            self._sync_clock(rec.get("origin"))
         with self._lock:
             if self.server is None:
                 self.cache = (ReachQueryCache(self._cache_capacity,
@@ -347,16 +404,23 @@ class ReachReplica:
                     rec["campaigns"], depth=self._depth,
                     batch=self._batch, registry=self.registry,
                     cache=self.cache,
-                    max_staleness_ms=self.max_staleness_ms)
+                    max_staleness_ms=self.max_staleness_ms,
+                    queryattr=self._queryattr, spans=self._spans,
+                    flightrec=self._flightrec)
             prev = self.server.epoch
             # new tensors (copies): the chain tailer owns and mutates
             # its folded plane arrays across polls — the served planes
             # must never alias them
+            mins = mins_tensor(rec["mins"], self.device)
+            regs = torch.from_numpy(
+                np.array(rec["registers"], np.int32)).to(self.device)
+            if self.device.type == "cuda":
+                # the load stamp means "these planes can answer": taken
+                # once the copies have landed on the card
+                torch.cuda.current_stream(self.device).synchronize()
             self.server.update_state(
-                mins_tensor(rec["mins"], self.device),
-                torch.from_numpy(np.array(rec["registers"], np.int32)).to(
-                    self.device),
-                rec["epoch"], shipped_ms=rec["shipped_ms"])
+                mins, regs, rec["epoch"], shipped_ms=rec["shipped_ms"],
+                freshness=self._freshness(rec, now_ms()))
             self.plane_loads += 1
             if prev != rec["epoch"]:
                 self.epoch_loads += 1
@@ -395,6 +459,17 @@ class ReachReplica:
             # damaged records survived, resyncs taken
             "tailer": self._tailer.stats(),
         }
+        if self.fleet:
+            out["fleet"] = True
+            if self.clock is not None:
+                out["clock"] = dict(self.clock)
+        if self.device.type == "cuda":
+            import torch
+
+            out["device_memory"] = {
+                "allocated_bytes": torch.cuda.memory_allocated(self.device),
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(
+                    self.device)}
         if self.server is not None:
             out["serve"] = self.server.summary()
         return out
@@ -406,12 +481,14 @@ class ReachReplica:
         self.pubsub.close()
         if self.server is not None:
             self.server.close()
+            # the planes go with the replica: a successor loading into
+            # the same device must not find these still allocated
+            self.server.drop_state()
 
 
 def main(argv: list[str] | None = None) -> int:
     import argparse
     import signal
-    import sys
 
     ap = argparse.ArgumentParser(
         prog="streambench-torch-reach-replica", description=__doc__)
@@ -436,21 +513,21 @@ def main(argv: list[str] | None = None) -> int:
                     help="include raw queue-wait intervals in the exit "
                          "stats")
     ap.add_argument("--metrics-dir", default=None,
-                    help="workdir for this replica's metrics.jsonl")
+                    help="workdir for this replica's metrics.jsonl + "
+                         "trace_<pid>.json + flight dumps (fleet mode)")
     ap.add_argument("--metrics-interval-ms", type=int, default=1000)
     ap.add_argument("--pid-file", default=None,
                     help="pidfile path (pids/replica_<n>); written as "
                          "'<pid> <starttime>' so liveness checks survive "
                          "pid recycling; REFUSES to start when the file "
                          "names a live process")
-    # the reference's fleet mode: accepted only to refuse it
-    ap.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--fleet", action="store_true",
+                    help="fleet observability: replies carry the "
+                         "freshness hop decomposition, the clock offset "
+                         "to the writer origin is estimated, and "
+                         "--metrics-dir gets this role's metrics.jsonl/"
+                         "trace/flight files for the FleetCollector")
     args = ap.parse_args(argv)
-
-    if args.fleet:
-        print("error: not ported to the PyTorch replica yet: --fleet",
-              file=sys.stderr, flush=True)
-        return 2
     if args.pid_file:
         from streambench_tpu_torch.utils.pidfile import (
             acquire_pidfile,
@@ -469,21 +546,32 @@ def main(argv: list[str] | None = None) -> int:
 
         ship = os.path.join(ship, LOG_NAME)
 
-    sampler = registry = None
+    sampler = spans = flightrec = registry = None
     if args.metrics_dir:
-        from streambench_tpu_torch.obs import MetricsRegistry, MetricsSampler
+        from streambench_tpu_torch.obs import (
+            FlightRecorder,
+            MetricsRegistry,
+            MetricsSampler,
+            SpanTracer,
+        )
 
         os.makedirs(args.metrics_dir, exist_ok=True)
         registry = MetricsRegistry()
         sampler = MetricsSampler(
             os.path.join(args.metrics_dir, "metrics.jsonl"),
-            interval_ms=args.metrics_interval_ms, registry=registry)
+            interval_ms=args.metrics_interval_ms, registry=registry,
+            role="replica")
+        if args.fleet:
+            spans = SpanTracer(registry=registry)
+            flightrec = FlightRecorder(args.metrics_dir)
+            flightrec.span_source = spans.tail
 
     rep = ReachReplica(ship, host=args.host, port=args.port,
                        poll_ms=args.poll_ms,
                        max_staleness_ms=args.max_staleness_ms,
                        cache_capacity=args.cache, depth=args.depth,
                        batch=args.batch, registry=registry,
+                       fleet=args.fleet, spans=spans, flightrec=flightrec,
                        device=args.device).start()
     if sampler is not None:
         # the same "reach_query" block shape the writer journals, plus
@@ -496,13 +584,16 @@ def main(argv: list[str] | None = None) -> int:
                 "epoch_loads": rep.epoch_loads,
                 "shed_before_load": rep.shed_before_load,
             }
+            if rep.clock is not None:
+                rec["clock"] = dict(rep.clock)
 
         sampler.add_collector(_collect)
         sampler.start()
     host, port = rep.address
+    fleet_note = " fleet=on" if args.fleet else ""
     print(f"replica: pubsub={host}:{port} ship={ship} "
           f"device={rep.device} max_staleness_ms={args.max_staleness_ms} "
-          f"cache={args.cache}", flush=True)
+          f"cache={args.cache}{fleet_note}", flush=True)
 
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())
@@ -517,6 +608,15 @@ def main(argv: list[str] | None = None) -> int:
     if args.dump_queue_waits and rep.server is not None:
         stats["queue_waits_ns"] = rep.server.wait_intervals()
     rep.close()
+    if spans is not None:
+        spans.dump(os.path.join(args.metrics_dir,
+                                f"trace_{os.getpid()}.json"),
+                   run="reach-replica")
+    if flightrec is not None and len(flightrec):
+        # the replica's black box: staleness high-water / shed trail
+        # (dumped at exit so a storm postmortem has the evidence even
+        # when the process itself ended cleanly)
+        flightrec.dump("replica_exit")
     if sampler is not None:
         sampler.close(final=stats)
     if args.pid_file:

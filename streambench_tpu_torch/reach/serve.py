@@ -30,9 +30,7 @@ control:
   recovery — the chaos sweep asserts no post-resume answer carries a
   pre-resume epoch.
 
-Query-path observability (the ``queryattr`` hook stays; the port's
-engine CLI does not build a ``QueryLifecycle`` yet and refuses
-``jax.obs.query``):
+Query-path observability (all default-off):
 
 - ``queryattr`` (a ``QueryLifecycle``, ``jax.obs.query``) stamps every
   query at admission / queue-exit / dispatch-submit / dispatch-complete
@@ -75,10 +73,16 @@ Scale-out additions:
   from the admission path — no queue, no dispatch — which is what the
   bench's cache-hit-p99 acceptance measures.
 
-The reference's pluggable evaluator (``query_fn``, for the sharded
-reach engine) and its fleet freshness ledger (``update_state(freshness=)``,
-the per-hop histograms) have no caller in the port yet and are left out;
-``freshness_hops``, the decomposition itself, is here.
+Fleet freshness ledger (``update_state(freshness=)``, a replica's
+``--fleet`` mode): each push carries the writer's fold / ship-submit /
+shipped stamps (mapped into the replica's clock by ``obs/clock.py``) and
+the replica's own load stamp; every reply then carries the per-hop
+decomposition of its evidence age (``freshness_hops``), observed into
+``streambench_fleet_freshness_ms{hop=}``, and the staleness clock anchors
+at the fold.
+
+The reference's pluggable evaluator (``query_fn``, for the sharded reach
+engine) has no caller in the port yet and is left out.
 """
 
 from __future__ import annotations
@@ -103,8 +107,14 @@ LATENCY_HIST = "streambench_reach_latency_ms"
 #: submit -> record appended durable), ``tail_lag`` (record durable ->
 #: this replica loaded it — the tailer poll), and ``serve`` (loaded ->
 #: this reply written — how long the planes have been serving).  The
-#: four sum EXACTLY to the fold-anchored age of the evidence.
+#: four sum EXACTLY to the fold-anchored ``staleness_ms`` the same
+#: reply carries; writer-clock stamps are mapped into the replica's
+#: clock first (obs/clock.py) so cross-host deltas are honest.
 FRESHNESS_HOPS = ("fold_lag", "ship_wait", "tail_lag", "serve")
+
+#: histogram family the per-hop samples land in (label ``hop=``, plus
+#: ``hop="total"`` for the summed evidence age — the regress key)
+FRESHNESS_HIST = "streambench_fleet_freshness_ms"
 
 
 def freshness_hops(fresh: dict, reply_ms: "float | None" = None) -> dict:
@@ -116,8 +126,9 @@ def freshness_hops(fresh: dict, reply_ms: "float | None" = None) -> dict:
     The stamp chain is clamped monotone (fold <= submit <= shipped <=
     loaded <= reply) so every hop is >= 0 and the partition contract
     holds by construction: ``sum(hops) == total`` exactly, where total
-    is the fold-anchored age of the evidence.  A clamp only ever fires
-    on sub-millisecond races or an uncorrected clock skew."""
+    is the reply's fold-anchored staleness.  A clamp only ever fires on
+    sub-millisecond races or an uncorrected skew — the clock block the
+    reply carries says which."""
     now = float(now_ms() if reply_ms is None else reply_ms)
     fm = float(fresh.get("folded_ms") or fresh.get("submit_ms")
                or fresh.get("shipped_ms") or now)
@@ -146,7 +157,8 @@ class ReachQueryServer:
         self.batch = max(int(batch), 1)
         self._q: deque = deque()
         self._cv = threading.Condition()
-        # (mins, registers, k, R, epoch, shipped_ms)
+        # (mins, registers, k, R, epoch, shipped_ms, freshness) where
+        # freshness is the fleet stamp dict (None off the fleet path)
         self._state = None
         self._hold = bool(hold)
         self._closed = False
@@ -168,6 +180,16 @@ class ReachQueryServer:
         self.queue_high_water = 0
         self._fr_hw_recorded = 1     # next high-water worth a record
         self._fr_shed_last = 0.0     # monotonic stamp of last shed rec
+        # fleet freshness: histograms are created lazily at the first
+        # freshness-carrying reply so a fleet-off scrape surface is
+        # unchanged; the flight-recorder high-water starts at 1/8 of the
+        # staleness bound (unbounded servers: 1 s) and doubles per
+        # record — a log2-bounded trail, as reach_queue_high_water does
+        self._registry = registry
+        self._fresh_hists = None
+        self.freshness_high_water = 0.0
+        self._fr_fresh_recorded = max(
+            (self.max_staleness_ms or 0) / 8.0, 1000.0 / 8.0)
         self._warmed = False         # query run once (first push)
         self._lat_ring: deque = deque(maxlen=8192)  # ms, summary() only
         # raw (admit_ns, pop_ns) queue-wait intervals, monotonic clock:
@@ -209,7 +231,8 @@ class ReachQueryServer:
 
     # -- state push ----------------------------------------------------
     def update_state(self, mins, registers, epoch: int,
-                     shipped_ms: int | None = None) -> None:
+                     shipped_ms: int | None = None,
+                     freshness: dict | None = None) -> None:
         """Engine-side push of the current sketch planes: tensors no fold
         touches again (the engine clones its planes for the push; the
         handoff is atomic under the GIL).  The FIRST push runs the
@@ -223,7 +246,16 @@ class ReachQueryServer:
         pushes omit it: their replies carry ``plane_epoch`` only
         (stamping a wall-clock staleness there would make replies
         nondeterministic for zero information — the planes ARE the
-        writer's live state)."""
+        writer's live state).
+
+        ``freshness`` (fleet mode): the stamp dict
+        (``folded_ms``/``submit_ms``/``shipped_ms`` writer-clock —
+        offset-corrected by the replica — plus the local ``loaded_ms``,
+        stamped once the planes are on the device, and a ``clock``
+        estimate block).  When present, replies carry the per-hop
+        decomposition and the staleness clock anchors at the FOLD
+        watermark (the age of the evidence, which the hops sum to
+        exactly) instead of the ship stamp."""
         if not self._warmed:
             self._warm(mins, registers)
         epoch = int(epoch)
@@ -236,7 +268,8 @@ class ReachQueryServer:
                            int(mins.shape[1]), int(registers.shape[1]),
                            epoch,
                            int(shipped_ms) if shipped_ms is not None
-                           else None)
+                           else None,
+                           dict(freshness) if freshness else None)
             self._cv.notify()
         if self._g_epoch is not None:
             self._g_epoch.set(epoch)
@@ -255,14 +288,21 @@ class ReachQueryServer:
     # -- staleness (replica serving bound) -----------------------------
     @staticmethod
     def _anchor(st) -> "float | None":
-        """The stamp a state's age is measured from: the shipped stamp,
-        or None (live state)."""
+        """The stamp a state's age is measured from: the fleet fold
+        watermark when the push carried freshness stamps (the hops sum
+        to that age), else the shipped stamp, else None (live state)."""
         if st is None:
             return None
+        fresh = st[6]
+        if fresh is not None:
+            anchor = (fresh.get("folded_ms") or fresh.get("submit_ms")
+                      or fresh.get("shipped_ms"))
+            if anchor is not None:
+                return float(anchor)
         return float(st[5]) if st[5] is not None else None
 
     def staleness_ms(self, st=None) -> float | None:
-        """Age of the served planes (vs their shipped stamp), or
+        """Age of the served planes (vs their freshness anchor), or
         None when no push carried one (writer-attached: live state)."""
         st = st if st is not None else self._state
         anchor = self._anchor(st)
@@ -285,6 +325,67 @@ class ReachQueryServer:
     def epoch(self) -> int | None:
         st = self._state
         return st[4] if st is not None else None
+
+    # -- fleet freshness ledger ------------------------------------
+    def _freshness_block(self, st, reply_ms: "float | None" = None,
+                         observe: bool = False) -> "dict | None":
+        """The per-reply freshness decomposition, or None off the fleet
+        path.  ``observe=True`` additionally lands one sample per hop
+        (plus the total) in the ``streambench_fleet_freshness_ms``
+        histograms and feeds the flight-recorder high-water trail —
+        called once per SERVED reply so hop counts match the served
+        count exactly."""
+        fresh = st[6] if st is not None else None
+        if fresh is None:
+            return None
+        hops = freshness_hops(fresh, reply_ms=reply_ms)
+        block = {f"{hop}_ms": round(hops[hop], 1)
+                 for hop in FRESHNESS_HOPS}
+        # staleness == the hop sum BY CONSTRUCTION (same clamped chain,
+        # same reply stamp) — the partition contract replies are pinned
+        # against; rounding is per-hop, so the sum check carries
+        # +-(len(hops) * 0.05) ms of slack at most
+        block["staleness_ms"] = round(hops["total"], 1)
+        clock = fresh.get("clock")
+        if clock is not None:
+            block["clock"] = {
+                "offset_ms": clock.get("offset_ms"),
+                "uncertainty_ms": clock.get("uncertainty_ms"),
+                "applied": bool(clock.get("applied")),
+            }
+        if observe:
+            self._observe_freshness(hops)
+        return block
+
+    def _observe_freshness(self, hops: dict) -> None:
+        if self._registry is not None:
+            if self._fresh_hists is None:
+                self._fresh_hists = {
+                    hop: self._registry.histogram(
+                        FRESHNESS_HIST,
+                        "end-to-end reply freshness by hop: the age of "
+                        "the evidence behind a reach answer, decomposed "
+                        "(ms)", lo=0.1, hi=1e8, growth=2 ** 0.125,
+                        labels={"hop": hop})
+                    for hop in FRESHNESS_HOPS + ("total",)}
+            for hop, h in self._fresh_hists.items():
+                h.observe(hops[hop])
+        total = hops["total"]
+        if total > self.freshness_high_water:
+            self.freshness_high_water = total
+        if (self._flightrec is not None
+                and total >= 2 * self._fr_fresh_recorded):
+            # doubling high-water: a staleness-shed storm leaves a
+            # log2-bounded trail naming which hop grew (the crash-dump
+            # reader's first question), without flooding the ring
+            self._fr_fresh_recorded = total
+            self._flightrec.record(
+                "fleet_freshness_high_water",
+                staleness_ms=round(total, 1),
+                **{f"{hop}_ms": round(hops[hop], 1)
+                   for hop in FRESHNESS_HOPS},
+                max_staleness_ms=self.max_staleness_ms,
+                shed_stale=self.shed_stale, served=self.served)
 
     # -- admission -----------------------------------------------------
     def handle(self, msg: dict, reply) -> None:
@@ -378,11 +479,16 @@ class ReachQueryServer:
         payload["id"] = query_id
         payload["cached"] = True
         # age evidence is REPLY-time state (cache.CACHEABLE_KEYS): a
-        # hit carries the cached PLANE's current staleness, recomputed
-        # now — never the fill-time age frozen into the entry
-        stale = self.staleness_ms(st)
-        if stale is not None:
-            payload["staleness_ms"] = round(stale, 1)
+        # hit carries the cached PLANE's current freshness, recomputed
+        # now — never the fill-time hops frozen into the entry
+        fresh_block = self._freshness_block(st, observe=True)
+        if fresh_block is not None:
+            payload["freshness"] = fresh_block
+            payload["staleness_ms"] = fresh_block["staleness_ms"]
+        else:
+            stale = self.staleness_ms(st)
+            if stale is not None:
+                payload["staleness_ms"] = round(stale, 1)
         rec = None
         ql = self._queryattr
         if ql is not None:
@@ -526,7 +632,7 @@ class ReachQueryServer:
             recs = [it[5] for it in items if it[5] is not None]
             for r in recs:
                 r.t_exit = t_exit
-        mins, registers, k, R, epoch, shipped_ms = state
+        mins, registers, k, R, epoch, shipped_ms, fresh = state
         C = len(self.campaigns)
         mask = np.zeros((self.batch, C), bool)
         overlap = np.zeros(self.batch, bool)
@@ -565,10 +671,18 @@ class ReachQueryServer:
         ob = rq.overlap_bound(k, R)
         now = time.monotonic()
         # one wall stamp for the whole reply loop: every reply in the
-        # batch carries the same age evidence
+        # batch carries the same age evidence, and the freshness hops
+        # sum to the same staleness the reply states (fleet mode)
         now_wall = now_ms()
-        staleness = (round(max(now_wall - shipped_ms, 0), 1)
-                     if shipped_ms is not None else None)
+        fresh_block = fresh_hops_raw = None
+        if fresh is not None:
+            fresh_hops_raw = freshness_hops(fresh, reply_ms=now_wall)
+            fresh_block = self._freshness_block(state, reply_ms=now_wall)
+        if fresh_block is not None:
+            staleness = fresh_block["staleness_ms"]
+        else:
+            staleness = (round(max(now_wall - shipped_ms, 0), 1)
+                         if shipped_ms is not None else None)
         if self._served_t0 is None:
             self._served_t0 = now
         for row, (idx, is_overlap, reply, qid, t0, rec) in enumerate(
@@ -598,6 +712,12 @@ class ReachQueryServer:
             }
             if staleness is not None:
                 payload["staleness_ms"] = staleness
+            if fresh_block is not None:
+                # fleet freshness ledger: one hop decomposition per
+                # reply, observed into the {hop=} histograms so served
+                # count == per-hop sample count exactly
+                payload["freshness"] = fresh_block
+                self._observe_freshness(fresh_hops_raw)
             if self._cache is not None:
                 # cache the epoch-scoped answer (everything but the
                 # per-query id and the reply-time age evidence —
@@ -678,7 +798,24 @@ class ReachQueryServer:
             self._g_staleness.set(out["staleness_ms"])
         if self._g_qps is not None and "qps" in out:
             self._g_qps.set(out["qps"])
+        if self._fresh_hists is not None:
+            # fleet freshness ledger: per-hop distributions over every
+            # served reply + the doubling high-water; the clock block is
+            # the LIVE state's offset evidence
+            fr = {"hops": {hop: h.summary()
+                           for hop, h in self._fresh_hists.items()},
+                  "high_water_ms": round(self.freshness_high_water, 1)}
+            clock = (st[6] or {}).get("clock") if st is not None else None
+            if clock is not None:
+                fr["clock"] = dict(clock)
+            out["freshness"] = fr
         return out
+
+    def drop_state(self) -> None:
+        """Let go of the served planes (a closed replica's tensors are
+        freed here, not whenever its last reference dies)."""
+        with self._cv:
+            self._state = None
 
     def close(self) -> None:
         with self._cv:

@@ -243,9 +243,9 @@ def test_cli_catchup_on_cpu(tmp_path):
     (["--sharded", "--engine", "reach"], "", "--sharded --engine reach"),
     # hll, sliding, session and reach are ported; hllx is not yet
     (["--engine", "hllx"], "", "--engine hllx"),
-    # --traceDir is ported; what stays refused of tracing is the fleet
-    # layer's cross-process trace stitching (jax.obs.fleet)
-    ([], "jax.obs.fleet: true", "jax.obs.fleet"),
+    # --traceDir and the fleet's trace stitching (jax.obs.fleet) are
+    # ported; the multi-tenant host's config key stays refused
+    ([], "jax.tenants: a:exact", "jax.tenants"),
     (["--microbatch"], "", "--microbatch"),
     (["--tenants", "a:exact"], "", "--tenants"),
 ], ids=["sharded", "engine", "trace", "microbatch", "tenants"])

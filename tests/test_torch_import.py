@@ -20,14 +20,16 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "streambench_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "streambench_tpu"}
-OBS_MODULES = ("__main__", "capture", "devmem", "flightrec", "httpd",
-               "lifecycle", "occupancy", "registry", "regress", "report",
+OBS_MODULES = ("__main__", "autoscale", "capture", "clock", "devmem",
+               "diagnose", "fleet", "flightrec", "httpd", "lifecycle",
+               "occupancy", "queryattr", "registry", "regress", "report",
                "sampler", "slo", "spans", "xfer")
-CHAOS_MODULES = ("inject", "plan", "supervisor", "verify")
+CHAOS_MODULES = ("fleet_supervisor", "inject", "netchaos", "plan",
+                 "supervisor", "verify")
 PARALLEL_MODULES = ("collectives", "controller", "distributed", "mesh",
                     "sharded", "sketches")
 REACH_MODULES = ("cache", "deltaship", "oracle", "query", "replica",
-                 "serve")
+                 "router", "serve")
 DIMENSIONS_MODULES = ("pubsub", "store")
 
 CHILD = r"""

@@ -156,8 +156,13 @@ def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
 
 
 @pytest.mark.parametrize("extra,conf_line,word,env", [
-    ([], "jax.obs.query: true", "jax.obs.query", {}),
-    ([], "jax.obs.fleet: true", "jax.obs.fleet", {}),
+    # jax.obs.query and jax.obs.fleet run with the reach engine; on the
+    # sharded reach engine, which is not ported yet, they are refused
+    # with it
+    (["--sharded", "--engine", "reach"], "jax.obs.query: true",
+     "--sharded --engine reach", {}),
+    (["--sharded", "--engine", "reach"], "jax.obs.fleet: true",
+     "--sharded --engine reach", {}),
     # jax.obs.shard runs with --sharded on the exact and sketch engines
     # in one process; sharded reach and more processes stay refused
     (["--sharded", "--engine", "reach"], "jax.obs.shard: true",
@@ -178,13 +183,17 @@ def test_cli_refuses_the_obs_keys_not_ported(tmp_path, capsys, monkeypatch,
     assert "not ported" in err and word in err
 
 
-@pytest.mark.parametrize("args", [["serve", "m.jsonl"],
-                                  ["fleet", "m.jsonl"],
-                                  ["trace", "a.json", "b.json", "--merge"]],
+@pytest.mark.parametrize("args", [["serve", "{tmp}/missing.jsonl"],
+                                  ["fleet", "{tmp}"],
+                                  ["trace", "a.json", "b.json"]],
                          ids=["serve", "fleet", "trace_merge"])
-def test_obs_cli_refuses_what_is_not_ported(capsys, args):
-    assert obs_cli.main(args) == 2
-    assert "not ported" in capsys.readouterr().err
+def test_obs_cli_refuses_what_is_not_ported(tmp_path, capsys, args):
+    """``serve``, ``fleet`` and ``trace --merge`` are ported: what they
+    refuse, with exit 2 and an error line, is input they cannot read — a
+    missing journal, a directory without one, several traces without
+    ``--merge``."""
+    assert obs_cli.main([a.format(tmp=tmp_path) for a in args]) == 2
+    assert "error:" in capsys.readouterr().err
 
 
 HARNESS_OBS = {"METRICS_INTERVAL_MS": "1000", "OBS_LIFECYCLE": "1",
@@ -281,9 +290,11 @@ def test_harness_sharded_with_obs_shard_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("knob,extra", [
     # OBS_SHARD runs with SHARDED=1 on the exact, hll, sliding and
-    # session engines; sharded reach stays refused
+    # session engines, OBS_QUERY and OBS_FLEET with ENGINE=reach;
+    # sharded reach stays refused, and the refusal names the obs knob
     ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "reach"}),
-    ("OBS_QUERY", {}), ("OBS_FLEET", {})],
+    ("OBS_QUERY", {"SHARDED": "1", "ENGINE": "reach"}),
+    ("OBS_FLEET", {"SHARDED": "1", "ENGINE": "reach"})],
     ids=["OBS_SHARD", "OBS_QUERY", "OBS_FLEET"])
 def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob, extra):
     workdir = str(tmp_path / "run")

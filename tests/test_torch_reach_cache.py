@@ -7,7 +7,8 @@ is never served after a bump), and the port's query server with the
 cache: hit replies identical to the miss and instrumented, and the
 post-bump answer computed from the new planes.  Each pure case also runs
 the JAX package's cache through the same calls, which must agree call
-for call.  The query-attribution case waits for ``obs/queryattr.py``.
+for call; and with query attribution on, a cache hit leaves one served
+lifecycle record.
 """
 
 import time
@@ -179,3 +180,35 @@ def test_stale_entry_never_served_after_epoch_bump():
     # the post-bump answer seeds the NEW epoch's cache
     assert cache.summary()["epoch"] == 2
     assert cache.summary()["entries"] == 1
+
+
+def test_queryattr_reconciles_with_cache_hits():
+    """Cache-hit replies leave exactly one served lifecycle record each,
+    so the lifecycle's records equal the served counter with the cache
+    in the path, and the hits carry the server block."""
+    from streambench_tpu_torch.obs.queryattr import QueryLifecycle
+
+    reg = MetricsRegistry()
+    ql = QueryLifecycle(reg)
+    cache = ReachQueryCache(capacity=64, registry=reg)
+    srv = ReachQueryServer(list("abcd"), depth=32, batch=8, registry=reg,
+                           cache=cache, queryattr=ql)
+    st = fold_state([5, 6])
+    srv.update_state(st.mins, st.registers, epoch=1)
+    got = []
+    try:
+        for i in range(3):      # the first round fills the cache
+            srv.submit([list("abc")[i]], "union", lambda d: got.append(d),
+                       query_id=i, trace=f"t{i}")
+        drain(got, 3)
+        for i in range(3, 6):   # the second hits it
+            srv.submit([list("abc")[i % 3]], "union",
+                       lambda d: got.append(d), query_id=i, trace=f"t{i}")
+        drain(got, 6)
+    finally:
+        srv.close()
+    assert srv.served == 6
+    assert ql.summary()["served_records"] == 6
+    assert cache.summary()["hits"] >= 1
+    hits = [d for d in got if d.get("cached")]
+    assert hits and all("server" in d for d in hits)

@@ -9,7 +9,7 @@ storm with re-ships.  The ship log is a wire format: a log the JAX
 package's shipper wrote tails into the port's replica, and the port's
 log tails into the JAX package's ``ShipLogTailer`` / ``ChainTailer``,
 with identical planes.  The replica runs on the device it is given
-(``cuda`` by default, raising without it); its fleet mode is refused.
+(``cuda`` by default, raising without it), fleet mode included.
 """
 
 import json
@@ -332,15 +332,28 @@ def test_the_ports_log_tails_into_the_jax_tailers(tmp_path, mode):
 
 
 # ---------------------------------------------------- device and CLI
-def test_replica_defaults_to_cuda_and_refuses_fleet(monkeypatch, tmp_path):
+def test_replica_defaults_to_cuda_and_refuses_fleet(monkeypatch, tmp_path,
+                                                   capsys):
+    """The replica, fleet mode included, runs on ``cuda`` unless asked
+    for ``cpu``: without CUDA it raises rather than start on the CPU,
+    and ``--fleet --device cpu`` serves and reports its fleet block."""
+    from streambench_tpu_torch.reach import replica
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = str(tmp_path / "dimensions.log")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ReachReplica(path)
-    from streambench_tpu_torch.reach import replica
-
-    assert replica.main(["--ship", path, "--fleet", "--device",
-                         "cpu"]) == 2
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReachReplica(path, fleet=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        replica.main(["--ship", path, "--fleet"])
+    assert "replica: pubsub=" not in capsys.readouterr().out
+    assert replica.main(["--ship", path, "--fleet", "--device", "cpu",
+                         "--duration", "0.2"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("replica: pubsub=") and "fleet=on" in out[0]
+    stats = json.loads(out[-1])
+    assert stats["device"] == "cpu" and stats["fleet"] is True
 
 
 def test_replica_cli_serves_a_log_and_exits_with_its_stats(tmp_path):

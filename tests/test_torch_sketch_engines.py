@@ -469,10 +469,11 @@ def test_cli_engine_on_cpu_matches_the_jax_cli(tmp_path, engine):
 
 
 # the sharded HLL and sliding engines are ported; their cases moved to
-# the sharded forms of the engines that are not.  The reach engine is
-# ported; its case moved to its query observability, which is not
+# the sharded forms of the engines that are not.  The reach engine and
+# its query observability are ported; its case moved to tenants, which
+# are not
 @pytest.mark.parametrize("extra,conf_line", [
-    (["--engine", "reach"], "jax.obs.query: true"),
+    (["--engine", "reach"], "jax.tenants: a:reach"),
     (["--engine", "hllx"], ""),
     (["--sharded", "--engine", "reach"], ""),
     (["--sharded", "--engine", "hllx"], "")],
