@@ -64,10 +64,10 @@ result line) when any phase fails:
    method table at Wd = 2048 (``methodbench.measure_cms``: flat, rowloop,
    twostage, salsa).
 4. End to end: BASELINE config #1 (``conf/benchmarkConf.yaml`` with the
-   in-process Redis store): generate the catchup journal (2,000,000
+   in-process Redis store): generate the catchup journal (1,000,000
    events by default: 10,000,000 cut to 5,000,000, then to 2,000,000 to
-   pay for phase 20), run ``AdAnalyticsEngine(device="cuda")`` under
-   ``StreamRunner.run_catchup``, and require the generator's oracle
+   pay for phase 20, then to 1,000,000 for phase 21), run
+   ``AdAnalyticsEngine(device="cuda")`` under ``StreamRunner.run_catchup``, and require the generator's oracle
    (``gen.check_correct``) to find every window exact and the count
    kernel to have launched during the run; then replay the first
    1,000,000 events under ``torch.profiler`` for the device busy share,
@@ -77,7 +77,9 @@ result line) when any phase fails:
 6. Large key space: BASELINE config #5's settings (1,000,000 campaigns x 1
    ad, a 64-slot ring, 8192-event batches, no scan groups) over a
    generated 1,000,000-event journal through ``StreamRunner.run_catchup``,
-   oracle-exact, with the drains per branch of ``_drain_device`` (touched
+   oracle-exact (the store's window digest against the journal's exact
+   windows, and a seeded tenth of the campaigns' windows read back and
+   held to them), with the drains per branch of ``_drain_device`` (touched
    rows compacted on the card, whole-plane compaction, dense), the
    overflows of the compaction cap, K1's launches, the peak device memory
    and the ``drain`` span; the first drains run under
@@ -213,8 +215,9 @@ result line) when any phase fails:
    the reference benchmark deploys it (``bench.py:1199-1214``) at its
    paced 100,000 ev/s: a 5 s gap, 400,000 users (max(50,000, 4 x rate)),
    a 2^20-user session state (12 MB on the card), CMS D = 4, Wd = 2048,
-   top 16 from a 128-slot ring.  Its journal is 3,000,000 events of the
-   stock topology, 100 to a millisecond (30 s of the stream), written
+   top 16 from a 128-slot ring.  Its journal is 2,000,000 events of the
+   stock topology, 100 to a millisecond (20 s of the stream; 30 s until
+   phase 21 came), written
    with the generator's ``EventSource`` over ``make_ids(400,000)``, then
    a tail of 20,000 events of 2,000 new users from gap + lateness + 1 s
    past the body, whose watermark expires every session of the body; the
@@ -232,7 +235,7 @@ result line) when any phase fails:
    sketch, ring, counters and latency histogram bit-identical and the
    heavy hitters equal.  (b) ``jax.cms.mode: salsa``, held as (a), and
    its plane widened somewhere (``salsa.stats`` merged pairs).  (c)
-   ``jax.cms.stages: 2`` on the first 1,000,000 events: every user's
+   ``jax.cms.stages: 2`` on the first 500,000 events: every user's
    small-stage estimate at least its exact clicks, the fused two-stage
    entry (``cms2_update_query``) launched, and held against the CPU as
    (a).  (d) An engine that
@@ -365,7 +368,38 @@ result line) when any phase fails:
    journaled with its freshness-hop evidence.  No kernel runs on this
    path: K1-K3 launch 0 times.
 
-Each kernel's launches are counted over each of phases 4, 6-20, from 0
+21. The hyper-extended HLL engine (M14) and sharded reach (M16c).  (b)
+   ``parallel.reach.ShardedReachEngine`` on a (1, 1) NCCL mesh over
+   phase 19's journal (600,000 events, k = 256, R = 1,024, B = 8,192, in
+   a topic of its own: 19 (e) appended a tail to the main one): the
+   planes bit-identical to 19's engine's (the oracle's); 19 (b)'s 512
+   queries through ``batch_query`` (2 dispatches) and through a
+   ``ReachQueryServer`` with the sharded evaluator installed by
+   ``attach_reach``, every answer equal to the unsharded
+   ``batch_query``'s on 19's planes; exactly 2 collectives recorded a
+   query dispatch (one all-reduce MIN, one MAX), and the engine's
+   ``collective_report`` agrees; one dispatch next to the shards timed
+   between CUDA events beside 19 (b)'s X7, per eager call, and its device
+   operations (X9); ev/s beside 19 (a)'s.  (a) ``HLLXEngine`` at the
+   CLI's defaults (G = 8, R = 128, the stock 100 campaigns) over phase
+   15's journal (seed 61): F1 equal to the journal's views, registers
+   and totals bit-identical to the same engine on the CPU and its
+   moments within rtol 1e-6, a snapshot -> resume equal to the
+   uninterrupted run, the ``<hashtable>_hllx`` rows (11 a campaign);
+   ev/s, ``device_scan`` ms, the fullest device memory, and the device
+   operations and ms of a packed-scan dispatch (X8).  Its ops rung at the
+   reference bench's size (``bench_sketch.py:run_hllx``: C = 8, G = 8,
+   R = 128, 150,000 Zipf keys with 300,000 extra events capped at 120,
+   B = 65,536): the distinct and log-moment relative errors against each
+   campaign's exact statistics under 0.2 and 0.15
+   (``tests/test_hllx.py:180-225``).  Then, side by side, ``python -m
+   streambench_tpu_torch.engine --engine hllx --catchup --checkpointDir
+   D`` over 15's journal (its exit snapshot's registers and totals those
+   of the run above) and 19 (e) again with ``--sharded`` (its own ship
+   log, a replica process, the answers the oracle's over journal and
+   tail, as the unsharded CLI's).  K1-K3 launch 0 times on every path.
+
+Each kernel's launches are counted over each of phases 4, 6-21, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -377,6 +411,7 @@ is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --only-sharded-sketches  # 1-3, 15, 16 and 18
     python3 chip_smoke.py --only-reach     # phases 1-3 and 19 alone
     python3 chip_smoke.py --only-fleet     # phases 1-3 and 20 alone
+    python3 chip_smoke.py --only-hllx-reach  # phases 1-3, 15, 19 and 21
 """
 
 from __future__ import annotations
@@ -562,18 +597,18 @@ CMS_METHOD_WIDTH = 2048            # the CMS method table's plane
 # phase 16: BASELINE #4 as bench.py:1199-1214 deploys it at its paced
 # rate of 100,000 ev/s: a 5 s gap, max(50,000, 4 x rate) users, the
 # session state sized 1 << max(16, bit_length(2 * users - 1)); the
-# journal holds 30 s of the stream, 100 events a millisecond, then a tail
+# journal holds 20 s of the stream, 100 events a millisecond, then a tail
 # of SESSION_TAIL_EVENTS events of SESSION_TAIL_USERS users not seen
 # before, starting gap + lateness + 1 s past the body, so that every
 # session of the body expires by the watermark inside the run
-SESSION_EVENTS = 3_000_000
+SESSION_EVENTS = 2_000_000
 SESSION_TAIL_EVENTS = 20_000
 SESSION_TAIL_USERS = 2_000
 SESSION_RATE = 100_000
 SESSION_USERS = max(50_000, 4 * SESSION_RATE)
 SESSION_GAP_MS = 5_000
 SESSION_SEED = 16
-SESSION_TWO_STAGE_EVENTS = 1_000_000
+SESSION_TWO_STAGE_EVENTS = 500_000
 SESSION_PROFILE_EVENTS = 200_000
 SESSION_RUNS = ("fixed", "salsa", "two_stage", "resume")
 
@@ -1993,10 +2028,11 @@ def phase_large_key_space(data: Config5Data) -> tuple[dict, dict]:
         "generate_s": data.gen_s, "stages": engine.tracer.as_dict(),
     }
     print(f"[config5] {json.dumps(result)}", flush=True)
-    result.update(_oracle(r, workdir, cfg.jax_time_divisor_ms))
+    oracle, expected = _digest_oracle(r, workdir, cfg.jax_time_divisor_ms)
+    result.update(oracle)
     print(f"[config5] oracle {json.dumps(result['windows_checked'])} "
-          f"windows exact in {result['check_correct_s']:.2f} s",
-          flush=True)
+          f"windows exact (the store's digest) in "
+          f"{result['oracle_s']:.2f} s", flush=True)
     if stats.events != events or engine.dropped:
         raise AssertionError(f"folded {stats.events} of {events}, "
                              f"dropped {engine.dropped}")
@@ -2006,9 +2042,36 @@ def phase_large_key_space(data: Config5Data) -> tuple[dict, dict]:
     if launches <= 0:
         raise AssertionError("the count kernel never launched on the "
                              "config #5 path")
-    record, windows = _config5_record(data, r)
+    record, windows = _config5_record(data, r, expected)
     result.update(record)
     return result, windows
+
+
+def _digest_oracle(r, workdir: str, divisor_ms: int) -> tuple[dict, dict]:
+    """The oracle without reading the store back: the journal's exact
+    windows (``gen.dostats``) as a window digest (``window_digest_of``:
+    the windows, the total of their counts and an order-independent
+    digest of (campaign, window, count)) against the store's own digest.
+    A window missing, extra, moved or miscounted changes it.  Returns the
+    result and the exact windows, ``(campaign, window_ts) -> count``.
+    (``gen.check_correct``'s read-back of 1,000,000 campaigns, one HGETALL
+    each, went to pay for phase 21.)"""
+    from streambench_tpu_torch.datagen import gen
+    from streambench_tpu_torch.io.fakeredis import window_digest_of
+
+    t0 = time.perf_counter()
+    expected = {(c, b * divisor_ms): n
+                for c, per in gen.dostats(workdir, divisor_ms).items()
+                for b, n in per.items()}
+    want = window_digest_of((c, str(ts), n)
+                            for (c, ts), n in expected.items())
+    got = _store_digest(r)
+    out = {"windows_checked": want["windows"], "oracle_digest": want,
+           "oracle_s": time.perf_counter() - t0}
+    if got != want:
+        raise AssertionError(f"oracle: the store's windows {got} against "
+                             f"the journal's {want}")
+    return out, expected
 
 
 def _store_digest(r) -> dict:
@@ -2017,22 +2080,31 @@ def _store_digest(r) -> dict:
     return getattr(r, "_store", r).window_digest()
 
 
-def _config5_record(data: Config5Data, r) -> tuple[dict, dict]:
+def _config5_record(data: Config5Data, r, expected: dict
+                    ) -> tuple[dict, dict]:
     """What phase 17 holds its stores to, from phase 6's oracle-checked
     store: its window digest, whose total must be the journal's views
     (every view joins and none is dropped), and the windows of a seeded
-    tenth of the campaigns, ~33,000 windows (the whole store's read went
-    to pay for phase 19)."""
+    tenth of the campaigns, ~33,000 windows, read back and held to the
+    journal's exact windows ``expected`` (the whole store's read went to
+    pay for phase 19)."""
     from streambench_tpu_torch.datagen import gen
 
     t0 = time.perf_counter()
     out = {"store_digest": _store_digest(r)}
     out["store_digest_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    windows = _store_windows(r, random.Random(19).sample(
-        list(data.campaigns), len(data.campaigns) // 10))
+    sample = random.Random(19).sample(list(data.campaigns),
+                                      len(data.campaigns) // 10)
+    windows = _store_windows(r, sample)
     out["store_read_s"] = time.perf_counter() - t0
     out["store_read_windows"] = len(windows)
+    sample = set(sample)
+    want = {k: n for k, n in expected.items() if k[0] in sample}
+    if windows != want:
+        raise AssertionError(f"[config5] {len(windows)} windows read back "
+                             f"against the journal's {len(want)} for the "
+                             "sampled campaigns")
     with open(os.path.join(data.workdir, gen.KAFKA_JSON_FILE), "rb") as f:
         out["views"] = f.read().count(b'"event_type": "view"')
     if out["store_digest"]["seen"] != out["views"]:
@@ -2685,10 +2757,11 @@ def _golden_sliding(views) -> dict:
 
 def _sketch_engine(kind: str, cfg, data: Config5Data, r, device: str,
                    mesh=None):
-    """Phase 15's engine of ``kind``, or with ``mesh`` its sharded form
-    (phase 18)."""
+    """Phase 15's engine of ``kind`` ("hll", "sliding" or phase 21's
+    "hllx"), or with ``mesh`` its sharded form (phase 18)."""
     from streambench_tpu_torch.engine.sketches import (
         HLLDistinctEngine,
+        HLLXEngine,
         SlidingTDigestEngine,
     )
     from streambench_tpu_torch.parallel import (
@@ -2696,6 +2769,9 @@ def _sketch_engine(kind: str, cfg, data: Config5Data, r, device: str,
         ShardedSlidingTDigestEngine,
     )
 
+    if kind == "hllx":                    # phase 21; no sharded form
+        return HLLXEngine(cfg, data.mapping, campaigns=data.campaigns,
+                          redis=r, device=device)
     if mesh is not None:
         cls = (ShardedHLLEngine if kind == "hll"
                else ShardedSlidingTDigestEngine)
@@ -2782,7 +2858,7 @@ def _sketch_catchup(tag: str, kind: str, data: Config5Data, device: str,
         "fold_host_ms_per_batch": fold_ms / max(steps, 1),
         "peak_allocated_bytes": _peak(device),
     }
-    if kind != "hll":
+    if kind == "sliding":
         result["sliced"] = engine.sliced
     if skew is not None:
         result["shard_skew"] = skew.summary()
@@ -2799,7 +2875,7 @@ def _sketch_resume(tag: str, kind: str, data: Config5Data,
     a snapshot after every flush (its run ends with a flush and a
     snapshot that covers it) and is abandoned without ``close()``;
     engine B resumes from the newest snapshot on the same store and
-    finishes.  Returns (result, store)."""
+    finishes.  Returns (result, store, engine B)."""
     from streambench_tpu_torch.checkpoint import Checkpointer
     from streambench_tpu_torch.engine import StreamRunner
     from streambench_tpu_torch.ops.count import count_cells
@@ -2843,7 +2919,7 @@ def _sketch_resume(tag: str, kind: str, data: Config5Data,
     if (resumed_at != crashed_at or b.events_processed != data.events
             or b.dropped or not stats.events):
         raise AssertionError(f"[sketch_{tag}] resume: {result}")
-    return result, r
+    return result, r, b
 
 
 def _sampled_windows_equal(tag: str, r, want: dict, what: str,
@@ -3165,10 +3241,10 @@ def phase_sketches(events: int = SKETCH_EVENTS,
         del un_eng, r
 
         # (d) checkpoint resume, one per family
-        res_h, r = _sketch_resume("hll_resume", "hll", data, device)
+        res_h, r, _ = _sketch_resume("hll_resume", "hll", data, device)
         _windows_equal("hll_resume", _store_windows(r), hll_windows,
                        "run (a)'s")
-        res_s, r = _sketch_resume("sliced_resume", "sliding", data,
+        res_s, r, _ = _sketch_resume("sliced_resume", "sliding", data,
                                   device)
         _windows_equal("sliced_resume", _store_windows(r), sliced_windows,
                        "run (b)'s")
@@ -4219,13 +4295,14 @@ def _collective_line(res: dict) -> str:
             f" ms a dispatch")
 
 
-def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda"
-                           ) -> dict:
+def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda",
+                           keep_sketch: bool = False) -> dict:
     """Phase 18 (module doc): the sharded sketch engines on a ``(1, 1)``
     mesh over phase 15's and 16's journals, held to those phases' card
-    results (``sk``, ``ses``: what they kept).  Removes both journals.
-    ``device`` is an argument so the phase can be rehearsed on the CPU
-    (gloo, against CPU results)."""
+    results (``sk``, ``ses``: what they kept).  Removes both journals,
+    phase 15's only on failure with ``keep_sketch`` (phase 21 folds it
+    again).  ``device`` is an argument so the phase can be rehearsed on
+    the CPU (gloo, against CPU results)."""
     import numpy as np
     import torch.distributed as dist
 
@@ -4304,7 +4381,8 @@ def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda"
         res.update(_sharded_collectives(eng, on_card))
         out["sliced"] = res
         del eng, r
-        data.remove()                     # phase 15's journal is done
+        if not keep_sketch:
+            data.remove()                 # phase 15's journal is done
         # (c) fixed and (d) SALSA over phase 16's journal, held to its
         # (a) and (b); K3's update and query (never the fused entry the
         # single-device fold takes) for fixed, its columns for SALSA
@@ -4344,8 +4422,12 @@ def phase_sharded_sketches(sk: dict, ses: dict, device: str = "cuda"
             else:
                 raise AssertionError("[sharded] the two-stage sketch was "
                                      "not refused")
-    finally:
+    except BaseException:
         sk["data"].remove()
+        raise
+    finally:
+        if not keep_sketch:
+            sk["data"].remove()
         ses["data"].remove()
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4431,6 +4513,7 @@ class ReachData:
         self.broker = FileBroker(os.path.join(self.workdir, "broker"))
         self.journal = self._write(self.config().kafka_topic, events,
                                    users, rng)
+        self.tail_path: str | None = None     # 19 (e)'s, once appended
         self.gen_s = time.perf_counter() - t0
 
     def _write(self, topic: str, events: int, users: int, rng,
@@ -4533,24 +4616,22 @@ def _planes_equal(tag: str, engine, mins, regs) -> None:
                              f"oracle's in {bad} campaign rows")
 
 
-def _reach_profile(data: ReachData, device: str) -> dict:
-    """X6's numbers: the device operations and device ms one packed-scan
-    dispatch of the reach fold launches, under ``torch.profiler`` over
-    the first REACH_PROFILE_EVENTS events (no flush inside)."""
+def _scan_profile(tag: str, engine, reader, device: str,
+                  events: int) -> dict:
+    """The device operations and device ms one packed-scan dispatch of
+    ``engine``'s fold launches, under ``torch.profiler`` over the first
+    ``events`` events of ``reader`` (no flush inside), after a warmup."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from streambench_tpu_torch.engine import StreamRunner
 
-    cfg = data.config()
-    engine = _reach_engine(data, cfg, None, device)
     engine.warmup()
-    reader = data.broker.reader(cfg.kafka_topic)
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device == "cuda" else [])
     with profile(activities=acts) as prof:
         stats = StreamRunner(engine, reader, flush_interval_ms=10**9
-                             ).run_catchup(max_events=REACH_PROFILE_EVENTS)
+                             ).run_catchup(max_events=events)
         _sync(device)
     reader.close()
     rows = [(e.key, e.count, e.self_device_time_total)
@@ -4569,8 +4650,18 @@ def _reach_profile(data: ReachData, device: str) -> dict:
            "top_device_ops": [{"name": k[:80], "count": c,
                                "device_ms": t / 1e3}
                               for k, c, t in rows[:8]]}
-    print(f"[reach_profile] {json.dumps(out)}", flush=True)
+    print(f"[{tag}] {json.dumps(out)}", flush=True)
     return out
+
+
+def _reach_profile(data: ReachData, device: str) -> dict:
+    """X6's numbers: one packed-scan dispatch of the reach fold under the
+    profiler, over the first REACH_PROFILE_EVENTS events."""
+    cfg = data.config()
+    return _scan_profile("reach_profile",
+                         _reach_engine(data, cfg, None, device),
+                         data.broker.reader(cfg.kafka_topic), device,
+                         REACH_PROFILE_EVENTS)
 
 
 def _reach_catchup(data: ReachData, device: str) -> tuple:
@@ -4678,6 +4769,47 @@ def _make_queries(n: int, C: int, seed: int):
     return masks, overlap
 
 
+def _query_timing(dispatch, call, device: str) -> dict:
+    """A query evaluator's numbers: ``dispatch()`` (device tensors in)
+    between CUDA events over REACH_TIMED_CALLS calls after three warm
+    ones, ``call()`` (host arrays in, results on the host) on the host's
+    clock, and the device operations a dispatch under the profiler over
+    REACH_PROFILED_CALLS calls (a window of one call has come back
+    without its device events).  What the device does not give is "not
+    measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        dispatch()
+    _sync(device)
+    out: dict = {"device_ms": "not measured"}
+    if device == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(REACH_TIMED_CALLS):
+            dispatch()
+        end.record()
+        end.synchronize()
+        out["device_ms"] = start.elapsed_time(end) / REACH_TIMED_CALLS
+    t0 = time.perf_counter()
+    for _ in range(REACH_TIMED_CALLS):
+        call()
+    out["call_ms"] = (time.perf_counter() - t0) * 1e3 / REACH_TIMED_CALLS
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for _ in range(REACH_PROFILED_CALLS):
+            dispatch()
+        _sync(device)
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    out["device_ops"] = ops / REACH_PROFILED_CALLS if ops else "not measured"
+    return out
+
+
 def _reach_queries(engine, sets: dict, names: list, device: str) -> dict:
     """19 (b): the 512 queries through ``query_chunks`` (2 dispatches,
     ``agree`` exact, errors inside the bounds), then ``batch_query``
@@ -4688,8 +4820,6 @@ def _reach_queries(engine, sets: dict, names: list, device: str) -> dict:
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from streambench_tpu_torch.reach import oracle as ro
     from streambench_tpu_torch.reach import query as rq
@@ -4730,19 +4860,14 @@ def _reach_queries(engine, sets: dict, names: list, device: str) -> dict:
     m_np, o_np = masks[:qb], overlap[:qb]
     m_dev = torch.from_numpy(m_np).to(mins.device)
     o_dev = torch.from_numpy(o_np).to(mins.device)
-    for _ in range(3):
-        rq.batch_query(mins, regs, m_dev, o_dev)
-    _sync(device)
+    t = _query_timing(
+        lambda: rq.batch_query(mins, regs, m_dev, o_dev),
+        lambda: [x.cpu() for x in rq.batch_query(mins, regs, m_np, o_np)],
+        device)
+    out.update(batch_query_device_ms=t["device_ms"],
+               batch_query_call_ms=t["call_ms"],
+               batch_query_device_ops=t["device_ops"])
     if device == "cuda":
-        start, end = (torch.cuda.Event(enable_timing=True)
-                      for _ in range(2))
-        start.record()
-        for _ in range(REACH_TIMED_CALLS):
-            rq.batch_query(mins, regs, m_dev, o_dev)
-        end.record()
-        end.synchronize()
-        out["batch_query_device_ms"] = (start.elapsed_time(end)
-                                        / REACH_TIMED_CALLS)
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         rq.batch_query(mins, regs, m_dev, o_dev)
@@ -4750,26 +4875,7 @@ def _reach_queries(engine, sets: dict, names: list, device: str) -> dict:
         out["batch_query_peak_bytes"] = (torch.cuda.max_memory_allocated()
                                          - base)
     else:
-        out["batch_query_device_ms"] = "not measured"
         out["batch_query_peak_bytes"] = "not measured"
-    t0 = time.perf_counter()
-    for _ in range(REACH_TIMED_CALLS):
-        res = rq.batch_query(mins, regs, m_np, o_np)
-        [x.cpu() for x in res]
-    out["batch_query_call_ms"] = ((time.perf_counter() - t0) * 1e3
-                                  / REACH_TIMED_CALLS)
-    # device operations a call, over REACH_PROFILED_CALLS calls (a window
-    # of one call has come back without its device events)
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device == "cuda" else [])
-    with profile(activities=acts) as prof:
-        for _ in range(REACH_PROFILED_CALLS):
-            rq.batch_query(mins, regs, m_dev, o_dev)
-        _sync(device)
-    ops = sum(e.count for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA)
-    out["batch_query_device_ops"] = (ops / REACH_PROFILED_CALLS if ops
-                                     else "not measured")
     # the least the card could take: each plane and the mask read once,
     # the four [Q] outputs written once, at HBM's rate
     nbytes = (mins.numel() * mins.element_size()
@@ -5035,16 +5141,19 @@ def _reach_live(engine, data: ReachData, names: list, sets: dict,
     return out
 
 
-def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
+def _reach_cli(data: ReachData, sets: dict, device: str,
+               sharded: bool = False) -> dict:
     """19 (e): ``python -m streambench_tpu_torch.engine --engine reach
     --catchup`` on (a)'s journal and a tail over REACH_TAIL_CAMPAIGNS
-    campaigns appended to it, with a delta ship log (a flush and a ship
-    at every chunk: the chunks of the whole journal cut over to bases,
-    those of the tail alone ship deltas), a RESP store process for its
-    ``_reach`` hash, and a ``python -m streambench_tpu_torch.reach.replica``
-    process tailing the log; 64 queries through the replica's pub/sub
-    against the oracle over both, at least one delta shipped and folded
-    by the replica."""
+    campaigns appended to it (once: a second call folds the same topic),
+    with a delta ship log (a flush and a ship at every chunk: the chunks
+    of the whole journal cut over to bases, those of the tail alone ship
+    deltas), a RESP store process for its ``_reach`` hash, and a ``python
+    -m streambench_tpu_torch.reach.replica`` process tailing the log; 64
+    queries through the replica's pub/sub against the oracle over both,
+    at least one delta shipped and folded by the replica.  With
+    ``sharded`` (21 (b)) the engine runs ``--sharded`` on the (1, 1)
+    mesh and ships to a log of its own."""
     import numpy as np
     import torch
 
@@ -5054,11 +5163,12 @@ def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
     from streambench_tpu_torch.reach import oracle as ro
 
     wd = data.workdir
-    ship = os.path.join(wd, "ship")
+    ship = os.path.join(wd, "ship_sharded" if sharded else "ship")
     os.makedirs(ship, exist_ok=True)
-    tail = data.tail(REACH_TAIL_EVENTS, REACH_TAIL_USERS, REACH_SEED + 9,
-                     REACH_TAIL_CAMPAIGNS)
-    tail_sets = data.sets(tail)
+    if data.tail_path is None:
+        data.tail_path = data.tail(REACH_TAIL_EVENTS, REACH_TAIL_USERS,
+                                   REACH_SEED + 9, REACH_TAIL_CAMPAIGNS)
+    tail_sets = data.sets(data.tail_path)
     sets = {c: sets[c] | tail_sets[c] for c in sets}
     events = data.events + REACH_TAIL_EVENTS
     rport = _free_port()
@@ -5086,7 +5196,8 @@ def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
         eng = subprocess.run(
             [sys.executable, "-m", "streambench_tpu_torch.engine",
              "--confPath", conf, "--workdir", wd, "--catchup",
-             "--engine", "reach", "--device", device],
+             "--engine", "reach", "--device", device]
+            + (["--sharded"] if sharded else []),
             env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
         engine_s = time.perf_counter() - t0
         if eng.returncode != 0:
@@ -5094,6 +5205,7 @@ def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
                                  f"{eng.returncode}: {eng.stderr[-2000:]}")
         lines = eng.stdout.strip().splitlines()
         stats = json.loads(lines[-1])
+        up = next((ln for ln in lines if ln.startswith("engine up:")), "")
         line = replica.stdout.readline()
         if not line.startswith("replica: pubsub="):
             raise AssertionError(f"[reach_cli] replica said {line!r}")
@@ -5142,6 +5254,7 @@ def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
     ship_stats = stats["reach"].get("ship") or {}
     tailer = rep_stats.get("tailer") or {}
     out = {"engine_rc": eng.returncode, "replica_rc": replica.returncode,
+           "engine_up": up,
            "events": stats["events"], "events_per_s": stats["events_per_s"],
            "tail_events": REACH_TAIL_EVENTS,
            "tail_campaigns": REACH_TAIL_CAMPAIGNS,
@@ -5156,6 +5269,7 @@ def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
            "wall_s": time.perf_counter() - t0, "engine_s": engine_s}
     print(f"[reach_cli] {json.dumps(out)}", flush=True)
     if (replica.returncode != 0 or stats["events"] != events
+            or ("mesh=1x1" in up) != sharded
             or not out["agree_equal_oracle"] or table != rows
             or not ship_stats.get("deltas")
             or not tailer.get("deltas_folded")
@@ -5166,17 +5280,20 @@ def _reach_cli(data: ReachData, sets: dict, device: str) -> dict:
 
 
 def phase_reach(device: str = "cuda", events: int = REACH_EVENTS,
-                users: int = REACH_USERS) -> dict:
+                users: int = REACH_USERS, keep: bool = False):
     """Phase 19: reach serving on the card (module doc).  ``device`` and
     the size are arguments so the phase can be rehearsed on the CPU at a
     small size; the smoke runs it on ``cuda`` at the reference reach
-    benchmark's large rung."""
+    benchmark's large rung.  With ``keep`` it returns ``(result, kept)``:
+    the journal (the caller removes it) and what phase 21 holds sharded
+    reach to (the oracle's planes, which (a)'s engine's equal)."""
     from streambench_tpu_torch.reach import oracle as ro
 
     t0 = time.perf_counter()
     data = ReachData(events, REACH_CAMPAIGNS, users, REACH_SEED)
     out: dict = {"events": events, "users": users, "generate_s": data.gen_s,
                  "k": REACH_K, "registers": REACH_R, "batch": REACH_BATCH}
+    kept = None
     try:
         t1 = time.perf_counter()
         sets = data.sets(data.journal)
@@ -5203,8 +5320,13 @@ def phase_reach(device: str = "cuda", events: int = REACH_EVENTS,
         del engine
         # (e) the CLI and a replica, each its own process
         out["cli"] = _reach_cli(data, sets, device)
+        if keep:
+            kept = {"data": data, "sets": sets, "mins": mins, "regs": regs,
+                    "ev": out["catchup"]["events_per_s"],
+                    "x7_device_ms": out["queries"]["batch_query_device_ms"]}
     finally:
-        data.remove()
+        if kept is None:
+            data.remove()
     out["phase_s"] = time.perf_counter() - t0
     q, p = out["queries"], out["profile"]
     print(f"[reach] {out['distinct_devices']} devices; catchup "
@@ -5223,7 +5345,7 @@ def phase_reach(device: str = "cuda", events: int = REACH_EVENTS,
           f"{out['shed']['shed']} of {out['shed']['sent']}; live "
           f"{out['live']['served']} served, {out['live']['shed']} shed; "
           f"CLI + replica agree exact; {out['phase_s']:.1f} s", flush=True)
-    return out
+    return (out, kept) if keep else out
 
 
 def _reach_launches(reach: dict, kernel: str) -> dict:
@@ -6407,9 +6529,485 @@ def _fleet_launches(fleet: dict, kernel: str) -> dict:
     return {"fleet": fleet["kernel_launches"][kernel]}
 
 
-def _sketch_phases(lap) -> tuple:
+# ---------------------------------------------------------------------
+# phase 21: the hyper-extended HLL engine (M14) and sharded reach (M16c)
+
+# 21 (a)'s ops rung: bench_sketch.py:run_hllx (:318) at the reference
+# bench's own size (:408)
+HLLX_OPS = {"campaigns": 8, "groups": 8, "registers": 128,
+            "keys": 150_000, "extra": 300_000, "cap": 120,
+            "batch": 65_536, "seed": 5, "order_seed": 9}
+# the reference's estimator bounds, tests/test_hllx.py:180-225
+HLLX_DISTINCT_BOUND = 0.2
+HLLX_LOGM_BOUND = 0.15
+HLLX_PROFILE_EVENTS = 4 * 8 * 8192      # four packed-scan dispatches
+# 21 (b): phase 19's journal alone, in a topic of its own (19 (e)
+# appended its tail to the main one)
+REACH21_TOPIC = "reach-sharded"
+
+
+def _zipf_stream(n_keys: int, extra_events: int, seed: int):
+    """``bench_sketch.py:zipf_stream`` (:98): every key once plus a
+    Zipf(0.9) head of extra weight.  Returns (keys, weights) shuffled and
+    the exact counts in key order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, n_keys + 1, dtype=np.float64)
+    p = ranks ** -0.9
+    p /= p.sum()
+    counts = 1 + np.floor(extra_events * p).astype(np.int64)
+    keys = np.arange(n_keys, dtype=np.int32)
+    order = rng.permutation(n_keys)
+    return keys[order], counts[order].astype(np.int32), counts
+
+
+def _hllx_ops_rung(device: str) -> dict:
+    """21 (a): ``bench_sketch.py:run_hllx`` on the port's ops: 150,000
+    Zipf keys with 300,000 extra events, each key's count capped at 120,
+    folded as distinct (user, time) tokens over C = 8 campaigns (key mod
+    8), G = 8 rungs, R = 128, in B = 65,536-row batches.  The distinct
+    and log-moment mean relative errors against the exact statistics of
+    each campaign's own keys under the reference test's bounds, F1
+    exact."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.ops import hllx
+
+    o = HLLX_OPS
+    C, G, R, B = o["campaigns"], o["groups"], o["registers"], o["batch"]
+    keys, weights, counts = _zipf_stream(o["keys"], o["extra"], o["seed"])
+    weights = np.minimum(weights, o["cap"]).astype(np.int32)
+    counts = np.minimum(counts, o["cap"])
+    camp_of = (keys.astype(np.int64) % C).astype(np.int32)
+    rep_keys = np.repeat(keys, weights)
+    rep_camp = np.repeat(camp_of, weights)
+    rep_time = (10 * np.arange(rep_keys.size)).astype(np.int32)
+    order = np.random.default_rng(o["order_seed"]).permutation(
+        rep_keys.size)
+    n = rep_keys.size
+    pad = (-n) % B
+
+    def cols(a):
+        return torch.from_numpy(np.pad(a[order], (0, pad))).to(
+            device).view(-1, B)
+
+    ad, user, tm = cols(rep_camp), cols(rep_keys), cols(rep_time)
+    valid = torch.from_numpy(np.arange(n + pad) < n).to(device).view(-1, B)
+    etype = torch.zeros(B, dtype=torch.int32, device=device)
+    join = torch.tensor(list(range(C)) + [-1], dtype=torch.int32,
+                        device=device)
+    st = hllx.init_state(C, G, R, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(ad.shape[0]):
+        st = hllx.step(st, join, ad[i], user[i], etype, tm[i], valid[i])
+    _sync(device)
+    fold_s = time.perf_counter() - t0
+    m = {k: v.cpu().numpy() for k, v in hllx.moments(st).items()}
+    errs_d, errs_l = [], []
+    key_camp = np.arange(o["keys"]) % C       # counts are in key order
+    for c in range(C):
+        cs = counts[key_camp == c]
+        errs_d.append(abs(float(m["distinct"][c]) - cs.size) / cs.size)
+        true_l = float(np.log2(1 + cs).sum())
+        errs_l.append(abs(float(m["log_moment"][c]) - true_l) / true_l)
+    out = {"events": int(n), "batches": int(ad.shape[0]), "campaigns": C,
+           "groups": G, "registers": R, "batch": B,
+           "fold_s": fold_s, "events_per_s": n / fold_s,
+           "distinct_rel_err_mean": float(np.mean(errs_d)),
+           "distinct_rel_err_max": float(np.max(errs_d)),
+           "log_moment_rel_err_mean": float(np.mean(errs_l)),
+           "log_moment_rel_err_max": float(np.max(errs_l)),
+           "f1_exact": int(m["totals"].sum()) == int(n)}
+    print(f"[hllx_ops] {json.dumps(out)}", flush=True)
+    if not (out["f1_exact"]
+            and out["distinct_rel_err_max"] < HLLX_DISTINCT_BOUND
+            and out["log_moment_rel_err_max"] < HLLX_LOGM_BOUND):
+        raise AssertionError(f"[hllx_ops] {out}")
+    return out
+
+
+def _hllx_profile(data: Config5Data, device: str) -> dict:
+    """X8's numbers: one packed-scan dispatch of the hllx fold under the
+    profiler, over the first HLLX_PROFILE_EVENTS events."""
+    cfg = data.config()
+    return _scan_profile("hllx_profile",
+                         _sketch_engine("hllx", cfg, data, None, device),
+                         data.broker.reader(cfg.kafka_topic), device,
+                         HLLX_PROFILE_EVENTS)
+
+
+def _hllx_run(sk: dict, device: str) -> tuple:
+    """21 (a) in this process: the hllx engine at the CLI's defaults (G =
+    8, R = 128, phase 15's stock 100 campaigns) over phase 15's journal,
+    timed after a warm engine; F1 against the journal's views; the same
+    engine on the CPU (registers and totals bit-identical, moments within
+    rtol 1e-6); a resume equal to the uninterrupted run; the
+    ``<hashtable>_hllx`` rows; K1-K3 0 launches.  Returns (result, the
+    card's registers, its totals)."""
+    import numpy as np
+
+    data = sk["data"]
+    _reset_launches()                     # this path starts here
+    res, r, eng = _sketch_catchup("hllx", "hllx", data, device)
+    launches = _launches()                # this path ends here
+    regs = eng.state.registers.cpu().numpy()
+    totals = eng.state.totals.cpu().numpy()
+    m = eng.moments()
+    table = r.hgetall(f"{eng.cfg.redis_hashtable}_hllx")
+    seen = int((totals > 0).sum())
+    res.update(kernel_launches=launches,
+               device_scan_ms=res["stages"].get("device_scan", {}).get(
+                   "total_ms"),
+               f1=int(totals.sum()), views=sk["views"], rows=len(table),
+               campaigns_seen=seen,
+               distinct_total=float(m["distinct"].sum()),
+               log_moment_total=float(m["log_moment"].sum()))
+    del eng, r
+    ref_res, _, ref = _sketch_catchup("hllx_cpu", "hllx", data, "cpu")
+    rm = ref.moments()
+    res["cpu_equal"] = bool(
+        np.array_equal(ref.state.registers.numpy(), regs)
+        and np.array_equal(ref.state.totals.numpy(), totals))
+    res["cpu_moments_max_rel_err"] = max(
+        float(np.max(np.abs(m[k] - rm[k])
+                     / np.maximum(np.abs(rm[k]), 1e-30)))
+        for k in ("distinct", "softcap", "log_moment"))
+    res["cpu_catchup_with_close_s"] = ref_res["catchup_with_close_s"]
+    del ref
+    res_r, _, b = _sketch_resume("hllx_resume", "hllx", data, device)
+    res["resume"] = dict(res_r, equal=bool(
+        np.array_equal(b.state.registers.cpu().numpy(), regs)
+        and np.array_equal(b.state.totals.cpu().numpy(), totals)))
+    del b
+    res["profile"] = _hllx_profile(data, device)
+    brief = {k: v for k, v in res.items() if k not in ("stages", "profile")}
+    print(f"[hllx] {json.dumps(brief)}", flush=True)
+    bad = [k for k, ok in (
+        ("f1", res["f1"] == sk["views"]),
+        ("launches", not any(launches.values())),
+        ("cpu_equal", res["cpu_equal"]),
+        ("cpu_moments", res["cpu_moments_max_rel_err"] <= 1e-6),
+        ("resume", res["resume"]["equal"]),
+        ("rows", len(table) == 11 * seen and sum(
+            int(v) for k, v in table.items() if k.endswith(":views"))
+         == sk["views"])) if not ok]
+    if bad:
+        raise AssertionError(f"[hllx] failed {bad}: {res}")
+    return res, regs, totals
+
+
+def _hllx_cli_start(data: Config5Data, device: str) -> dict:
+    """21 (a): ``python -m streambench_tpu_torch.engine --engine hllx
+    --catchup --checkpointDir D`` over phase 15's journal, started in the
+    background (its conf a file of its own: this process rewrites the
+    workdir's ``benchmarkConf.yaml``)."""
+    data.config()
+    conf = os.path.join(data.workdir, "hllx_cli.yaml")
+    shutil.copyfile(os.path.join(data.workdir, "benchmarkConf.yaml"), conf)
+    ckdir = os.path.join(data.workdir, "ckpt_hllx_cli")
+    out_path = os.path.join(data.workdir, "hllx_cli.out")
+    err_path = os.path.join(data.workdir, "hllx_cli.err")
+    with open(out_path, "w") as fo, open(err_path, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "streambench_tpu_torch.engine",
+             "--confPath", conf, "--workdir", data.workdir, "--catchup",
+             "--engine", "hllx", "--device", device, "--checkpointDir",
+             ckdir], env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+            stdout=fo, stderr=fe)
+    return {"proc": proc, "ckdir": ckdir, "out": out_path, "err": err_path,
+            "t0": time.perf_counter()}
+
+
+def _hllx_cli_finish(run: dict, data: Config5Data, regs, totals) -> dict:
+    """Wait for the hllx CLI: exit 0, every event folded, K1-K3 0
+    launches in its stats line, and its exit snapshot's registers and
+    totals those of the in-process run."""
+    import numpy as np
+
+    from streambench_tpu_torch.checkpoint import Checkpointer
+
+    proc = run["proc"]
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall_s = time.perf_counter() - run["t0"]
+    lines = open(run["out"]).read().strip().splitlines()
+    err = open(run["err"]).read()
+    if rc != 0 or not lines:
+        raise AssertionError(f"[hllx_cli] exited {rc}: {err[-2000:]}")
+    stats = json.loads(lines[-1])
+    up = next((ln for ln in lines if ln.startswith("engine up:")), "")
+    snap = Checkpointer(run["ckdir"]).load()
+    if snap is None:
+        raise AssertionError("[hllx_cli] no snapshot at exit")
+    out = {"rc": rc, "engine_up": up, "events": stats["events"],
+           "events_per_s": stats["events_per_s"],
+           "kernel_launches": stats["kernel_launches"],
+           "snapshot_events": snap.meta.get("events_processed"),
+           "equal": bool(np.array_equal(snap.extra["hllx_registers"], regs)
+                         and np.array_equal(snap.extra["hllx_totals"],
+                                            totals)),
+           "wall_s": wall_s}
+    print(f"[hllx_cli] {json.dumps(out)}", flush=True)
+    if (stats["events"] != data.events or "engine=hllx" not in up
+            or any(stats["kernel_launches"].values())
+            or not out["equal"]):
+        raise AssertionError(f"[hllx_cli] {out}")
+    return out
+
+
+def _reach_sharded(kept: dict, device: str) -> dict:
+    """21 (b) in this process: ``ShardedReachEngine`` on a (1, 1) mesh
+    (NCCL on the card) over phase 19's journal at the large rung: planes
+    bit-identical to 19's engine's (the oracle's); 19 (b)'s 512 queries
+    through ``batch_query`` and through a ``ReachQueryServer`` with the
+    sharded evaluator installed, each answer equal to the unsharded
+    ``batch_query``'s; 2 recorded collectives a query dispatch; one
+    dispatch's device ms between CUDA events and its device operations
+    (X9); K1-K3 0 launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from streambench_tpu_torch.engine import StreamRunner
+    from streambench_tpu_torch.ops import minhash
+    from streambench_tpu_torch.parallel import (
+        ShardedReachEngine,
+        build_mesh,
+        collectives,
+    )
+    from streambench_tpu_torch.parallel.reach import reach_query
+    from streambench_tpu_torch.reach import query as rq
+    from streambench_tpu_torch.reach.serve import ReachQueryServer
+
+    data = kept["data"]
+    names = list(data.campaigns)
+    t0 = time.perf_counter()
+    with open(data.journal, "rb") as f, data.broker.writer(
+            REACH21_TOPIC, append=False) as w:
+        # whole lines only: the writer ends every append with a newline
+        for lines in iter(lambda: f.readlines(1 << 24), []):
+            w.append_bytes(b"".join(lines))
+    cfg = data.config({"kafka.topic": REACH21_TOPIC})
+    out: dict = {"topic_s": time.perf_counter() - t0}
+    mesh = build_mesh(1, 1, device=device)
+    try:
+        out.update(mesh=repr(mesh), backend=mesh.backend)
+
+        def make():
+            return ShardedReachEngine(cfg, data.mapping, mesh,
+                                      campaigns=names, k=REACH_K,
+                                      registers=REACH_R, device=device)
+
+        warm = make()
+        warm.warmup()
+        warm.close()
+        del warm
+        engine = make()
+        reader = data.broker.reader(REACH21_TOPIC)
+        _sync(device)
+        _reset_peak(device)
+        _reset_launches()                 # this path starts here
+        t1 = time.perf_counter()
+        stats = StreamRunner(engine, reader).run_catchup()
+        run_s = time.perf_counter() - t1
+        _sync(device)
+        launches = _launches()            # this path ends here
+        reader.close()
+        stages = engine.tracer.as_dict()
+        out.update(events=stats.events, run_catchup_s=run_s,
+                   events_per_s=stats.events / run_s,
+                   unsharded_events_per_s=kept["ev"],
+                   device_scan_ms=stages.get("device_scan", {}).get(
+                       "total_ms"),
+                   peak_allocated_bytes=_peak(device),
+                   kernel_launches=launches)
+        _planes_equal("sharded_catchup", engine, kept["mins"], kept["regs"])
+        out["planes_equal_phase19"] = True
+
+        # 19 (b)'s 512 queries, unsharded on the oracle's planes (19's
+        # engine's) and next to the shards, two dispatches each
+        qb = rq.DEFAULT_BATCH
+        masks, overlap = _make_queries(REACH_QUERIES, len(names),
+                                       REACH_SEED + 1)
+        mins_t = minhash.mins_tensor(kept["mins"], device)
+        regs_t = torch.from_numpy(kept["regs"]).to(device)
+        want = rq.query_chunks(mins_t, regs_t, masks, overlap, batch=qb)
+        rec = collectives.Recorder()
+        engine._recorder = rec
+        try:
+            parts = [engine.batch_query(masks[i:i + qb], overlap[i:i + qb])
+                     for i in range(0, REACH_QUERIES, qb)]
+        finally:
+            engine._recorder = None
+        got = [np.concatenate(x) for x in zip(*parts)]
+        dispatches = len(parts)
+        out.update(
+            queries=REACH_QUERIES, dispatches=dispatches,
+            collectives_per_dispatch=len(rec.ops) / dispatches,
+            collective_kinds=sorted({op.kind for op in rec.ops}),
+            collective_bytes_per_dispatch=sum(
+                op.payload_bytes for op in rec.ops) / dispatches,
+            answers_equal_unsharded=all(
+                np.array_equal(a, b) for a, b in zip(got, want)))
+        # the two all-reduces of one dispatch, each between CUDA events
+        # on the card: the collectives' share of X9
+        rep = engine.collective_report(k=1, timed=device == "cuda",
+                                       query_batch=qb)["query"]
+        out["report_query"] = rep["per_dispatch"]
+        out["query_collectives_device_ms"] = rep.get("device_ms",
+                                                     "not measured")
+
+        # X9: one dispatch next to the shards on device tensors
+        m_dev = torch.from_numpy(masks[:qb]).to(device)
+        o_dev = torch.from_numpy(overlap[:qb]).to(device)
+        st, axes = engine.state, engine._axes
+
+        t = _query_timing(
+            lambda: reach_query(st.mins, st.registers, m_dev, o_dev, axes),
+            lambda: engine.batch_query(masks[:qb], overlap[:qb]), device)
+        out.update(query_device_ms=t["device_ms"],
+                   unsharded_query_device_ms=kept["x7_device_ms"],
+                   query_call_ms=t["call_ms"],
+                   query_device_ops=t["device_ops"])
+
+        # the query server with the sharded evaluator installed
+        srv = ReachQueryServer(names, depth=2 * REACH_QUERIES, batch=qb)
+        engine.attach_reach(srv)
+        replies: dict = {}
+        done = threading.Event()
+
+        def reply(d):
+            replies[d.get("id")] = d
+            if len(replies) == REACH_QUERIES:
+                done.set()
+
+        try:
+            for i in range(REACH_QUERIES):
+                srv.submit([names[j] for j in np.flatnonzero(masks[i])],
+                           "overlap" if overlap[i] else "union", reply,
+                           query_id=i)
+            done.wait(120)
+        finally:
+            srv.close()
+        est, _, _, agree = want
+        served = [replies.get(i, {}) for i in range(REACH_QUERIES)]
+        out["server"] = {
+            "served": sum("estimate" in d for d in served),
+            "dispatches": srv.dispatches,
+            "sharded_evaluator": srv._query_fn == engine.query_callable(),
+            "answers_equal_unsharded": all(
+                d.get("estimate") == round(float(est[i]), 2)
+                and round(d.get("jaccard", -1) * REACH_K) == int(agree[i])
+                for i, d in enumerate(served))}
+        engine.close()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[reach_sharded] {json.dumps(out)}", flush=True)
+    bad = [k for k, ok in (
+        ("events", out["events"] == data.events),
+        ("launches", not any(launches.values())),
+        ("answers", out["answers_equal_unsharded"]),
+        ("collectives", out["collectives_per_dispatch"] == 2
+         and out["collective_kinds"] == ["all-reduce"]
+         and out["report_query"]["ops"] == 2),
+        ("server", out["server"]["served"] == REACH_QUERIES
+         and out["server"]["sharded_evaluator"]
+         and out["server"]["answers_equal_unsharded"]),
+        # X9's record: on the card every number was measured
+        ("x9", device != "cuda" or all(
+            isinstance(out[k], (int, float)) for k in (
+                "query_device_ms", "query_device_ops",
+                "query_collectives_device_ms")))) if not ok]
+    if bad:
+        raise AssertionError(f"[reach_sharded] failed {bad}: {out}")
+    return out
+
+
+def phase_hllx_reach(sk: dict, reach: dict, device: str = "cuda") -> dict:
+    """Phase 21 (module doc): (b) sharded reach and (a) the hllx engine in
+    this process, then the two engine CLIs side by side, each its own
+    process (the sharded reach CLI beside a replica process).  ``sk`` and
+    ``reach`` are what phases 15 and 19 kept; removes both journals.
+    ``device`` is an argument so the phase can be rehearsed on the CPU
+    (gloo) at a small size."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    try:
+        out["sharded_reach"] = _reach_sharded(reach, device)
+        out["hllx"], regs, totals = _hllx_run(sk, device)
+        out["hllx_ops"] = _hllx_ops_rung(device)
+        hllx_cli = _hllx_cli_start(sk["data"], device)
+        box: dict = {}
+
+        def reach_cli() -> None:
+            try:
+                box["out"] = _reach_cli(reach["data"], reach["sets"],
+                                        device, sharded=True)
+            except BaseException as e:     # re-raised on this thread
+                box["error"] = e
+
+        th = threading.Thread(target=reach_cli, name="sharded-reach-cli")
+        th.start()
+        try:
+            out["hllx_cli"] = _hllx_cli_finish(hllx_cli, sk["data"], regs,
+                                               totals)
+        finally:
+            th.join()
+        if "error" in box:
+            raise box["error"]
+        out["sharded_reach_cli"] = box["out"]
+    finally:
+        sk["data"].remove()
+        reach["data"].remove()
+    out["phase_s"] = time.perf_counter() - t0
+    h, b, ops = out["hllx"], out["sharded_reach"], out["hllx_ops"]
+    print(f"[hllx_reach] (a) hllx {h['events_per_s']:.0f} ev/s "
+          f"({h['events_per_s_with_close']:.0f} with close), device_scan "
+          f"{h['device_scan_ms']} ms, peak {h['peak_allocated_bytes']} B, "
+          f"F1 {h['f1']} = views, registers equal the CPU run's, moments "
+          f"within {h['cpu_moments_max_rel_err']}; X8 "
+          f"{h['profile']['device_ops_per_dispatch']} device ops and "
+          f"{h['profile']['device_ms_per_dispatch']} device ms a dispatch; "
+          f"ops rung {ops['events']} events, errors distinct "
+          f"{ops['distinct_rel_err_mean']:.4f}, log moment "
+          f"{ops['log_moment_rel_err_mean']:.4f}; CLI "
+          f"{out['hllx_cli']['events_per_s']} ev/s.  (b) sharded reach "
+          f"{b['events_per_s']:.0f} ev/s [phase 19 "
+          f"{b['unsharded_events_per_s']:.0f}], "
+          f"planes equal 19's, 512 answers equal, "
+          f"{b['collectives_per_dispatch']} collectives a dispatch; X9 "
+          f"{b['query_device_ms']} device ms [X7 "
+          f"{b['unsharded_query_device_ms']}], {b['query_device_ops']} "
+          f"device ops; CLI + replica agree exact; {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def _hllx_reach_launches(p21: dict, kernel: str) -> dict:
+    """A kernel's launches on phase 21's paths (none launches a
+    hand-written kernel): the hllx catchup and CLI, the sharded reach
+    catchup and CLI."""
+    return {"hllx_catchup": p21["hllx"]["kernel_launches"][kernel],
+            "hllx_cli": p21["hllx_cli"]["kernel_launches"][kernel],
+            "sharded_reach_catchup":
+                p21["sharded_reach"]["kernel_launches"][kernel],
+            "sharded_reach_cli":
+                p21["sharded_reach_cli"]["kernel_launches"][kernel]}
+
+
+def _sketch_phases(lap, keep_sketch: bool = False) -> tuple:
     """Phases 15, 16 and 18: the sketch engines, then their sharded forms
-    over the same journals.  Returns ((phase 15, phase 16), phase 18)."""
+    over the same journals.  Returns ((phase 15, phase 16), phase 18,
+    what phase 15 kept): with ``keep_sketch`` its journal stays for
+    phase 21 (the caller removes it)."""
     sketch, sk_keep = phase_sketches(keep=True)
     lap("15 sketches")
     try:
@@ -6418,9 +7016,10 @@ def _sketch_phases(lap) -> tuple:
         sk_keep["data"].remove()
         raise
     lap("16 session")
-    sharded = phase_sharded_sketches(sk_keep, ses_keep)
+    sharded = phase_sharded_sketches(sk_keep, ses_keep,
+                                     keep_sketch=keep_sketch)
     lap("18 sharded sketches")
-    return (sketch, session), sharded
+    return (sketch, session), sharded, sk_keep
 
 
 class Laps:
@@ -6443,7 +7042,7 @@ class Laps:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--events", type=int, default=2_000_000,
+    ap.add_argument("--events", type=int, default=1_000_000,
                     help="catchup events for the end-to-end phase")
     ap.add_argument("--out", help="also write every phase's result to "
                     "this JSON file")
@@ -6462,6 +7061,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--only-fleet", action="store_true",
                     help="a diagnostic: phases 1-3 and 20 alone (no result "
                     "line)")
+    ap.add_argument("--only-hllx-reach", action="store_true",
+                    help="a diagnostic: phases 1-3, 15, 19 and 21 alone (no "
+                    "result line)")
     args = ap.parse_args(argv)
     lap = Laps()
 
@@ -6511,7 +7113,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.only_sharded_sketches:
         cms_cases = phase_cms_kernels(floor)
         lap("1-3 device, build, K1 and K3 cases")
-        sketch, sharded = _sketch_phases(lap)
+        sketch, sharded, _ = _sketch_phases(lap)
         laps = lap.as_dict()
         print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
         if args.out:
@@ -6545,6 +7147,28 @@ def main(argv: list[str] | None = None) -> int:
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"kernel_cases": cases, "fleet": fleet,
+                           "phase_seconds": laps, "nvidia_smi": smi}, f,
+                          indent=1)
+        print(smi, flush=True)
+        return 0
+    if args.only_hllx_reach:
+        lap("1-3 device, build, K1 cases")
+        sketch, sk_keep = phase_sketches(keep=True)
+        lap("15 sketches")
+        try:
+            reach, reach_keep = phase_reach(keep=True)
+        except BaseException:
+            sk_keep["data"].remove()
+            raise
+        lap("19 reach")
+        hllx_reach = phase_hllx_reach(sk_keep, reach_keep)
+        lap("21 hllx, sharded reach")
+        laps = lap.as_dict()
+        print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "sketches": sketch,
+                           "reach": reach, "hllx_reach": hllx_reach,
                            "phase_seconds": laps, "nvidia_smi": smi}, f,
                           indent=1)
         print(smi, flush=True)
@@ -6589,11 +7213,23 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         config5.remove()
     del large_rows
-    (sketch, session), sharded_sketch = _sketch_phases(lap)
-    reach = phase_reach()
+    (sketch, session), sharded_sketch, sk_keep = _sketch_phases(
+        lap, keep_sketch=True)
+    try:
+        reach, reach_keep = phase_reach(keep=True)
+    except BaseException:
+        sk_keep["data"].remove()
+        raise
     lap("19 reach")
-    fleet = phase_fleet()
+    try:
+        fleet = phase_fleet()
+    except BaseException:
+        sk_keep["data"].remove()
+        reach_keep["data"].remove()
+        raise
     lap("20 fleet")
+    hllx_reach = phase_hllx_reach(sk_keep, reach_keep)
+    lap("21 hllx, sharded reach")
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -6667,7 +7303,8 @@ def main(argv: list[str] | None = None) -> int:
                sharded_sketch[k]["count_cells_launches"]
                for k in SHARDED_SKETCH_RUNS},
             **_reach_launches(reach, "count_cells"),
-            **_fleet_launches(fleet, "count_cells")},
+            **_fleet_launches(fleet, "count_cells"),
+            **_hllx_reach_launches(hllx_reach, "count_cells")},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -6697,7 +7334,8 @@ def main(argv: list[str] | None = None) -> int:
             "supervised_chaos_decode":
                 chaos["decode"]["decode_rows_launches"],
             **_reach_launches(reach, "decode_rows"),
-            **_fleet_launches(fleet, "decode_rows")},
+            **_fleet_launches(fleet, "decode_rows"),
+            **_hllx_reach_launches(hllx_reach, "decode_rows")},
         "shape": main_decode["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in decode_cases),
         "ms": main_decode["kernel_ms"],
@@ -6726,7 +7364,8 @@ def main(argv: list[str] | None = None) -> int:
                sharded_sketch[k]["cms_rows_launches"]
                for k in ("fixed", "salsa")},
             **_reach_launches(reach, "cms_rows"),
-            **_fleet_launches(fleet, "cms_rows")},
+            **_fleet_launches(fleet, "cms_rows"),
+            **_hllx_reach_launches(hllx_reach, "cms_rows")},
         "shape": main_cms["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cms_cases),
         "ms": update["kernel_ms"],
@@ -6789,6 +7428,7 @@ def main(argv: list[str] | None = None) -> int:
                        "sharded_sketches": sharded_sketch,
                        "reach": reach,
                        "fleet": fleet,
+                       "hllx_reach": hllx_reach,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,16 +16,20 @@ the result cache ``jax.reach.cache.capacity``, the objective
 read replicas (``python -m streambench_tpu_torch.reach.replica``) every
 ``jax.reach.ship.interval.ms``, as dirty-row deltas with
 ``jax.reach.ship.delta``, and ``<hashtable>_reach`` gets the estimates
-at close.  It tails the broker topic, flushes the canonical Redis window
-schema, and at the end (catchup drained, duration,
-idle timeout, or SIGTERM, after folding what the topic holds) closes the
-engine and prints the same JSON stats
+at close; ``hllx``, the hyper-extended HLL ladder per campaign: distinct
+users, soft-capped counts and the log-count moment from one register
+plane, written to ``<hashtable>_hllx`` at close.  It tails the broker
+topic, flushes the canonical Redis window schema, and at the end
+(catchup drained, duration, idle timeout, or SIGTERM, after folding what
+the topic holds) closes the engine and prints the same JSON stats
 line as ``python -m streambench_tpu.engine``.  ``--sharded`` runs the
 engine on the ``(data, campaign)`` mesh of ``jax.mesh.shape`` (one rank:
 NCCL on the card, gloo on the CPU): ``parallel.ShardedWindowEngine`` for
 ``exact``, as ``bench.py`` runs BASELINE #5, and the sharded sketch
 engines of ``parallel.sketches`` for ``hll``, ``sliding`` and
-``session``.  Any key space the config
+``session``, and ``parallel.reach.ShardedReachEngine`` for ``reach``,
+whose queries are evaluated next to the shards (``--sharded --engine
+hllx`` is an error, as in the reference).  Any key space the config
 names runs (config #5's 1,000,000 campaigns take the large-key-space
 drains); ``--checkpointDir`` saves (offset, state) snapshots there and
 resumes from the newest one at start; ``jax.sink.exactly_once: true``
@@ -58,7 +62,7 @@ records always carry the writer's origin and freshness stamps.
 
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
         --workdir RUN_DIR --catchup \
-        [--engine exact|hll|sliding|session|reach] \
+        [--engine exact|hll|sliding|session|reach|hllx] \
         [--device cuda|cpu] [--checkpointDir D] [--sharded]
 
 ``jax.obs.shard`` with ``--sharded`` adds the per-shard skew
@@ -66,9 +70,8 @@ records always carry the writer's origin and freshness stamps.
 exact and HLL engines.
 
 Options and config keys that need parts of the JAX engine not ported yet
-(the hllx engine, the sharded reach engine, ``--sharded`` with more
-than one process, the fork's micro-batch mode and tenants) are refused
-with exit 2.
+(``--sharded`` with more than one process, the fork's micro-batch mode
+and tenants) are refused with exit 2.
 """
 
 from __future__ import annotations
@@ -90,6 +93,7 @@ from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.engine.runner import StreamRunner
 from streambench_tpu_torch.engine.sketches import (
     HLLDistinctEngine,
+    HLLXEngine,
     ReachSketchEngine,
     SessionCMSEngine,
     SlidingTDigestEngine,
@@ -119,6 +123,7 @@ from streambench_tpu_torch.ops.count import count_cells
 from streambench_tpu_torch.ops.decode import decode_rows
 from streambench_tpu_torch.parallel import (
     ShardedHLLEngine,
+    ShardedReachEngine,
     ShardedSessionCMSEngine,
     ShardedSlidingTDigestEngine,
     ShardedWindowEngine,
@@ -157,17 +162,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="capture a torch.profiler trace of the whole run "
                         "into DIR/trace.json")
     p.add_argument("--engine", default="exact",
+                   choices=("exact", "hll", "sliding", "session",
+                            "reach", "hllx"),
                    help="aggregation engine: exact window counts "
                         "(default), hll (HLL distinct users), sliding "
                         "(sliding-window counts + t-digest latency "
                         "quantiles), session (session windows + "
                         "count-min heavy hitters): BASELINE configs "
-                        "#1-#4; or reach (MinHash + HLL reach sketches "
-                        "served over pub/sub)")
+                        "#1-#4; reach (MinHash + HLL reach sketches "
+                        "served over pub/sub); or hllx (the "
+                        "hyper-extended HLL ladder: distinct counts and "
+                        "frequency moments from one register plane)")
     p.add_argument("--sharded", action="store_true",
                    help="run the engine sharded over the mesh of "
-                        "jax.mesh.shape (exact, hll, sliding or session; "
-                        "one process: NCCL on cuda, gloo on cpu)")
+                        "jax.mesh.shape (exact, hll, sliding, session or "
+                        "reach; one process: NCCL on cuda, gloo on cpu)")
     # flags of the JAX CLI whose machinery is not ported yet: accepted
     # only to refuse them with a clear message
     p.add_argument("--microbatch", action="store_true",
@@ -179,31 +188,28 @@ def build_parser() -> argparse.ArgumentParser:
 #: engines the port runs, by ``--engine`` name
 ENGINES = {"exact": AdAnalyticsEngine, "hll": HLLDistinctEngine,
            "sliding": SlidingTDigestEngine, "session": SessionCMSEngine,
-           "reach": ReachSketchEngine}
+           "reach": ReachSketchEngine, "hllx": HLLXEngine}
 #: their mesh-sharded forms (``--sharded``)
 SHARDED_ENGINES = {"exact": ShardedWindowEngine, "hll": ShardedHLLEngine,
                    "sliding": ShardedSlidingTDigestEngine,
-                   "session": ShardedSessionCMSEngine}
+                   "session": ShardedSessionCMSEngine,
+                   "reach": ShardedReachEngine}
 
 
 def unsupported(args, cfg) -> list[str]:
-    """What this run asks for beyond what the port runs: the exact-count,
-    HLL, sliding, session and reach engines on one device, at any key
-    space, with checkpoint/resume, the exactly-once sink, the staged
-    ingest pipeline, the encode pool, the dead-letter queue, the Kafka
-    source, device decode (exact engine), the observability layer
-    without tenants (the reach query and fleet keys included), reach
-    serving with its cache and replica shipping, and the exact, HLL,
-    sliding and session engines sharded in one process
+    """What this run asks for beyond what the port runs: every engine of
+    the reference (exact, HLL, sliding, session, reach, hllx) on one
+    device, at any key space, with checkpoint/resume, the exactly-once
+    sink, the staged ingest pipeline, the encode pool, the dead-letter
+    queue, the Kafka source, device decode (exact engine), the
+    observability layer without tenants (the reach query and fleet keys
+    included), reach serving with its cache and replica shipping, and the
+    exact, HLL, sliding, session and reach engines sharded in one process
     (``--sharded``)."""
     out = []
     ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
-    for flag, on in (("--sharded --engine " + str(args.engine),
-                      args.sharded and args.engine not in SHARDED_ENGINES),
-                     (f"--sharded over {ranks} processes",
+    for flag, on in ((f"--sharded over {ranks} processes",
                       args.sharded and ranks > 1),
-                     ("--engine " + str(args.engine),
-                      args.engine not in ENGINES),
                      ("--microbatch", args.microbatch),
                      ("--tenants", args.tenants)):
         if on:
@@ -325,13 +331,18 @@ def main(argv: list[str] | None = None) -> int:
     missing = unsupported(args, cfg)
     if missing:
         print("error: not ported to the PyTorch engine yet (it runs the "
-              "exact, hll, sliding, session and reach engines with "
+              "exact, hll, sliding, session, reach and hllx engines with "
               "checkpoints, the exactly-once sink, the ingest pipeline, the "
               "encode pool, the dead-letter queue, the Kafka source, the "
               "observability layer, reach serving with its query and "
-              "fleet observability, and the exact, hll, sliding and "
-              "session engines sharded in one process): " + ", ".join(missing),
-              file=sys.stderr)
+              "fleet observability, and the exact, hll, sliding, session "
+              "and reach engines sharded in one process): "
+              + ", ".join(missing), file=sys.stderr)
+        return 2
+    if args.sharded and args.engine not in SHARDED_ENGINES:
+        # the reference's own refusal: hllx has no sharded form
+        print(f"error: --sharded supports exact/hll/sliding/session/reach, "
+              f"not --engine {args.engine}", file=sys.stderr)
         return 2
 
     mapping, campaigns = load_mapping(cfg, args.workdir)

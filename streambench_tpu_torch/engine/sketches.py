@@ -1,7 +1,7 @@
-"""Sketch-aggregation engines: BASELINE configs #2, #3 and #4, and reach.
+"""Sketch-aggregation engines: BASELINE configs #2, #3 and #4, reach and hllx.
 
-The port of ``streambench_tpu/engine/sketches.py``'s HLL, reach, sliding
-and session engines.  The host loop, encoder, Redis writer, runner and
+The port of ``streambench_tpu/engine/sketches.py``'s HLL, reach, hllx,
+sliding and session engines.  The host loop, encoder, Redis writer, runner and
 harness are the exact engine's (``engine.pipeline.AdAnalyticsEngine``);
 only the device state and its fold change:
 
@@ -25,6 +25,9 @@ only the device state and its fold change:
   HLL planes (``ops.minhash``) served live to union/overlap queries
   (``reach/``: the query server, its cache, and read replicas fed by
   shipped snapshots and deltas); ``<hashtable>_reach`` at close.
+- ``HLLXEngine``: cumulative per-campaign hyper-extended HLL ladders
+  (``ops.hllx``): distinct users, soft-capped counts and the log-count
+  moment from one register plane; ``<hashtable>_hllx`` at close.
 
 The JAX engines fuse each chunk's fold into one jitted program; here the
 six programs are plain functions that loop over the chunk's batches, as
@@ -54,7 +57,9 @@ from streambench_tpu_torch.ops import (
     tdigest,
 )
 from streambench_tpu_torch.ops import count as count_ops
+from streambench_tpu_torch.ops import hllx
 from streambench_tpu_torch.ops import windowcount as wc
+from streambench_tpu_torch.reach import query as rq
 from streambench_tpu_torch.utils.ids import now_ms
 
 
@@ -329,16 +334,20 @@ class ReachSketchEngine(_SketchEngineBase):
         valid = (w >> (wc.PACK_AD_BITS + 2)) & 1
         self._mark_dirty(w & (wc.PACK_AD_MAX - 1), valid)
 
-    def _fold_stack(self, batches: list) -> list[np.ndarray]:
-        stacks = super()._fold_stack(batches)
+    def _note_fold(self, cols: list, packed: bool) -> None:
+        """Stamp a fold and union the host columns it shipped into the
+        dirty mask: the packed word first, or the unpacked columns in
+        ``SCAN_COLUMNS`` order (the ad index first, ``valid`` last)."""
         self._fold_wall_ms = now_ms()
         if self._dirty_mask is not None:
-            # the host stacks just shipped: the packed word first, or
-            # the unpacked columns in SCAN_COLUMNS order
-            if self._pack_ok:
-                self._mark_dirty_packed(stacks[0])
+            if packed:
+                self._mark_dirty_packed(cols[0])
             else:
-                self._mark_dirty(stacks[0], stacks[-1])
+                self._mark_dirty(cols[0], cols[-1])
+
+    def _fold_stack(self, batches: list) -> list[np.ndarray]:
+        stacks = super()._fold_stack(batches)
+        self._note_fold(stacks, self._pack_ok)
         return stacks
 
     # -- the fold ------------------------------------------------------
@@ -348,9 +357,7 @@ class ReachSketchEngine(_SketchEngineBase):
             self._to_device(batch.ad_idx), self._to_device(batch.user_idx),
             self._to_device(batch.event_type),
             self._to_device(batch.event_time), self._to_device(batch.valid))
-        self._fold_wall_ms = now_ms()
-        if self._dirty_mask is not None:
-            self._mark_dirty(batch.ad_idx, batch.valid)
+        self._note_fold([batch.ad_idx, batch.valid], False)
 
     def _device_scan(self, ad_idx, user_idx, event_type, event_time,
                      valid) -> None:
@@ -369,11 +376,18 @@ class ReachSketchEngine(_SketchEngineBase):
         minhash.estimate(self.state.registers).cpu()
 
     # -- serving -------------------------------------------------------
+    def query_callable(self):
+        """The batch evaluator an attached query server dispatches
+        through (the sharded engine swaps in its two-collective
+        evaluation next to the shards)."""
+        return rq.batch_query
+
     def attach_reach(self, server) -> None:
-        """Wire a ReachQueryServer: push at once (possibly empty state:
-        queries answer 0 until events fold), then push on every flush and
-        on restore."""
+        """Wire a ReachQueryServer: hand it this engine's evaluator, push
+        at once (possibly empty state: queries answer 0 until events
+        fold), then push on every flush and on restore."""
         self._reach_server = server
+        server.use_query_fn(self.query_callable())
         self._reach_push()
 
     def attach_shipper(self, shipper) -> None:
@@ -393,15 +407,20 @@ class ReachSketchEngine(_SketchEngineBase):
         return {"mins": minhash.mins_numpy(self.state.mins),
                 "registers": self.state.registers.cpu().numpy().copy()}
 
+    def _push_planes(self) -> tuple:
+        """The ``(mins, registers)`` a push hands the server: clones, not
+        the planes.  The fold updates them in place, so a server holding
+        them could answer from a half-folded batch.  The clone runs on
+        the fold's stream, ordered after the folds before this push and
+        before every later one."""
+        return self.state.mins.clone(), self.state.registers.clone()
+
     def _reach_push(self, force_ship: bool = False) -> None:
         if self._reach_server is not None:
-            # Clones, not the planes: the fold updates them in place, so
-            # a server holding them could answer from a half-folded
-            # batch.  The clone runs on the fold's stream, ordered after
-            # the folds before this push and before every later one.
+            mins, registers = self._push_planes()
             self._reach_server.update_state(
-                self.state.mins.clone(), self.state.registers.clone(),
-                self.reach_epoch, freshness=self._fleet_stamps())
+                mins, registers, self.reach_epoch,
+                freshness=self._fleet_stamps())
         sh = self._reach_shipper
         if sh is not None and (force_ship or sh.due(self.reach_epoch)):
             # the due() pre-check keeps the planes' pull (a device sync)
@@ -503,6 +522,143 @@ class ReachSketchEngine(_SketchEngineBase):
     def dropped(self) -> int:
         return int(self.state.dropped)
 
+
+class HLLXEngine(_SketchEngineBase):
+    """Distinct count AND frequency moments from one register plane: the
+    hyper-extended HLL ladder (``ops.hllx``, ``--engine hllx``).
+
+    Cumulative per campaign like the reach engine: no window ring,
+    nothing drops; ``flush()`` writes no window rows and ``close()``
+    writes ``<redis.hashtable>_hllx`` fields per campaign:
+    ``<name>:distinct`` (rung-0 HLL), ``<name>:logm`` (the calibrated
+    log-count moment), ``<name>:views`` (exact F1) and ``<name>:cap<T>``
+    (the soft-capped count of each rung).  One scatter-max a batch; no
+    count kernel runs on this path."""
+
+    ENGINE_FAMILY = "hllx"
+    # identity is read through hashes only (the HLL rationale): stateless
+    # crc32 ids, the parallel encode pool is sound, no intern tables
+    HASHED_IDS = True
+    NEEDS_INTERNED_IDS = False
+    PARALLEL_ENCODE_OK = True
+    SCAN_SUPPORTED = True
+    SCAN_COLUMNS = ("ad_idx", "user_idx", "event_type", "event_time",
+                    "valid")
+    PACKED_EXTRA_COLS = ("user_idx",)
+
+    def __init__(self, cfg: BenchmarkConfig, ad_to_campaign: dict[str, str],
+                 campaigns: list[str] | None = None,
+                 redis: RedisLike | None = None,
+                 groups: int = 8, registers: int = 128,
+                 method: str | None = None,
+                 device: torch.device | str | None = None):
+        super().__init__(cfg, ad_to_campaign, campaigns=campaigns,
+                         redis=redis, method=method, device=device)
+        self.groups = int(groups)
+        self.registers = int(registers)
+        self.state = hllx.init_state(self.encoder.num_campaigns,
+                                     self.groups, self.registers,
+                                     device=self.device)
+        # no ring to overrun: the span guard would only send wide catchup
+        # groups down the per-batch path
+        self._span_guard = 2**31 - 1
+
+    def _device_step(self, batch) -> None:
+        self.state = hllx.step(
+            self.state, self.join_table,
+            self._to_device(batch.ad_idx), self._to_device(batch.user_idx),
+            self._to_device(batch.event_type),
+            self._to_device(batch.event_time), self._to_device(batch.valid))
+
+    def _device_scan(self, ad_idx, user_idx, event_type, event_time,
+                     valid) -> None:
+        self.state = hllx.scan_steps(
+            self.state, self.join_table, ad_idx, user_idx, event_type,
+            event_time, valid)
+
+    def _device_scan_packed(self, packed, user_idx, event_time) -> None:
+        self.state = hllx.scan_steps_packed(
+            self.state, self.join_table, packed, user_idx, event_time)
+
+    def warmup(self) -> None:
+        """The base warmup, plus the close-time moments (read-only, so
+        state-neutral)."""
+        super().warmup()
+        hllx.moments(self.state)["distinct"].cpu()
+
+    # -- harness hooks -------------------------------------------------
+    def _drain_device(self) -> None:
+        self._span_start = None   # cumulative: nothing to drain
+
+    def flush(self, time_updated: int | None = None, *,
+              final: bool = False) -> int:
+        return 0    # no window rows
+
+    def moments(self) -> dict:
+        """Host copies of every ladder answer (``[C]`` / ``[C, G]``
+        numpy arrays)."""
+        return {k: v.cpu().numpy()
+                for k, v in hllx.moments(self.state).items()}
+
+    def snapshot(self, offset) -> Snapshot:
+        self._snapshot_sync()
+        meta = self._snapshot_meta()
+        meta.update(hllx_groups=self.groups, num_registers=self.registers)
+        return self._xo_decorate(Snapshot(
+            offset=offset, meta=meta,
+            counts=np.zeros((0, 0), np.int32),
+            window_ids=np.zeros((0,), np.int32),     # no window ring
+            watermark=int(self.state.watermark),
+            dropped=int(self.state.dropped),
+            extra={"hllx_registers": self.state.registers.cpu().numpy(),
+                   "hllx_totals": self.state.totals.cpu().numpy(),
+                   **self._intern_extra()},
+        ))
+
+    def restore(self, snap: Snapshot) -> None:
+        self._check_geometry(snap, extra=dict(
+            hllx_groups=self.groups, num_registers=self.registers))
+        dev = self.device
+        self.state = hllx.HLLXState(
+            registers=torch.from_numpy(np.array(
+                snap.extra["hllx_registers"])).to(dev),
+            totals=torch.from_numpy(np.array(
+                snap.extra["hllx_totals"], np.int32)).to(dev),
+            watermark=torch.tensor(int(snap.watermark), dtype=torch.int32,
+                                   device=dev),
+            dropped=torch.tensor(int(snap.dropped), dtype=torch.int32,
+                                 device=dev))
+        self._restore_interns(snap)
+        self._restore_host(snap)
+
+    def close(self) -> None:
+        if self._encode_pool is not None:
+            self._encode_pool.close()
+            self._encode_pool = None
+        if self.redis is None or not self.cfg.redis_hashtable:
+            return
+        m = self.moments()
+        table = f"{self.cfg.redis_hashtable}_hllx"
+        caps = [1 << g for g in range(self.groups)]
+        cmds = []
+        for c, name in enumerate(self.encoder.campaigns):
+            if m["totals"][c] <= 0:
+                continue
+            cmds.append(("HSET", table, f"{name}:distinct",
+                         str(int(round(float(m["distinct"][c]))))))
+            cmds.append(("HSET", table, f"{name}:logm",
+                         f"{float(m['log_moment'][c]):.1f}"))
+            cmds.append(("HSET", table, f"{name}:views",
+                         str(int(m["totals"][c]))))
+            for g, t in enumerate(caps):
+                cmds.append(("HSET", table, f"{name}:cap{t}",
+                             f"{float(m['softcap'][c, g]):.1f}"))
+        if cmds:
+            self.redis.pipeline_execute(cmds)
+
+    @property
+    def dropped(self) -> int:
+        return int(self.state.dropped)
 
 def _sliced_auto(device_type: str, S: int, C: int, W: int) -> bool:
     """``jax.sliding.sliced: auto``: the sliced fold wherever its

@@ -21,12 +21,14 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``BROKER_DIR`` (the file journal; default ``WORKDIR/broker``), and
 ``DEVICE`` (``cuda`` by default, passed to the engine as ``--device``;
 ``cpu`` only when asked for), ``ENGINE`` (``exact`` by default, ``hll``,
-``sliding``, ``session`` or ``reach``; passed to the engine as
-``--engine``; the session and reach engines write no window rows, so
-``TORCH_TEST``'s evidence for them is the engine's stats line),
+``sliding``, ``session``, ``reach`` or ``hllx``; passed to the engine as
+``--engine``; the session, reach and hllx engines write no window rows,
+so ``TORCH_TEST``'s evidence for them is the engine's stats line),
 ``SHARDED=1`` (the engine sharded over the mesh, ``--sharded``: the
-exact, hll, sliding and session engines; SETUP refuses it with
-``ENGINE=reach``, whose sharded form is not ported yet).
+exact, hll, sliding, session and reach engines).  The reference
+harness's ``MICROBATCH``, ``TENANTS`` and ``ADMISSION`` knobs need the
+micro-batch and multi-tenant hosts, which are not ported yet: SETUP
+refuses each by name rather than run a different job.
 ``VERIFY=1``
 makes ``TORCH_TEST`` hold every window in Redis against the generator's
 oracle over the journal the load wrote (``VERIFY``, before the services
@@ -93,11 +95,15 @@ CHECKPOINT_DIR = os.environ.get("CHECKPOINT_DIR", "")
 # the torch device the engine folds on: the card unless asked otherwise
 DEVICE = os.environ.get("DEVICE", "cuda")
 # the aggregation engine: exact | hll | sliding | session (BASELINE
-# configs #1-#4) | reach (reach sketches served over pub/sub)
+# configs #1-#4) | reach (reach sketches served over pub/sub) | hllx
+# (the hyper-extended HLL ladder)
 ENGINE = os.environ.get("ENGINE", "exact")
 SHARDED = _flag("SHARDED")
-#: the engines SHARDED=1 runs (the CLI's --sharded)
-SHARDED_ENGINES = ("exact", "hll", "sliding", "session")
+# the reference harness's micro-batch and multi-tenant knobs: read only
+# to refuse them (SETUP)
+MICROBATCH = _flag("MICROBATCH")
+TENANTS = os.environ.get("TENANTS", "")
+ADMISSION = _flag("ADMISSION")
 # Fake Kafka as a standalone TCP broker process (START_KAFKA/STOP_KAFKA):
 # the generator produces and the engine consumes over a real socket.
 # KAFKA_BROKERS picks the address (default 127.0.0.1:9092); naming one
@@ -259,15 +265,18 @@ def op_setup() -> None:
     from streambench_tpu_torch import native
     from streambench_tpu_torch.config import write_local_conf
 
-    if SHARDED and ENGINE not in SHARDED_ENGINES:
-        # sharded reach is not ported yet; the refusal names the obs
-        # knobs asked for with it
+    unported = [k for k, on in (("MICROBATCH", MICROBATCH),
+                                ("TENANTS", bool(TENANTS)),
+                                ("ADMISSION", ADMISSION)) if on]
+    if unported:
+        # the micro-batch and multi-tenant hosts are not ported yet; the
+        # refusal names the obs knobs asked for with them
         knobs = [k for k, on in (("OBS_SHARD", OBS_SHARD),
                                  ("OBS_QUERY", OBS_QUERY),
                                  ("OBS_FLEET", OBS_FLEET)) if on]
         raise SystemExit("not ported to the PyTorch harness yet: "
-                         f"SHARDED with ENGINE={ENGINE}"
-                         + (f" (and its {', '.join(knobs)})"
+                         + ", ".join(unported)
+                         + (f" (asked for with {', '.join(knobs)})"
                             if knobs else ""))
     if VERIFY and ENGINE != "exact":
         # gen.dostats counts exact views per tumbling window: it has no
@@ -590,10 +599,10 @@ def op_torch_test() -> None:
             op_stop_kafka()
         op_stop_redis()
     # a composite test that produced load but measured NOTHING is a
-    # failure (a stale or hung engine), not a quiet success.  The session
-    # and reach engines write no window rows: their evidence is the final
-    # stats line of this run's engine, as in the reference harness
-    if ENGINE in ("session", "reach"):
+    # failure (a stale or hung engine), not a quiet success.  The session,
+    # reach and hllx engines write no window rows: their evidence is the
+    # final stats line of this run's engine, as in the reference harness
+    if ENGINE in ("session", "reach", "hllx"):
         evidence, what = _engine_stats_line(), "events"
         ok = evidence != "" and '"events": 0' not in evidence
     else:

@@ -1,13 +1,13 @@
 """The mesh-sharded engines over ``torch.distributed``.
 
-The port of ``streambench_tpu/parallel`` but sharded reach: the
-``(data, campaign)`` mesh of ranks (``mesh``), the sharded exact fold and
-its engine (``sharded``), the sharded sketch engines (``sketches``: HLL,
-sliding + t-digest, session + count-min), the single controller they
-share (``controller``), the collective-cost counter (``collectives``) and
-the multi-process engine with its lockstep catchup (``distributed``).
-Sharded reach is not ported yet.  Importing the package starts no
-process group and touches no card.
+The port of ``streambench_tpu/parallel``: the ``(data, campaign)`` mesh
+of ranks (``mesh``), the sharded exact fold and its engine
+(``sharded``), the sharded sketch engines (``sketches``: HLL, sliding +
+t-digest, session + count-min), sharded reach with its queries evaluated
+next to the shards (``reach``), the single controller they share
+(``controller``), the collective-cost counter (``collectives``) and the
+multi-process engine with its lockstep catchup (``distributed``).
+Importing the package starts no process group and touches no card.
 """
 
 from streambench_tpu_torch.parallel.distributed import (
@@ -22,6 +22,10 @@ from streambench_tpu_torch.parallel.mesh import (
     Mesh,
     build_mesh,
     mesh_from_config,
+)
+from streambench_tpu_torch.parallel.reach import (
+    ShardedReachEngine,
+    sharded_reach_init,
 )
 from streambench_tpu_torch.parallel.sharded import (
     ShardedWindowEngine,
@@ -41,6 +45,7 @@ __all__ = [
     "DistributedWindowEngine",
     "Mesh",
     "ShardedHLLEngine",
+    "ShardedReachEngine",
     "ShardedSessionCMSEngine",
     "ShardedSlidingTDigestEngine",
     "ShardedWindowEngine",
@@ -53,5 +58,6 @@ __all__ = [
     "sharded_hll_init",
     "sharded_hll_step",
     "sharded_init_state",
+    "sharded_reach_init",
     "sharded_step",
 ]

@@ -3,14 +3,16 @@
 The port of ``streambench_tpu/parallel/collectives.py``.  The JAX package
 parses the optimized HLO of a compiled step and reports every collective
 in it; PyTorch runs eagerly and has no program to parse, so here every
-collective the fold issues goes through one of the two wrappers below,
+collective the fold issues goes through one of the wrappers below,
 which issue it and, when the caller hands them a :class:`Recorder`,
 record it.  ``report_for`` runs one real dispatch under a recorder and
 returns the reference's schema.
 
 Accounting model, the reference's (``collectives.py:12-25`` there):
 
-- **payload bytes** = byte size of the op's output.  This is the data a
+- **payload bytes** = byte size of the op's output (the reach query's
+  merges are int64, the dtype of the port's signature plane, where the
+  reference's are uint32).  This is the data a
   collective makes every participant agree on, not a link-level model;
   ``group_size`` is recorded per op so a reader can apply the wire model
   of their fabric.
@@ -112,6 +114,21 @@ def all_reduce_sum(x: torch.Tensor, group, recorder: Recorder | None = None,
     return buf.reshape(x.shape)
 
 
+_EXTREMES = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce_extreme(x: torch.Tensor, group,
+                       recorder: Recorder | None = None, *, op: str,
+                       name: str, in_loop: bool = False) -> torch.Tensor:
+    """The elementwise ``op`` ("min" or "max") of ``x`` over ``group``, in
+    ``x``'s own dtype (the sharded reach query's int64 planes); returns a
+    new tensor."""
+    buf = x.contiguous().clone()
+    _issue(recorder, "all-reduce", name, buf, group, in_loop,
+           lambda: dist.all_reduce(buf, op=_EXTREMES[op], group=group))
+    return buf
+
+
 def summarize(ops: list[CollectiveOp], scan_len: int = 1,
               column_bytes_min: int = 64) -> dict:
     """Aggregate recorded ops into the per-dispatch view artifacts cite.
@@ -153,8 +170,9 @@ def summarize(ops: list[CollectiveOp], scan_len: int = 1,
 
 def publish_gauges(registry, report: dict) -> None:
     """Mirror an engine ``collective_report`` onto obs gauges:
-    ``streambench_collective_{ops,bytes}{kernel="step"|"scan"}``."""
-    for kernel in ("step", "scan"):
+    ``streambench_collective_{ops,bytes}{kernel="step"|"scan"|"query"}``
+    (``query``: the sharded reach engine's)."""
+    for kernel in ("step", "scan", "query"):
         r = report.get(kernel)
         if not isinstance(r, dict):
             continue

@@ -81,8 +81,10 @@ decomposition of its evidence age (``freshness_hops``), observed into
 ``streambench_fleet_freshness_ms{hop=}``, and the staleness clock anchors
 at the fold.
 
-The reference's pluggable evaluator (``query_fn``, for the sharded reach
-engine) has no caller in the port yet and is left out.
+The evaluator is ``reach.query.batch_query`` unless an engine swaps in
+its own through ``use_query_fn`` at attach time: the sharded reach
+engine hands in its evaluation next to the shards
+(``ShardedReachEngine.query_callable``, two collectives a dispatch).
 """
 
 from __future__ import annotations
@@ -171,6 +173,8 @@ class ReachQueryServer:
         self._cache = cache
         self.max_staleness_ms = (None if max_staleness_ms is None
                                  else max(int(max_staleness_ms), 0))
+        # the batch evaluator (an engine may swap it: use_query_fn)
+        self._query_fn = rq.batch_query
         # serving observability — all None on the default
         # path: one attribute check per admission/batch, replies
         # byte-identical until jax.obs.query wires a QueryLifecycle
@@ -277,7 +281,7 @@ class ReachQueryServer:
     def _warm(self, mins, registers) -> None:
         try:
             C = len(self.campaigns)
-            rq.batch_query(
+            self._query_fn(
                 mins, registers, np.zeros((self.batch, C), bool),
                 np.zeros(self.batch, bool))[0].cpu()
             self._warmed = True
@@ -320,6 +324,12 @@ class ReachQueryServer:
         anchor = self._anchor(st)
         return (anchor is None
                 or (now_ms() - anchor) > self.max_staleness_ms)
+
+    def use_query_fn(self, fn) -> None:
+        """The engine's evaluator (``attach_reach``): the sharded engine
+        routes evaluation through its shards.  Call it before the first
+        push, so the warmup runs the evaluator that will serve."""
+        self._query_fn = fn
 
     @property
     def epoch(self) -> int | None:
@@ -640,7 +650,7 @@ class ReachQueryServer:
             mask[row, idx] = True
             overlap[row] = is_overlap
         t_submit = time.perf_counter_ns()
-        est, union, jacc, _ = rq.batch_query(
+        est, union, jacc, _ = self._query_fn(
             mins, registers, mask, overlap)
         self.dispatches += 1
         # Resolve the dispatch first, then copy: one CUDA event recorded

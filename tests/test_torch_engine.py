@@ -237,20 +237,23 @@ def test_cli_catchup_on_cpu(tmp_path):
     assert stats["windows_written"] > 0 and stats["faults"] == {}
 
 
-@pytest.mark.parametrize("extra,conf_line,word", [
-    # --sharded runs the exact, hll, sliding and session engines;
-    # sharded reach is not ported yet
-    (["--sharded", "--engine", "reach"], "", "--sharded --engine reach"),
-    # hll, sliding, session and reach are ported; hllx is not yet
-    (["--engine", "hllx"], "", "--engine hllx"),
+@pytest.mark.parametrize("extra,conf_line,word,ranks", [
+    # --sharded runs every engine with a sharded form in one process;
+    # over more than one process it stays refused
+    (["--sharded"], "", "--sharded over 2 processes", "2"),
+    # every engine of the reference is ported (hllx the last); the
+    # multi-tenant host that takes them as tenant kinds is not
+    (["--tenants", "a:hllx"], "", "--tenants", None),
     # --traceDir and the fleet's trace stitching (jax.obs.fleet) are
     # ported; the multi-tenant host's config key stays refused
-    ([], "jax.tenants: a:exact", "jax.tenants"),
-    (["--microbatch"], "", "--microbatch"),
-    (["--tenants", "a:exact"], "", "--tenants"),
+    ([], "jax.tenants: a:exact", "jax.tenants", None),
+    (["--microbatch"], "", "--microbatch", None),
+    (["--tenants", "a:exact"], "", "--tenants", None),
 ], ids=["sharded", "engine", "trace", "microbatch", "tenants"])
-def test_cli_rejects_what_is_not_ported(tmp_path, capsys, extra, conf_line,
-                                       word):
+def test_cli_rejects_what_is_not_ported(tmp_path, capsys, monkeypatch, extra,
+                                       conf_line, word, ranks):
+    if ranks is not None:
+        monkeypatch.setenv("STREAMBENCH_NUM_PROCESSES", ranks)
     conf = tmp_path / "conf.yaml"
     conf.write_text('redis.host: ":inprocess:"\n' + conf_line + "\n")
     rc = cli.main(["--confPath", str(conf), "--workdir", str(tmp_path),
@@ -258,6 +261,23 @@ def test_cli_rejects_what_is_not_ported(tmp_path, capsys, extra, conf_line,
     err = capsys.readouterr().err
     assert rc == 2
     assert "not ported" in err and word in err
+
+
+def test_cli_rejects_an_unknown_engine_as_the_reference_does():
+    """``--engine`` takes the reference's choices: an unknown name is
+    argparse's "invalid choice" (exit 2) in both CLIs, the same message
+    after the program name."""
+    out = {}
+    for mod in ("streambench_tpu_torch.engine", "streambench_tpu.engine"):
+        proc = subprocess.run(
+            [sys.executable, "-m", mod, "--engine", "bogus"],
+            capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+        assert proc.returncode == 2
+        out[mod] = proc.stderr.strip().splitlines()[-1]
+    port, ref = out.values()
+    assert "error: argument --engine: invalid choice: 'bogus'" in port
+    assert port.split(": error: ")[1] == ref.split(": error: ")[1]
 
 
 # ----------------------------------------------------------------------

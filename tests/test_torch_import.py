@@ -27,7 +27,7 @@ OBS_MODULES = ("__main__", "autoscale", "capture", "clock", "devmem",
 CHAOS_MODULES = ("fleet_supervisor", "inject", "netchaos", "plan",
                  "supervisor", "verify")
 PARALLEL_MODULES = ("collectives", "controller", "distributed", "mesh",
-                    "sharded", "sketches")
+                    "reach", "sharded", "sketches")
 REACH_MODULES = ("cache", "deltaship", "oracle", "query", "replica",
                  "router", "serve")
 DIMENSIONS_MODULES = ("pubsub", "store")
@@ -91,6 +91,7 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.datagen.gen",
                 "streambench_tpu_torch.engine.sketches",
                 "streambench_tpu_torch.ops.hll",
+                "streambench_tpu_torch.ops.hllx",
                 "streambench_tpu_torch.ops.sliding",
                 "streambench_tpu_torch.ops.tdigest",
                 "streambench_tpu_torch.ops.session",
@@ -229,8 +230,7 @@ print(json.dumps({
 def test_parallel_package_imports_no_jax_and_starts_no_group():
     """The sharded engine's package: importing it loads nothing of JAX,
     starts no process group and no process, and touches no CUDA context;
-    it exports the exact-count and sketch engines (sharded reach is not
-    ported)."""
+    it exports the exact-count, sketch and reach engines."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
     env["PYTHONPATH"] = REPO
@@ -241,7 +241,6 @@ def test_parallel_package_imports_no_jax_and_starts_no_group():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["jax"] == [] and got["cuda_initialized"] is False
     assert got["process_group"] is False
-    assert not any("Reach" in n for n in got["exports"])
     assert {"ShardedWindowEngine", "ShardedHLLEngine",
-            "ShardedSlidingTDigestEngine",
-            "ShardedSessionCMSEngine"} <= set(got["exports"])
+            "ShardedSlidingTDigestEngine", "ShardedSessionCMSEngine",
+            "ShardedReachEngine"} <= set(got["exports"])

@@ -156,17 +156,17 @@ def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
 
 
 @pytest.mark.parametrize("extra,conf_line,word,env", [
-    # jax.obs.query and jax.obs.fleet run with the reach engine; on the
-    # sharded reach engine, which is not ported yet, they are refused
-    # with it
-    (["--sharded", "--engine", "reach"], "jax.obs.query: true",
-     "--sharded --engine reach", {}),
-    (["--sharded", "--engine", "reach"], "jax.obs.fleet: true",
-     "--sharded --engine reach", {}),
-    # jax.obs.shard runs with --sharded on the exact and sketch engines
-    # in one process; sharded reach and more processes stay refused
+    # jax.obs.query and jax.obs.fleet run with the reach engine, sharded
+    # or not; with the micro-batch or multi-tenant host, which are not
+    # ported yet, they are refused with it
+    (["--sharded", "--engine", "reach", "--microbatch"],
+     "jax.obs.query: true", "--microbatch", {}),
+    (["--sharded", "--engine", "reach", "--tenants", "a:reach"],
+     "jax.obs.fleet: true", "--tenants", {}),
+    # jax.obs.shard runs with --sharded on every engine with a sharded
+    # form in one process; more processes stay refused
     (["--sharded", "--engine", "reach"], "jax.obs.shard: true",
-     "--sharded --engine reach", {}),
+     "--sharded over 2 processes", {"STREAMBENCH_NUM_PROCESSES": "2"}),
     (["--sharded"], "jax.obs.shard: true", "--sharded over 4 processes",
      {"STREAMBENCH_NUM_PROCESSES": "4"}),
 ], ids=["query", "fleet", "shard", "shard_sharded"])
@@ -289,12 +289,13 @@ def test_harness_sharded_with_obs_shard_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("knob,extra", [
-    # OBS_SHARD runs with SHARDED=1 on the exact, hll, sliding and
-    # session engines, OBS_QUERY and OBS_FLEET with ENGINE=reach;
-    # sharded reach stays refused, and the refusal names the obs knob
-    ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "reach"}),
-    ("OBS_QUERY", {"SHARDED": "1", "ENGINE": "reach"}),
-    ("OBS_FLEET", {"SHARDED": "1", "ENGINE": "reach"})],
+    # OBS_SHARD, OBS_QUERY and OBS_FLEET run with SHARDED=1 ENGINE=reach
+    # (below); the micro-batch and multi-tenant hosts stay refused, and
+    # the refusal names both the host's knob and the obs knob
+    ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "reach", "MICROBATCH": "1"}),
+    ("OBS_QUERY", {"SHARDED": "1", "ENGINE": "reach",
+                   "TENANTS": "a:exact"}),
+    ("OBS_FLEET", {"SHARDED": "1", "ENGINE": "reach", "ADMISSION": "1"})],
     ids=["OBS_SHARD", "OBS_QUERY", "OBS_FLEET"])
 def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob, extra):
     workdir = str(tmp_path / "run")
@@ -305,4 +306,40 @@ def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob, extra):
         capture_output=True, text=True, timeout=120)
     assert p.returncode != 0
     assert "not ported" in p.stderr and knob in p.stderr
+    host = next(k for k in ("MICROBATCH", "TENANTS", "ADMISSION")
+                if k in extra)
+    assert host in p.stderr
+    assert not os.path.exists(os.path.join(workdir, "localConf.yaml"))
+
+
+@pytest.mark.parametrize("knob,key", [
+    ("OBS_SHARD", "jax.obs.shard"), ("OBS_QUERY", "jax.obs.query"),
+    ("OBS_FLEET", "jax.obs.fleet")])
+def test_harness_setup_with_sharded_reach_writes_the_obs_keys(tmp_path,
+                                                              knob, key):
+    """``SHARDED=1 ENGINE=reach`` with each obs knob: SETUP writes the
+    knob's key (the sharded reach engine is ported)."""
+    workdir = str(tmp_path / "run")
+    p = subprocess.run(
+        [sys.executable, "-m", "streambench_tpu_torch.harness", "SETUP"],
+        cwd=REPO, env=_harness_env(workdir, _free_port(), SHARDED="1",
+                                   ENGINE="reach", **{knob: "1"}),
+        capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stdout + p.stderr
+    conf = open(os.path.join(workdir, "localConf.yaml")).read()
+    assert f"{key}: true" in conf
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("MICROBATCH", "1"), ("TENANTS", "a:exact,b:hll"), ("ADMISSION", "1")])
+def test_harness_refuses_the_host_knobs_not_ported(tmp_path, knob, value):
+    """The reference harness's micro-batch and multi-tenant knobs: SETUP
+    exits non-zero naming the knob instead of running another job."""
+    workdir = str(tmp_path / "run")
+    p = subprocess.run(
+        [sys.executable, "-m", "streambench_tpu_torch.harness", "SETUP"],
+        cwd=REPO, env=_harness_env(workdir, _free_port(), **{knob: value}),
+        capture_output=True, text=True, timeout=120)
+    assert p.returncode != 0
+    assert f"not ported to the PyTorch harness yet: {knob}" in p.stderr
     assert not os.path.exists(os.path.join(workdir, "localConf.yaml"))

@@ -381,11 +381,14 @@ def test_harness_torch_test_with_engine_reach_on_cpu(tmp_path):
 
 
 def test_harness_still_refuses_sharded_reach(tmp_path):
+    """Sharded reach runs (``tests/test_torch_sharded_reach.py``); its
+    micro-batch form is still refused, by name."""
     env = {"WORKDIR": str(tmp_path / "run"), "DEVICE": "cpu",
-           "ENGINE": "reach", "SHARDED": "1"}
+           "ENGINE": "reach", "SHARDED": "1", "MICROBATCH": "1"}
     proc = run_harness(["SETUP"], env)
     assert proc.returncode != 0
     assert "not ported" in proc.stdout + proc.stderr
+    assert "MICROBATCH" in proc.stdout + proc.stderr
 
 
 # chip_smoke.py phase 19, rehearsed on the CPU at a small size

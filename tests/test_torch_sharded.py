@@ -605,9 +605,10 @@ def test_cli_sharded_without_cuda_raises(tmp_path):
 # chip_smoke.py phase 17, rehearsed on the CPU at a small size
 def test_chip_smoke_phase17_runs_on_the_cpu(tmp_path, monkeypatch):
     """Phase 17 through the smoke's own code on a (1, 1) gloo mesh, held
-    to an unsharded CPU run that stands in for phase 6 (its record taken
-    by ``_config5_record``, the oracle-checked store's digest equal to
-    the journal's views): config #5's keys at 1,000 campaigns and 60,000
+    to an unsharded CPU run that stands in for phase 6 (its oracle, the
+    store's digest against the journal's exact windows, equal to the
+    full read-back's; its record taken by ``_config5_record``, the
+    store's digest equal to the journal's views): config #5's keys at 1,000 campaigns and 60,000
     events, the row drains' threshold lowered so both engines take them.
     Each sharded store's whole-store digest must be the unsharded one's;
     a store holding one extra window must fail the phase.  The card runs
@@ -633,9 +634,14 @@ def test_chip_smoke_phase17_runs_on_the_cpu(tmp_path, monkeypatch):
         eng.close()
         run_s = time.perf_counter() - t0
         assert eng.drain_stats.get("rows_host")
-        chip_smoke._oracle(r, data.workdir, cfg.jax_time_divisor_ms)
-        record, windows = chip_smoke._config5_record(data, r)
+        full = chip_smoke._oracle(r, data.workdir, cfg.jax_time_divisor_ms)
+        # phase 6's oracle: the store's digest against the journal's
+        oracle, expected = chip_smoke._digest_oracle(
+            r, data.workdir, cfg.jax_time_divisor_ms)
+        assert oracle["windows_checked"] == full["windows_checked"]
+        record, windows = chip_smoke._config5_record(data, r, expected)
         assert record["store_digest"]["seen"] == record["views"] > 0
+        assert record["store_digest"] == oracle["oracle_digest"]
         assert 0 < len(windows) < record["store_digest"]["windows"]
         unsharded = dict(record, events_per_s=60_000 / run_s,
                          events_per_s_with_close=60_000 / run_s)
@@ -660,5 +666,10 @@ def test_chip_smoke_phase17_runs_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(data, "store", store_with_an_extra_window)
         with pytest.raises(AssertionError, match="are not phase 6's"):
             chip_smoke.phase_sharded(data, windows, unsharded, device="cpu")
+        # ... and phase 6's oracle fails once the checked store holds one
+        write_window(r, data.campaigns[0], 10**12, 1, time_updated=1)
+        with pytest.raises(AssertionError, match="oracle: the store's"):
+            chip_smoke._digest_oracle(r, data.workdir,
+                                      cfg.jax_time_divisor_ms)
     finally:
         data.remove()
