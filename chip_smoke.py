@@ -14,7 +14,9 @@ result line) when any phase fails:
    ~30 % masked rows, a hot cell, views misaligned by 1 and 3 rows,
    config #5's step on its 256 MB plane, the sharded fold's per-shard
    plane of a four-shard config #5 layout ([250000, 64], three quarters
-   of the rows out of shard and masked), and a 16.7M-row bandwidth
+   of the rows out of shard and masked), the micro-batch window fold
+   ([100, 1], 1,666 rows) and the dimension step ([2^20, 16], 8,192 rows
+   of keys uniform over 1M), and a 16.7M-row bandwidth
    case), each with the launch plan it took; device
    times from CUDA events over CUDA-graph replays and eager call times,
    beside the byte bound at 3.35 TB/s (1 B a row's mask, 8 B an unmasked
@@ -106,13 +108,13 @@ result line) when any phase fails:
 9. Paced YSB through the port's harness, as users run it: ``python -m
    streambench_tpu_torch.harness TORCH_TEST`` in a fresh workdir (a RESP
    server process, the engine process on ``cuda`` with the pipeline on
-   and four encode workers, the generator at 100,000 ev/s for 15 s over
+   and four encode workers, the generator at 100,000 ev/s for 10 s over
    the file journal, ``-g`` stats, ``VERIFY=1``).  The engine must exit
    0 having folded exactly the events the generator emitted, none
    dropped, with every window in Redis equal to the oracle over the
    journal; the window latency (``updated.txt``) as p50/p90/p99/max.
 10. Fake Kafka: the same composite with ``KAFKA_FAKE=1`` (the broker its
-   own process, one partition), 10,000 ev/s for 15 s.
+   own process, one partition), 10,000 ev/s for 5 s.
 11. Observability: phase 9's composite at 100,000 ev/s for 15 s with every
    ported obs knob on (``METRICS_INTERVAL_MS=1000``, ``OBS_LIFECYCLE``,
    ``FLIGHTREC``, ``OBS_SPANS``, ``OBS_OCCUPANCY``, ``OBS_XFER``,
@@ -149,7 +151,7 @@ result line) when any phase fails:
    and phase 8's pipelined (``$STREAMBENCH_TORCH_METHOD_CACHE``, here a
    file under ``build/``).
 13. Paced decode: phase 9's composite with ``DECODE_DEVICE=on``, 100,000
-   ev/s for 15 s, ``VERIFY=1``; the window latency beside phase 9's and
+   ev/s for 10 s, ``VERIFY=1``; the window latency beside phase 9's and
    K2's launches from the engine's stats line.
 
 14. Supervised chaos: the chaos layer (``streambench_tpu_torch.chaos``) on
@@ -166,9 +168,11 @@ result line) when any phase fails:
    encoder; (c) config #5's key space (phase 6's deployment, seed 7)
    under a script with a checkpoint crash, every event folded and none
    dropped, each restart allocating the 256 MB plane and restoring a
-   256 MB snapshot (its at-least-once check of the store, 51.4 s here,
-   runs in the CPU rehearsal only since PR 13: the cut that pays for
-   phase 18; phase 17 holds config #5's rows to phase 6's); (d) the
+   256 MB snapshot, taken at most every 2 s of wall clock
+   (``CHAOS_CONFIG5_KEYS``, not after every flush: part of the cut that
+   pays for phase 22) (its at-least-once check of the store, 51.4 s
+   here, runs in the CPU rehearsal only: the cut that pays for phase
+   18; phase 17 holds config #5's rows to phase 6's); (d) the
    in-process fake Kafka, three partitions, 200,000 events, broker
    faults (produce errors, connection drops, a down window) and three
    crashes under exactly-once: oracle-exact, the delivery ledger
@@ -399,7 +403,38 @@ result line) when any phase fails:
    log, a replica process, the answers the oracle's over journal and
    tail, as the unsharded CLI's).  K1-K3 launch 0 times on every path.
 
-Each kernel's launches are counted over each of phases 4, 6-21, from 0
+22. The fork's count-window micro-batch mode (M15a), the columnar
+   handoff, and the dimensional-aggregation family (M15b).  One journal
+   of 1,500,000 events of the stock topology (seed 71), split round-robin
+   over the stock ``map.partitions: 3`` (``window.size: 5000``: 300
+   windows of 3 x 1,666 events).  (a) ``run_microbatch(device="cuda")``
+   with the in-process barrier: every merged window equal to the
+   journal's golden (its views a window per campaign), the fork's latency
+   hash in the store (``thread_idx``, ``running_time:<i>``,
+   ``<windowStart>:<i>``), K1 once a window a partition and once in the
+   warm-up; the first 100 windows equal the same run on the CPU; HLL
+   (R = 128) on the card over the first 100 windows, each partition's
+   registers window by window bit-identical to the CPU run's, estimates
+   within 1, no K1; the ``RedisWindowBarrier`` over the in-repo RESP server
+   (a connection a partition) for 30 windows, equal, its stamp fields
+   kept and its count back at 0; a checkpointed run stopped at window 100
+   (chunks every 64 windows) and resumed, equal to the clean run.
+   Windows/s, ev/s, p50/p99 window latency, and the window fold's device
+   ms (CUDA-graph replays) and eager ms a call.  (b) The handoff CLI's
+   entry at the reference's defaults (20 windows of 5,000 events): r2c
+   and c2r p50 and max.  Then ``python -m streambench_tpu_torch.engine
+   --microbatch`` over the journal (its ``total_views`` the golden's) and
+   ``python -m streambench_tpu_torch.dimensions --generate 100000`` run
+   as processes beside (c): ``run_synthetic`` at 1,000,000 campaigns into
+   2^20 keys, W = 16, 2,000,000 events, B = 8,192: rows equal to a numpy
+   oracle over the same seeded draws, none dropped, K1 once a step; ev/s,
+   the fold's device ms a step, the fullest device memory, the
+   interner's and the row build's share; ``DimensionApp`` (the default
+   schema) over the journal whole: every (campaign, 10 s bucket)'s
+   ``clicks:SUM`` the journal's views, ``latency:MAX`` >= 0, K1 once a
+   step.  K2 and K3 launch 0 times on every path.
+
+Each kernel's launches are counted over each of phases 4, 6-22, from 0
 just before the phase's run to just after it (phases 9-11 and 13 run the
 engine in its own process, which reports them in its stats line).  The
 line before the nvidia-smi line is ``{"kernels": [...]}``; the last line
@@ -412,6 +447,7 @@ is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --only-reach     # phases 1-3 and 19 alone
     python3 chip_smoke.py --only-fleet     # phases 1-3 and 20 alone
     python3 chip_smoke.py --only-hllx-reach  # phases 1-3, 15, 19 and 21
+    python3 chip_smoke.py --only-microbatch-dims  # phases 1-3 and 22
 """
 
 from __future__ import annotations
@@ -441,10 +477,11 @@ LARGE_EVENTS = 1_000_000           # config #5's dataset, bench.py:1227-1230
 CONFIG5 = {"jax.window.slots": 64, "jax.scan.batches": 1,
            "jax.batch.size": 8192, "jax.num.campaigns": 1_000_000,
            "jax.ads.per.campaign": 1}
-# phases 9, 10 and 13: (rate ev/s, seconds) of the paced load
-PACED_LOAD = (100_000, 15)
-KAFKA_LOAD = (10_000, 15)
-PACED_DECODE_LOAD = (100_000, 15)
+# phases 9, 10 and 13: (rate ev/s, seconds) of the paced load (10 s, 5 s
+# and 10 s, not 15 s each: part of the cut that pays for phase 22)
+PACED_LOAD = (100_000, 10)
+KAFKA_LOAD = (10_000, 5)
+PACED_DECODE_LOAD = (100_000, 10)
 # phase 11: the paced load and the harness's obs knobs
 OBS_LOAD = (100_000, 15)
 OBS_ENV = {"METRICS_INTERVAL_MS": "1000", "OBS_LIFECYCLE": "1",
@@ -523,6 +560,12 @@ CHAOS_SCRIPT = (("batch", 5), ("flush", 1), ("batch", 2), ("checkpoint", 1))
 # snapshot, one after the resume (8192-event batches, ~40 a second)
 CHAOS_CONFIG5_SCRIPT = (("batch", 30), ("checkpoint", 1), ("batch", 40))
 CHAOS_KAFKA_SCRIPT = (("batch", 3), ("flush", 1), ("batch", 2))
+# the smoke's (c) snapshots config #5's 256 MB plane at most every 2 s of
+# wall clock, not after every flush (11 snapshots, 27.8 s of snapshot and
+# save on one H100): the cut that pays for phase 22.  Attempt 2 then folds
+# ~2 s (~400,000 events) before its checkpoint crash, and attempt 3's
+# crash at batch 40 still falls inside the journal
+CHAOS_CONFIG5_KEYS = {"jax.checkpoint.interval.ms": 2000}
 # run (d) reads three partitions round-robin, a third of a dispatch from
 # each in turn: at the stock 65,536-event dispatch one slice spans ~655 s
 # of event time and the lagging partitions fall past the 60 s lateness
@@ -568,6 +611,15 @@ CASES = (
      "sliced_masked"),
     ("sliced sliding plane [1000, 2048], one full micro-batch", 8192,
      1000, 2048, "sliced"),
+    # the micro-batch mode's window fold: the stock window.size 5000 over
+    # map.partitions 3, one partition's window on a [C, 1] plane
+    ("micro-batch window fold [100, 1]: one partition's 1,666-row window "
+     "of the stock 5000 / 3, a third of the rows views", 1666, 100, 1,
+     "mbwindow"),
+    # the dimension fold's presence plane at the Apex generator's 1M
+    # campaigns (DimensionTupleGenerateOperator.java:16) in 2^20 keys
+    ("dimension step [2^20, 16]: 8192 rows, keys uniform over 1M "
+     "campaigns", 8192, 1 << 20, 16, "dims"),
 )
 # the phase 15 dataset: the stock topology (conf/benchmarkConf.yaml),
 # 500,000 events 10 ms apart, its own seed (run (d) crashes half way)
@@ -737,6 +789,19 @@ def _inputs(rng, B: int, C: int, W: int, kind: str):
         t0 = int(rng.integers(0, 10_000_000))
         slot = ((t0 + 10 * np.arange(n)) // 10_000 % W).astype(np.int32)
         return camp, slot, (rng.random(n) < 1 / 3) & (camp < C), offset
+    elif kind == "mbwindow":
+        # the gather-join's campaigns of generator rows (ads uniform, ten
+        # a campaign), all in slot 0; a third of the rows are views
+        camp = rng.integers(0, C, n, dtype=np.int32)
+        return camp, np.zeros(n, np.int32), rng.random(n) < 1 / 3, offset
+    elif kind == "dims":
+        # the synthetic source's keys, uniform over 1M campaigns interned
+        # in first-seen order into 2^20 keys, 10 us apart (one 10 s
+        # bucket of the ring), every row counted
+        camp = rng.integers(0, 1_000_000, n, dtype=np.int32)
+        t0 = int(rng.integers(0, 10_000_000))
+        slot = ((t0 + np.arange(n) // 100) // 10_000 % W).astype(np.int32)
+        return camp, slot, np.ones(n, bool), offset
     elif kind.startswith("sliced"):
         # generator rows 10 ms apart: 1 s buckets on the 2048-slot ring,
         # lateness class S - 1 but for a tenth of the rows; a third are
@@ -2536,19 +2601,20 @@ def _chaos_journal_runs(events: int, device: str) -> dict:
 
 
 def _chaos_config5(data: Config5Data, device: str,
-                   check: bool = True) -> dict:
+                   check: bool = True, keys: dict | None = None) -> dict:
     """Phase 14 (c): config #5's key space (phase 6's dataset) under a
     crash script with a checkpoint crash.  The store is not wrapped: the
     plan has no sink faults, so the native bulk writeback stays.
     ``check`` holds the store to ``check_at_least_once`` over the journal
     (51.4 s on the card, PR 11 call 11); the smoke's full run leaves it
     to this rehearsal on the CPU, and phase 17 holds config #5's rows to
-    phase 6's oracle-checked store on the card."""
+    phase 6's oracle-checked store on the card.  ``keys`` adds config
+    keys (the smoke's ``CHAOS_CONFIG5_KEYS``)."""
     from streambench_tpu_torch.chaos import FaultPlan, check_at_least_once
     from streambench_tpu_torch.checkpoint import Checkpointer
     from streambench_tpu_torch.engine import AdAnalyticsEngine, StreamRunner
 
-    cfg = data.config(CHAOS_SINK_RETRY)
+    cfg = data.config(dict(CHAOS_SINK_RETRY, **(keys or {})))
     r = data.store()
     ckpt_dir = os.path.join(data.workdir, "ckpt_chaos")
 
@@ -2678,14 +2744,17 @@ def _chaos_kafka(events: int, device: str) -> dict:
 
 def phase_chaos(config5: Config5Data, events: int = CHAOS_EVENTS,
                 kafka_events: int = CHAOS_KAFKA_EVENTS,
-                device: str = "cuda", check_config5: bool = True) -> dict:
+                device: str = "cuda", check_config5: bool = True,
+                config5_keys: dict | None = None) -> dict:
     """Phase 14: supervised chaos (see the module doc).  ``device`` and
     the sizes are arguments so the phase can be rehearsed on the CPU at a
     small size; the smoke runs it on ``cuda`` at full size, without (c)'s
-    at-least-once check (``check_config5``)."""
+    at-least-once check (``check_config5``) and with (c)'s checkpoints
+    spaced by ``config5_keys``."""
     t0 = time.perf_counter()
     out = _chaos_journal_runs(events, device)
-    out["config5"] = _chaos_config5(config5, device, check_config5)
+    out["config5"] = _chaos_config5(config5, device, check_config5,
+                                    config5_keys)
     out["kafka"] = _chaos_kafka(kafka_events, device)
     out["phase_s"] = time.perf_counter() - t0
     summary = []
@@ -7003,6 +7072,670 @@ def _hllx_reach_launches(p21: dict, kernel: str) -> dict:
                 p21["sharded_reach_cli"]["kernel_launches"][kernel]}
 
 
+# ----------------------------------------------------------------------
+# Phase 22: the fork's count-window micro-batch mode (M15a) with the
+# columnar handoff, and the dimensional-aggregation family (M15b).
+
+# (a): the stock conf/benchmarkConf.yaml (window.size 5000 over
+# map.partitions 3: 1,666 events a partition a window), 300 windows
+MB_EVENTS = 1_500_000
+MB_SEED = 71
+MB_CHECKPOINT_EVERY = 64
+MB_STOP_AT = 100                   # the interrupted run's max_windows
+MB_REDIS_WINDOWS = 30              # the Redis-barrier run's windows
+MB_CPU_WINDOWS = 100               # the CPU twins' windows
+MB_FOLD_CALLS = 50                 # eager fold calls timed
+# (c): the Apex synthetic generator's 1M campaigns
+# (DimensionTupleGenerateOperator.java:16) into a 2^20-key space
+DIMS_EVENTS = 2_000_000
+DIMS_CAMPAIGNS = 1_000_000
+DIMS_KEYS = 1 << 20
+DIMS_SLOTS = 16
+DIMS_BATCH = 8192
+DIMS_SEED = 5
+DIMS_CLI_EVENTS = 100_000
+# a view's ad and event time in the generator's wire format (the field
+# order of gen.EventSource: user_id, page_id, ad_id, ad_type, event_type,
+# event_time, ip_address)
+MB_RE = re.compile(rb'"ad_id": "([^"]*)", "ad_type": "[^"]*", '
+                   rb'"event_type": "view", "event_time": "(-?\d+)"')
+
+
+class _ThreadLocalResp:
+    """One RESP connection a thread to one server (each of the fork's
+    partitions holds its own): the ``RedisLike`` calls the window barrier
+    makes."""
+
+    def __init__(self, host: str, port: int):
+        self.host, self.port = host, port
+        self._local = threading.local()
+        self._all: list = []
+        self._lock = threading.Lock()
+
+    def _client(self):
+        c = getattr(self._local, "client", None)
+        if c is None:
+            from streambench_tpu_torch.io.resp import RespClient
+
+            c = self._local.client = RespClient(self.host, self.port)
+            with self._lock:
+                self._all.append(c)
+        return c
+
+    def execute(self, *args):
+        return self._client().execute(*args)
+
+    def pipeline_execute(self, commands):
+        return self._client().pipeline_execute(commands)
+
+    def hgetall(self, key: str) -> dict:
+        return self._client().hgetall(key)
+
+    def hget(self, key: str, field: str):
+        return self._client().hget(key, field)
+
+    def close(self) -> None:
+        for c in self._all:
+            c.close()
+
+
+class MicroBatchData:
+    """Phase 22's dataset: the generator's journal at the stock
+    configuration, generated on one partition (the native formatter's
+    fast path) and kept whole as the topic ``STREAM_TOPIC`` (10 ms apart:
+    (c)'s app folds it), then split round-robin over ``map.partitions``
+    partitions of the configured topic as ``gen.do_setup(partitions=3)``
+    writes it (event ``n`` to partition ``n % 3``); and its goldens by one
+    regex pass over each partition's bytes: the views a window per
+    campaign, and the views per (campaign, 10 s bucket)."""
+
+    STREAM_TOPIC = "dims-events"
+
+
+    def __init__(self, events: int = MB_EVENTS, seed: int = MB_SEED):
+        import numpy as np
+
+        self.workdir = _workdir("smoke_microbatch")
+        self.cfg = _config(self.workdir)
+        self.events = events
+        (self.broker, self.mapping, self.campaigns, _,
+         self.generate_s) = _generate(self.workdir, self.cfg, events, seed,
+                                      store=False)
+        t0 = time.perf_counter()
+        topic, P = self.cfg.kafka_topic, self.cfg.map_partitions
+        stream = self.broker.topic_path(self.STREAM_TOPIC, 0)
+        os.replace(self.broker.topic_path(topic, 0), stream)
+        with open(stream, "rb") as f:
+            lines = f.read().split(b"\n")[:-1]
+        for p in range(P):
+            with open(self.broker.topic_path(topic, p), "wb") as f:
+                f.write(b"\n".join(lines[p::P]) + b"\n")
+        del lines
+        self.psize = self.cfg.window_size // P
+        index = {c: i for i, c in enumerate(self.campaigns)}
+        ad_campaign = {a.encode(): index[c] for a, c in self.mapping.items()}
+        C = len(self.campaigns)
+        per_part, views = [], []
+        for p in range(P):
+            with open(self.broker.topic_path(topic, p), "rb") as f:
+                blob = f.read()
+            nl = np.flatnonzero(np.frombuffer(blob, np.uint8) == 10)
+            # byte bounds of the partition's whole windows, then its tail
+            bounds = [0] + (nl[self.psize - 1::self.psize] + 1).tolist()
+            counts = []
+            for k, lo in enumerate(bounds):
+                hi = bounds[k + 1] if k + 1 < len(bounds) else len(blob)
+                found = MB_RE.findall(blob, lo, hi)
+                camp = np.asarray([ad_campaign[a] for a, _ in found],
+                                  np.int64)
+                views.append(np.stack([camp, np.asarray(
+                    [int(t) for _, t in found], np.int64)], 1).reshape(-1, 2))
+                if k + 1 < len(bounds):
+                    counts.append(np.bincount(camp, minlength=C))
+            per_part.append(counts)
+        self.views = np.concatenate(views)
+        self.windows = min(len(counts) for counts in per_part)
+        golden = sum(np.asarray(counts[:self.windows], np.int64)
+                     for counts in per_part)
+        self.golden = np.asarray(golden, np.int64).reshape(self.windows, C)
+        self.golden_s = time.perf_counter() - t0
+
+    def bucket_views(self) -> dict:
+        """The views per (campaign name, 10 s bucket start)."""
+        import numpy as np
+
+        pairs, n = np.unique(
+            np.stack([self.views[:, 0], self.views[:, 1] // 10_000 * 10_000],
+                     1), axis=0, return_counts=True)
+        return {(self.campaigns[int(c)], int(b)): int(k)
+                for (c, b), k in zip(pairs, n)}
+
+    def remove(self) -> None:
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def _mb_run(data: MicroBatchData, device: str, **kw) -> dict:
+    """One ``run_microbatch`` over ``data``'s topic, its kernel launches
+    counted from 0 just before it."""
+    from streambench_tpu_torch.engine.microbatch import run_microbatch
+
+    _sync(device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    merged, results = run_microbatch(data.cfg, data.broker, data.mapping,
+                                     campaigns=data.campaigns, device=device,
+                                     **kw)
+    _sync(device)
+    return {"merged": merged, "results": results,
+            "secs": time.perf_counter() - t0, "launches": _launches()}
+
+
+def _merged_equal(tag: str, got: dict, want, what: str) -> None:
+    """``got`` (window -> [C]) equal to ``want``'s first windows."""
+    import numpy as np
+
+    if sorted(got) != list(range(len(got))) or len(got) > len(want):
+        raise AssertionError(f"[{tag}] windows {len(got)} against {what}'s "
+                             f"{len(want)}")
+    for k in range(len(got)):
+        if not np.array_equal(np.asarray(got[k], np.int64),
+                              np.asarray(want[k], np.int64)):
+            raise AssertionError(f"[{tag}] window {k} differs from {what}")
+
+
+def _mb_launch_check(tag: str, run: dict, want_k1: int,
+                     device: str) -> None:
+    """K1 ``want_k1`` times on the card (its plain version on the CPU
+    launches nothing), K2 and K3 never."""
+    got = run["launches"]
+    want_k1 = want_k1 if device == "cuda" else 0
+    if got != {"count_cells": want_k1, "decode_rows": 0, "cms_rows": 0}:
+        raise AssertionError(f"[{tag}] launches {got}, want K1 {want_k1} "
+                             f"and K2, K3 0")
+
+
+def _mb_fold_timing(data: MicroBatchData, device: str) -> dict:
+    """The exact window fold on window 0 of partition 0: its device time
+    (CUDA graph replays, the columns already on the card) and the time of
+    one eager fold as a mapper calls it (columns in, fold, counts back)."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.encode.native_encoder import make_encoder
+    from streambench_tpu_torch.engine.microbatch import (
+        _make_family,
+        window_campaign_counts,
+    )
+
+    cfg = data.cfg
+    enc = make_encoder(data.mapping, data.campaigns,
+                       divisor_ms=cfg.jax_time_divisor_ms,
+                       lateness_ms=cfg.jax_allowed_lateness_ms)
+    with data.broker.reader(cfg.kafka_topic, 0) as r:
+        batch = enc.encode(r.poll(max_records=data.psize), data.psize)
+    join = torch.from_numpy(np.asarray(enc.join_table, np.int32)).to(device)
+    fam = _make_family("exact", enc, join)
+    cols = [torch.from_numpy(a).to(device)
+            for a in (batch.ad_idx, batch.event_type, batch.valid)]
+    C = enc.num_campaigns
+    out = {"rows": int(batch.batch_size)}
+    if device == "cuda":
+        out["device_ms"] = _device_ms(
+            lambda: window_campaign_counts(join, *cols, num_campaigns=C))
+    else:
+        out["device_ms"] = "not measured"
+    fam.fold(batch)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(MB_FOLD_CALLS):
+        fam.fold(batch)
+    out["call_ms"] = (time.perf_counter() - t0) * 1e3 / MB_FOLD_CALLS
+    return out
+
+
+def _microbatch(data: MicroBatchData, device: str) -> dict:
+    """22 (a): the exact run with the in-process barrier (and the fork's
+    latency hash), the same on the CPU, HLL on both, the Redis barrier
+    over the RESP server, an interrupted checkpointed run and its
+    resume."""
+    import numpy as np
+
+    from streambench_tpu_torch.engine.microbatch import (
+        MicroBatchCheckpointer,
+        RedisWindowBarrier,
+    )
+    from streambench_tpu_torch.io.fakeredis import FakeRedisServer, make_store
+    from streambench_tpu_torch.io.redis_schema import (
+        as_redis,
+        read_latency_hash,
+    )
+
+    P, W = data.cfg.map_partitions, data.windows
+    out: dict = {"windows": W, "partitions": P, "rows_per_window": data.psize,
+                 "events": data.events, "generate_s": data.generate_s,
+                 "golden_s": data.golden_s}
+    # exact, the in-process barrier, the fork's latency hash
+    store = as_redis(make_store())
+    run = _mb_run(data, device, redis=store)
+    _merged_equal("microbatch", run["merged"], data.golden, "the golden")
+    if len(run["merged"]) != W:
+        raise AssertionError(f"[microbatch] {len(run['merged'])} windows "
+                             f"of {W}")
+    # one launch a window a partition, and the warm-up's one
+    _mb_launch_check("microbatch", run, W * P + 1, device)
+    res = run["results"]
+    if not all(r.windows == W and r.events == W * data.psize for r in res):
+        raise AssertionError(f"[microbatch] partitions "
+                             f"{[(r.windows, r.events) for r in res]}")
+    if any(r.stamps != res[0].stamps for r in res):
+        raise AssertionError("[microbatch] stamps differ across partitions")
+    running, per_idx = read_latency_hash(store, data.cfg.redis_hashtable)
+    if (set(per_idx) != set(range(1, P + 1)) or set(running) != set(per_idx)
+            or store.execute("HGET", data.cfg.redis_hashtable,
+                             "thread_idx") != str(P)
+            or not all(per_idx.values())):
+        raise AssertionError(f"[microbatch] latency hash: thread_idx, "
+                             f"{sorted(per_idx)}, {running}")
+    lat = [v for r in res for v in r.latency.values()]
+    out["exact"] = {
+        "secs": run["secs"], "windows_per_s": W / run["secs"],
+        "events_per_s": W * P * data.psize / run["secs"],
+        "window_latency": _percentiles(lat),
+        "kernel_launches": run["launches"],
+        "latency_hash": {"thread_idx": P,
+                         "stamps": {i: len(v) for i, v in per_idx.items()},
+                         "running_time_ms": running},
+        "total_views": int(data.golden.sum())}
+    exact = run["merged"]
+    # the same on the CPU, over the first MB_CPU_WINDOWS windows
+    n_cpu = min(MB_CPU_WINDOWS, W)
+    cpu = _mb_run(data, "cpu", max_windows=n_cpu)
+    _merged_equal("microbatch_cpu", cpu["merged"], exact, "the card's run")
+    out["cpu_equal"] = len(cpu["merged"]) == n_cpu
+    out["cpu_windows"], out["cpu_secs"] = n_cpu, cpu["secs"]
+    # HLL over the same windows, registers window by window against the
+    # CPU's
+    hll = _mb_run(data, device, engine="hll", max_windows=n_cpu)
+    hll_cpu = _mb_run(data, "cpu", engine="hll", max_windows=n_cpu)
+    _mb_launch_check("microbatch_hll", hll, 0, device)
+    for a, b in zip(hll["results"], hll_cpu["results"], strict=True):
+        if sorted(b.counts) != list(range(n_cpu)) or not all(
+                np.array_equal(a.counts[k], b.counts[k]) for k in b.counts):
+            raise AssertionError(f"[microbatch_hll] partition {a.partition}'s"
+                                 f" registers differ from the CPU's")
+    est_diff = max(int(np.abs(hll["merged"][k].astype(np.int64)
+                              - hll_cpu["merged"][k]).max())
+                   for k in hll_cpu["merged"])
+    if len(hll["merged"]) != n_cpu or est_diff > 1:
+        raise AssertionError(f"[microbatch_hll] {len(hll['merged'])} "
+                             f"windows, estimates differ by {est_diff}")
+    out["hll"] = {"windows": n_cpu, "secs": hll["secs"], "events_per_s":
+                  n_cpu * P * data.psize / hll["secs"],
+                  "registers_equal_cpu": True, "estimate_max_diff": est_diff,
+                  "kernel_launches": hll["launches"]}
+    # the Redis barrier over the RESP server
+    srv = FakeRedisServer().start()
+    client = _ThreadLocalResp(srv.host, srv.port)
+    try:
+        barrier = RedisWindowBarrier(client, "mb_barrier", P)
+        red = _mb_run(data, device, barrier=barrier,
+                      max_windows=MB_REDIS_WINDOWS)
+        fields = client.hgetall("mb_barrier")
+    finally:
+        client.close()
+        srv.stop()
+    _merged_equal("microbatch_redis", red["merged"], exact, "the exact run")
+    _mb_launch_check("microbatch_redis", red,
+                     len(red["merged"]) * P + 1, device)
+    if (len(red["merged"]) != min(MB_REDIS_WINDOWS, W)
+            or fields.get("partition_count") != "0"
+            or sum(k.startswith("start_time:") for k in fields)
+            != len(red["merged"])):
+        raise AssertionError(f"[microbatch_redis] {len(red['merged'])} "
+                             f"windows; barrier fields {sorted(fields)[:8]}")
+    out["redis"] = {"windows": len(red["merged"]), "secs": red["secs"],
+                    "windows_per_s": len(red["merged"]) / red["secs"],
+                    "kernel_launches": red["launches"]}
+    # a checkpointed run stopped at MB_STOP_AT, resumed to the end
+    ckdir = os.path.join(data.workdir, "ckpt_microbatch")
+    stop = min(MB_STOP_AT, W - 1)
+    first = _mb_run(data, device, checkpoint_dir=ckdir,
+                    checkpoint_every=MB_CHECKPOINT_EVERY, max_windows=stop)
+    k0 = MicroBatchCheckpointer(ckdir).load()[0]
+    resumed = _mb_run(data, device, checkpoint_dir=ckdir,
+                      checkpoint_every=MB_CHECKPOINT_EVERY)
+    _merged_equal("microbatch_resume", resumed["merged"], exact,
+                  "the exact run")
+    _mb_launch_check("microbatch_resume", resumed, (W - k0) * P + 1,
+                     device)
+    if len(resumed["merged"]) != W or not k0:
+        raise AssertionError(f"[microbatch_resume] {len(resumed['merged'])}"
+                             f" windows from window {k0}")
+    out["resume"] = {"stopped_at": stop, "resumed_from": k0,
+                     "chunks": len(os.listdir(ckdir)),
+                     "secs": first["secs"] + resumed["secs"],
+                     "kernel_launches": resumed["launches"]}
+    out["fold"] = _mb_fold_timing(data, device)
+    return out
+
+
+def _handoff(device: str) -> dict:
+    """22 (b): the handoff CLI's entry at the reference's defaults (20
+    windows of 5,000 events, the first dropped), in this process."""
+    import contextlib
+    import io
+
+    from streambench_tpu_torch import handoff
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = handoff._main(["--inprocessRedis", "--device", device])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or line["windows"] != 19 or line["batch_size"] != 5000:
+        raise AssertionError(f"[handoff] rc {rc}: {line}")
+    line["secs"] = time.perf_counter() - t0
+    return line
+
+
+class _Timed:
+    """Host seconds and calls of methods, by name, while installed."""
+
+    def __init__(self, targets: dict):
+        self.targets = targets           # name -> (owner, attribute)
+        self.secs = {n: 0.0 for n in targets}
+        self.calls = {n: 0 for n in targets}
+        self._saved: dict = {}
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self._saved[name] = fn
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.secs[_name] += time.perf_counter() - t0
+                    self.calls[_name] += 1
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._saved[name])
+
+
+def _synthetic_oracle(n: int, batch: int, seed: int):
+    """``run_synthetic``'s rows by numpy, from the same seeded draws:
+    ``(codes, events)``, sorted, a row's code ``campaign number * WIDS +
+    window id`` (clicks are 1 each)."""
+    import numpy as np
+
+    from streambench_tpu_torch.dimensions.synthetic import (
+        SyntheticDimensionSource,
+    )
+
+    src = SyntheticDimensionSource(num_campaigns=DIMS_CAMPAIGNS,
+                                   rng=random.Random(seed))
+    draw = src.rng.randrange
+    keys = np.fromiter((draw(DIMS_CAMPAIGNS) for _ in range(n)), np.int64, n)
+    times, t = [], 0
+    for off in range(0, n, batch):
+        m = min(batch, n - off)
+        ts = t + np.arange(m, dtype=np.int64) * src._step_us // 1000
+        t = int(ts[-1]) + 1
+        times.append(ts)
+    wid = np.concatenate(times) // 10_000
+    return np.unique(keys * _WIDS + wid, return_counts=True)
+
+
+#: window ids a synthetic run spans at most (2^20 s of 10 s buckets)
+_WIDS = 1 << 17
+
+
+def _synthetic_rows(rows):
+    """``run_synthetic``'s named rows as the oracle's ``(codes,
+    events)``, sorted."""
+    import numpy as np
+
+    prefix, m = len("campaign-"), len(rows)
+    codes = (np.fromiter((int(r[0][prefix:]) for r in rows), np.int64, m)
+             * _WIDS + np.fromiter((r[1] for r in rows), np.int64, m))
+    events = np.fromiter((r[2]["clicks:SUM"] for r in rows), np.int64, m)
+    order = np.argsort(codes, kind="stable")
+    return codes[order], events[order]
+
+
+def _dims_synthetic(device: str, events: int) -> dict:
+    """22 (c): ``run_synthetic`` at the Apex generator's 1M campaigns into
+    2^20 keys, held to the numpy oracle; K1 once a step (the presence
+    plane; the synthetic schema is clicks:SUM); the interner's and the row
+    build's (``flush_closed``) share of the run."""
+    import numpy as np
+    import torch
+
+    from streambench_tpu_torch.dimensions import compute
+    from streambench_tpu_torch.dimensions.schema import parse_schema
+    from streambench_tpu_torch.dimensions.synthetic import (
+        SYNTH_SCHEMA,
+        run_synthetic,
+    )
+
+    _sync(device)
+    _reset_peak(device)
+    _reset_launches()
+    timed = _Timed({"intern": (compute.KeyInterner, "intern_many"),
+                    "step": (compute.DimensionsComputation, "step"),
+                    "flush": (compute.DimensionsComputation,
+                              "flush_closed")})
+    t0 = time.perf_counter()
+    with timed:
+        rows, interner, dropped = run_synthetic(
+            n_events=events, batch=DIMS_BATCH, num_campaigns=DIMS_CAMPAIGNS,
+            key_capacity=DIMS_KEYS, window_slots=DIMS_SLOTS,
+            rng=random.Random(DIMS_SEED), device=device)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    peak = _peak(device)
+    t1 = time.perf_counter()
+    want = _synthetic_oracle(events, DIMS_BATCH, DIMS_SEED)
+    got = _synthetic_rows(rows)
+    oracle_s = time.perf_counter() - t1
+    steps = timed.calls["step"]
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    if not equal or dropped:
+        raise AssertionError(f"[dims] rows {len(rows)} against the "
+                             f"oracle's {len(want)}, equal {equal}, "
+                             f"dropped {dropped}")
+    _mb_launch_check("dims", {"launches": launches}, steps, device)
+    out = {"events": events, "steps": steps, "rows": len(rows),
+           "keys_interned": len(interner.index), "dropped": dropped,
+           "secs": secs, "events_per_s": events / secs,
+           "intern_share": timed.secs["intern"] / secs,
+           "step_host_share": timed.secs["step"] / secs,
+           "row_build_share": timed.secs["flush"] / secs,
+           "peak_allocated_bytes": peak, "kernel_launches": launches,
+           "oracle_s": oracle_s}
+    # the fold's device time a step, on a scratch state
+    if device == "cuda":
+        dc = compute.DimensionsComputation(
+            parse_schema(SYNTH_SCHEMA), num_keys=DIMS_KEYS,
+            window_slots=DIMS_SLOTS, lateness_ms=0, device=device)
+        st = dc.init_state()
+        g = torch.Generator().manual_seed(DIMS_SEED)
+        key = torch.randint(0, DIMS_CAMPAIGNS, (DIMS_BATCH,),
+                            generator=g, dtype=torch.int32).to(device)
+        tt = (torch.arange(DIMS_BATCH, dtype=torch.int32) // 100).to(device)
+        ok = torch.ones(DIMS_BATCH, dtype=torch.bool, device=device)
+        ones = torch.ones(DIMS_BATCH, dtype=torch.int32, device=device)
+        out["fold_device_ms"] = _device_ms(lambda: compute._fold(
+            st, key, tt, ok, [ones], kinds=dc.kinds, divisor_ms=10_000,
+            lateness_ms=0), reps=20)
+        del st
+    else:
+        out["fold_device_ms"] = "not measured"
+    return out
+
+
+def _dims_app(data: MicroBatchData, device: str) -> dict:
+    """22 (c): ``DimensionApp`` (the default schema: clicks:SUM,
+    latency:MAX) over (a)'s journal, whole and in order (its 8192-event
+    batches span 81.9 s of event time, inside the 16-bucket ring): every
+    (campaign, 10 s bucket) stored with ``clicks:SUM`` the journal's views
+    and ``latency:MAX`` >= 0, none dropped, K1 once a step."""
+    from streambench_tpu_torch.dimensions import compute
+    from streambench_tpu_torch.dimensions.app import DimensionApp
+    from streambench_tpu_torch.dimensions.store import DurableDimensionStore
+
+    store_dir = os.path.join(data.workdir, "dims_store")
+    _sync(device)
+    _reset_launches()
+    timed = _Timed({"step": (compute.DimensionsComputation, "step")})
+    t0 = time.perf_counter()
+    with timed:
+        app = DimensionApp(None, data.mapping, store_dir,
+                           campaigns=data.campaigns, device=device)
+        with data.broker.reader(data.STREAM_TOPIC, 0) as reader:
+            while True:
+                # a batch a poll, flushed after each, as the dimensions
+                # CLI's broker mode runs it: the ring holds 16 buckets,
+                # and only a flush frees the closed ones
+                lines = reader.poll(max_records=8192)
+                if not lines:
+                    break
+                app.process_lines(lines)
+                app.flush()
+        app.close()
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    stored = DurableDimensionStore(store_dir)
+    got = {key: aggs["clicks:SUM"] for key, aggs in stored.items()}
+    want = data.bucket_views()
+    lat_ok = all(aggs["latency:MAX"] >= 0 for _, aggs in stored.items())
+    steps = timed.calls["step"]
+    if got != want or app.dropped or app.invalid_tuples or not lat_ok:
+        raise AssertionError(f"[dims_app] {len(got)} rows against the "
+                             f"journal's {len(want)} (equal {got == want}), "
+                             f"dropped {app.dropped}, invalid "
+                             f"{app.invalid_tuples}, latency >= 0 {lat_ok}")
+    _mb_launch_check("dims_app", {"launches": launches}, steps, device)
+    return {"events": app.events, "steps": steps, "rows": len(got),
+            "secs": secs, "events_per_s": app.events / secs,
+            "kernel_launches": launches}
+
+
+def _cli(argv: list, out_path: str) -> dict:
+    with open(out_path, "w") as fo:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *argv], env=dict(os.environ,
+                                                    PYTHONPATH=REPO),
+            cwd=REPO, stdout=fo, stderr=subprocess.STDOUT)
+    return {"proc": proc, "out": out_path, "t0": time.perf_counter()}
+
+
+def _cli_finish(tag: str, run: dict) -> dict:
+    proc = run["proc"]
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = open(run["out"]).read().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"[{tag}] exited {rc}: {lines[-20:]}")
+    stats = json.loads(lines[-1])
+    stats["wall_s"] = time.perf_counter() - run["t0"]
+    return stats
+
+
+def phase_microbatch_dims(device: str = "cuda", mb_events: int = MB_EVENTS,
+                          dims_events: int = DIMS_EVENTS) -> dict:
+    """Phase 22 (module doc): (a) the micro-batch mode, (b) the handoff,
+    then the two CLIs, each its own process, started side by side and
+    running while (c) the dimensional family runs in this process.
+    ``device`` and the sizes are arguments so the phase can be rehearsed
+    on the CPU at a small size."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    data = MicroBatchData(mb_events)
+    clis: list = []
+    try:
+        out["microbatch"] = _microbatch(data, device)
+        out["handoff"] = _handoff(device)
+        clis.append(_cli(["streambench_tpu_torch.engine", "--confPath",
+                          os.path.join(data.workdir, "benchmarkConf.yaml"),
+                          "--workdir", data.workdir, "--microbatch",
+                          "--device", device],
+                         os.path.join(data.workdir, "microbatch_cli.out")))
+        clis.append(_cli(["streambench_tpu_torch.dimensions", "--generate",
+                          str(DIMS_CLI_EVENTS), "--storeDir",
+                          os.path.join(data.workdir, "dims_cli_store"),
+                          "--device", device],
+                         os.path.join(data.workdir, "dims_cli.out")))
+        out["dims"] = _dims_synthetic(device, dims_events)
+        out["dims_app"] = _dims_app(data, device)
+        mb_stats = _cli_finish("microbatch_cli", clis.pop(0))
+        dims_stats = _cli_finish("dims_cli", clis.pop(0))
+    finally:
+        for run in clis:                   # stop what a failure left
+            run["proc"].kill()
+            run["proc"].wait()
+        data.remove()
+    want_views = out["microbatch"]["exact"]["total_views"]
+    if (mb_stats["total_views"] != want_views
+            or mb_stats["windows"] != data.windows
+            or mb_stats["partitions"] != data.cfg.map_partitions):
+        raise AssertionError(f"[microbatch_cli] {mb_stats}, want "
+                             f"{want_views} views")
+    if (dims_stats["events"] != DIMS_CLI_EVENTS or dims_stats["invalid"]
+            or dims_stats["dropped"] or not dims_stats["stored_rows"]):
+        raise AssertionError(f"[dims_cli] {dims_stats}")
+    out["microbatch_cli"], out["dims_cli"] = mb_stats, dims_stats
+    out["phase_s"] = time.perf_counter() - t0
+    a, b, c = out["microbatch"], out["handoff"], out["dims"]
+    e = a["exact"]
+    print(f"[microbatch_dims] (a) {a['windows']} windows x "
+          f"{a['partitions']} x {a['rows_per_window']} rows: "
+          f"{e['windows_per_s']:.1f} windows/s, {e['events_per_s']:.0f} "
+          f"ev/s, window latency p50/p99 {e['window_latency']['p50_ms']}/"
+          f"{e['window_latency']['p99_ms']} ms, fold "
+          f"{a['fold']['device_ms']} device ms, {a['fold']['call_ms']:.4f} "
+          f"ms a call; K1 {e['kernel_launches']['count_cells']}; equal the "
+          f"golden and the CPU; HLL registers equal the CPU's; Redis "
+          f"barrier {a['redis']['windows']} windows equal; resume from "
+          f"window {a['resume']['resumed_from']} equal; CLI "
+          f"{mb_stats['total_views']} views.  (b) r2c p50/max "
+          f"{b['r2c_ms_p50']}/{b['r2c_ms_max']} ms, c2r "
+          f"{b['c2r_ms_p50']}/{b['c2r_ms_max']} ms.  (c) "
+          f"{c['events_per_s']:.0f} ev/s, {c['rows']} rows equal the "
+          f"oracle, fold {c['fold_device_ms']} device ms a step, peak "
+          f"{c['peak_allocated_bytes']} B, interner "
+          f"{c['intern_share']:.3f} and row build "
+          f"{c['row_build_share']:.3f} of the run; app "
+          f"{out['dims_app']['events_per_s']:.0f} ev/s, "
+          f"{out['dims_app']['rows']} rows equal; CLI "
+          f"{dims_stats['stored_rows']} rows; {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def _microbatch_dims_launches(p22: dict, kernel: str) -> dict:
+    """A kernel's launches on phase 22's in-process paths."""
+    a = p22["microbatch"]
+    return {"microbatch_exact": a["exact"]["kernel_launches"][kernel],
+            "microbatch_hll": a["hll"]["kernel_launches"][kernel],
+            "microbatch_redis": a["redis"]["kernel_launches"][kernel],
+            "microbatch_resume": a["resume"]["kernel_launches"][kernel],
+            "dims_synthetic": p22["dims"]["kernel_launches"][kernel],
+            "dims_app": p22["dims_app"]["kernel_launches"][kernel]}
+
+
 def _sketch_phases(lap, keep_sketch: bool = False) -> tuple:
     """Phases 15, 16 and 18: the sketch engines, then their sharded forms
     over the same journals.  Returns ((phase 15, phase 16), phase 18,
@@ -7064,6 +7797,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--only-hllx-reach", action="store_true",
                     help="a diagnostic: phases 1-3, 15, 19 and 21 alone (no "
                     "result line)")
+    ap.add_argument("--only-microbatch-dims", action="store_true",
+                    help="a diagnostic: phases 1-3 and 22 alone (no result "
+                    "line)")
     args = ap.parse_args(argv)
     lap = Laps()
 
@@ -7173,6 +7909,19 @@ def main(argv: list[str] | None = None) -> int:
                           indent=1)
         print(smi, flush=True)
         return 0
+    if args.only_microbatch_dims:
+        lap("1-3 device, build, K1 cases")
+        mb_dims = phase_microbatch_dims()
+        lap("22 micro-batch, handoff, dimensions")
+        laps = lap.as_dict()
+        print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "microbatch_dims": mb_dims,
+                           "phase_seconds": laps, "nvidia_smi": smi}, f,
+                          indent=1, default=str)
+        print(smi, flush=True)
+        return 0
     if args.only_sketches:
         sketch = phase_sketches()
         if args.out:
@@ -7206,7 +7955,8 @@ def main(argv: list[str] | None = None) -> int:
     lap("13 paced decode")
     try:
         # the cut that pays for phase 18: (c)'s at-least-once check
-        chaos = phase_chaos(config5, check_config5=False)
+        chaos = phase_chaos(config5, check_config5=False,
+                            config5_keys=CHAOS_CONFIG5_KEYS)
         lap("14 chaos")
         sharded = phase_sharded(config5, large_rows, large)
         lap("17 config #5 sharded")
@@ -7230,6 +7980,8 @@ def main(argv: list[str] | None = None) -> int:
     lap("20 fleet")
     hllx_reach = phase_hllx_reach(sk_keep, reach_keep)
     lap("21 hllx, sharded reach")
+    mb_dims = phase_microbatch_dims()
+    lap("22 micro-batch, handoff, dimensions")
     print(f"[paced_decode] window latency p50/p99 "
           f"{paced_decode['window_latency']['p50_ms']}/"
           f"{paced_decode['window_latency']['p99_ms']} ms with device "
@@ -7304,7 +8056,8 @@ def main(argv: list[str] | None = None) -> int:
                for k in SHARDED_SKETCH_RUNS},
             **_reach_launches(reach, "count_cells"),
             **_fleet_launches(fleet, "count_cells"),
-            **_hllx_reach_launches(hllx_reach, "count_cells")},
+            **_hllx_reach_launches(hllx_reach, "count_cells"),
+            **_microbatch_dims_launches(mb_dims, "count_cells")},
         "shape": main_case["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cases),
         "max_abs_diff": max(c["max_abs_diff"] for c in cases),
@@ -7335,7 +8088,8 @@ def main(argv: list[str] | None = None) -> int:
                 chaos["decode"]["decode_rows_launches"],
             **_reach_launches(reach, "decode_rows"),
             **_fleet_launches(fleet, "decode_rows"),
-            **_hllx_reach_launches(hllx_reach, "decode_rows")},
+            **_hllx_reach_launches(hllx_reach, "decode_rows"),
+            **_microbatch_dims_launches(mb_dims, "decode_rows")},
         "shape": main_decode["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in decode_cases),
         "ms": main_decode["kernel_ms"],
@@ -7365,7 +8119,8 @@ def main(argv: list[str] | None = None) -> int:
                for k in ("fixed", "salsa")},
             **_reach_launches(reach, "cms_rows"),
             **_fleet_launches(fleet, "cms_rows"),
-            **_hllx_reach_launches(hllx_reach, "cms_rows")},
+            **_hllx_reach_launches(hllx_reach, "cms_rows"),
+            **_microbatch_dims_launches(mb_dims, "cms_rows")},
         "shape": main_cms["shape"],
         "max_abs_err": max(c["max_abs_diff"] for c in cms_cases),
         "ms": update["kernel_ms"],
@@ -7429,6 +8184,7 @@ def main(argv: list[str] | None = None) -> int:
                        "reach": reach,
                        "fleet": fleet,
                        "hllx_reach": hllx_reach,
+                       "microbatch_dims": mb_dims,
                        "nvidia_smi": smi,
                        "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

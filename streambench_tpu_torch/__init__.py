@@ -16,5 +16,8 @@ Ported so far: the exact-count engine (``engine.AdAnalyticsEngine``,
 ``engine.StreamRunner``, ``python -m streambench_tpu_torch.engine``) with
 its staged ingest pipeline, encode pool, Kafka source and dead-letter
 queue, the generator CLI (``python -m streambench_tpu_torch.datagen``) and
-the harness (``python -m streambench_tpu_torch.harness``).
+the harness (``python -m streambench_tpu_torch.harness``); the sketch,
+reach and sharded engines; the fork's count-window micro-batch mode
+(``engine.microbatch``), the handoff benchmark (``handoff``) and the
+dimensional family (``dimensions``).  ``ROADMAP.md`` lists what is left.
 """

@@ -63,15 +63,24 @@ records always carry the writer's origin and freshness stamps.
     python -m streambench_tpu_torch.engine --confPath conf/benchmarkConf.yaml \
         --workdir RUN_DIR --catchup \
         [--engine exact|hll|sliding|session|reach|hllx] \
-        [--device cuda|cpu] [--checkpointDir D] [--sharded]
+        [--device cuda|cpu] [--checkpointDir D] [--sharded | --microbatch]
 
 ``jax.obs.shard`` with ``--sharded`` adds the per-shard skew
 (``shard_skew`` in the stats line and the sampler's records) of the
 exact and HLL engines.
 
+``--microbatch`` runs the fork's count-based window mode instead
+(``engine.microbatch``: ``map.partitions`` mapper threads, each folding
+``window.size / map.partitions`` events a window through the count
+kernel, aligned at a window barrier; ``--engine hll`` folds HLL
+registers; ``--checkpointDir`` takes incremental window snapshots), dumps
+the fork's latency hash and prints the reference's stats line
+(``engine``, ``windows``, ``events``, ``partitions``, ``total_views``,
+``p50_latency_ms``).
+
 Options and config keys that need parts of the JAX engine not ported yet
-(``--sharded`` with more than one process, the fork's micro-batch mode
-and tenants) are refused with exit 2.
+(``--sharded`` with more than one process, and tenants) are refused with
+exit 2.
 """
 
 from __future__ import annotations
@@ -89,6 +98,7 @@ from streambench_tpu_torch.config import ConfigError, find_and_read_config_file
 from streambench_tpu_torch.datagen import gen
 from streambench_tpu_torch.dimensions.pubsub import PubSubServer
 from streambench_tpu_torch.dimensions.store import DurableDimensionStore
+from streambench_tpu_torch.engine.microbatch import run_microbatch
 from streambench_tpu_torch.engine.pipeline import AdAnalyticsEngine
 from streambench_tpu_torch.engine.runner import StreamRunner
 from streambench_tpu_torch.engine.sketches import (
@@ -177,10 +187,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the engine sharded over the mesh of "
                         "jax.mesh.shape (exact, hll, sliding, session or "
                         "reach; one process: NCCL on cuda, gloo on cpu)")
-    # flags of the JAX CLI whose machinery is not ported yet: accepted
-    # only to refuse them with a clear message
     p.add_argument("--microbatch", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="run the fork's count-based barrier-aligned window "
+                        "mode (window.size / map.partitions) over the "
+                        "broker topic, then exit (exact or hll)")
+    # a flag of the JAX CLI whose machinery is not ported yet: accepted
+    # only to refuse it with a clear message
     p.add_argument("--tenants", default=None, help=argparse.SUPPRESS)
     return p
 
@@ -205,12 +217,11 @@ def unsupported(args, cfg) -> list[str]:
     observability layer without tenants (the reach query and fleet keys
     included), reach serving with its cache and replica shipping, and the
     exact, HLL, sliding, session and reach engines sharded in one process
-    (``--sharded``)."""
+    (``--sharded``), and the fork's micro-batch mode (``--microbatch``)."""
     out = []
     ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
     for flag, on in ((f"--sharded over {ranks} processes",
                       args.sharded and ranks > 1),
-                     ("--microbatch", args.microbatch),
                      ("--tenants", args.tenants)):
         if on:
             out.append(flag)
@@ -321,6 +332,45 @@ def load_mapping(cfg, workdir: str) -> tuple[dict[str, str], list[str] | None]:
     return mapping, campaigns
 
 
+def _redis(cfg):
+    """The store the config names: the in-process one for
+    ``:inprocess:``, else a RESP client."""
+    if cfg.redis_host == ":inprocess:":
+        return as_redis(make_store())
+    return RespClient(cfg.redis_host, cfg.redis_port)
+
+
+def _run_microbatch(args, cfg) -> int:
+    """``--microbatch``: the fork's count windows over the broker topic
+    (``engine.microbatch.run_microbatch``, ``map.partitions`` mapper
+    threads folding on ``--device``), the fork's latency hash in the
+    store, and the reference's stats line."""
+    if args.engine in ("sliding", "session", "reach", "hllx"):
+        raise SystemExit(
+            f"--microbatch has no count-window form of --engine "
+            f"{args.engine} (sliding needs a time axis, session a gap "
+            f"axis, reach/hllx are cumulative); supported: exact, hll")
+    mapping, campaigns = load_mapping(cfg, args.workdir)
+    broker = make_broker(cfg.kafka_bootstrap_servers,
+                         args.brokerDir
+                         or os.path.join(args.workdir, "broker"),
+                         fake=cfg.kafka_fake)
+    merged, results = run_microbatch(
+        cfg, broker, mapping, campaigns=campaigns, redis=_redis(cfg),
+        engine=args.engine, checkpoint_dir=args.checkpointDir,
+        device=args.device)
+    lats = sorted(lat for r in results for lat in r.latency.values())
+    print(json.dumps({
+        "engine": args.engine,
+        "windows": len(merged),
+        "events": sum(r.events for r in results),
+        "partitions": len(results),
+        "total_views": int(sum(int(c.sum()) for c in merged.values())),
+        "p50_latency_ms": lats[len(lats) // 2] if lats else None,
+    }), flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
@@ -335,10 +385,13 @@ def main(argv: list[str] | None = None) -> int:
               "checkpoints, the exactly-once sink, the ingest pipeline, the "
               "encode pool, the dead-letter queue, the Kafka source, the "
               "observability layer, reach serving with its query and "
-              "fleet observability, and the exact, hll, sliding, session "
-              "and reach engines sharded in one process): "
+              "fleet observability, the exact, hll, sliding, session "
+              "and reach engines sharded in one process, and the "
+              "micro-batch mode): "
               + ", ".join(missing), file=sys.stderr)
         return 2
+    if args.microbatch:
+        return _run_microbatch(args, cfg)
     if args.sharded and args.engine not in SHARDED_ENGINES:
         # the reference's own refusal: hllx has no sharded form
         print(f"error: --sharded supports exact/hll/sliding/session/reach, "
@@ -346,10 +399,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
 
     mapping, campaigns = load_mapping(cfg, args.workdir)
-    if cfg.redis_host == ":inprocess:":
-        redis = as_redis(make_store())
-    else:
-        redis = RespClient(cfg.redis_host, cfg.redis_port)
+    redis = _redis(cfg)
     engine_cls = ENGINES[args.engine]
     mesh = None
     if args.sharded:

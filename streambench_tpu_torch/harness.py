@@ -25,10 +25,16 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``--engine``; the session, reach and hllx engines write no window rows,
 so ``TORCH_TEST``'s evidence for them is the engine's stats line),
 ``SHARDED=1`` (the engine sharded over the mesh, ``--sharded``: the
-exact, hll, sliding, session and reach engines).  The reference
-harness's ``MICROBATCH``, ``TENANTS`` and ``ADMISSION`` knobs need the
-micro-batch and multi-tenant hosts, which are not ported yet: SETUP
-refuses each by name rather than run a different job.
+exact, hll, sliding, session and reach engines).  ``MICROBATCH=1`` makes
+``TORCH_TEST`` the micro-batch composite ``TORCH_MICROBATCH_TEST`` (the
+JAX harness's ``JAX_MICROBATCH_TEST``): a paced load journaled for
+``TEST_TIME``, then ``TORCH_MICROBATCH``, the engine's ``--microbatch``
+catchup over it (``ENGINE`` exact or hll, ``CHECKPOINT_DIR`` its window
+snapshots), whose stats line in ``logs/microbatch.log`` is the evidence;
+SETUP writes ``map.partitions`` = ``PARTITIONS`` (one mapper a broker
+partition).  The reference harness's ``TENANTS`` and ``ADMISSION`` knobs
+need the multi-tenant host, which is not ported yet: SETUP refuses each
+by name rather than run a different job.
 ``VERIFY=1``
 makes ``TORCH_TEST`` hold every window in Redis against the generator's
 oracle over the journal the load wrote (``VERIFY``, before the services
@@ -99,8 +105,9 @@ DEVICE = os.environ.get("DEVICE", "cuda")
 # (the hyper-extended HLL ladder)
 ENGINE = os.environ.get("ENGINE", "exact")
 SHARDED = _flag("SHARDED")
-# the reference harness's micro-batch and multi-tenant knobs: read only
-# to refuse them (SETUP)
+# MICROBATCH=1 routes TORCH_TEST to the micro-batch composite; the
+# reference harness's multi-tenant knobs are read only to refuse them
+# (SETUP)
 MICROBATCH = _flag("MICROBATCH")
 TENANTS = os.environ.get("TENANTS", "")
 ADMISSION = _flag("ADMISSION")
@@ -265,12 +272,11 @@ def op_setup() -> None:
     from streambench_tpu_torch import native
     from streambench_tpu_torch.config import write_local_conf
 
-    unported = [k for k, on in (("MICROBATCH", MICROBATCH),
-                                ("TENANTS", bool(TENANTS)),
+    unported = [k for k, on in (("TENANTS", bool(TENANTS)),
                                 ("ADMISSION", ADMISSION)) if on]
     if unported:
-        # the micro-batch and multi-tenant hosts are not ported yet; the
-        # refusal names the obs knobs asked for with them
+        # the multi-tenant host is not ported yet; the refusal names the
+        # obs knobs asked for with it
         knobs = [k for k, on in (("OBS_SHARD", OBS_SHARD),
                                  ("OBS_QUERY", OBS_QUERY),
                                  ("OBS_FLEET", OBS_FLEET)) if on]
@@ -278,6 +284,13 @@ def op_setup() -> None:
                          + ", ".join(unported)
                          + (f" (asked for with {', '.join(knobs)})"
                             if knobs else ""))
+    if MICROBATCH and (ENGINE not in ("exact", "hll") or SHARDED):
+        # the fork's count windows fold exact counts or HLL registers on
+        # one device (the engine CLI's --microbatch refuses the rest)
+        raise SystemExit(
+            f"MICROBATCH=1 has no count-window form of ENGINE={ENGINE}"
+            + (" with SHARDED=1" if SHARDED else "")
+            + "; supported: ENGINE=exact or hll, unsharded")
     if VERIFY and ENGINE != "exact":
         # gen.dostats counts exact views per tumbling window: it has no
         # answer for distinct-user estimates, sliding windows or sessions
@@ -302,6 +315,9 @@ def op_setup() -> None:
         "redis.port": REDIS_PORT,
         "kafka.topic": TOPIC,
         "kafka.partitions": PARTITIONS,
+        # micro-batch mode consumes one broker partition per mapper, so
+        # the generated partition count IS the map parallelism
+        "map.partitions": PARTITIONS,
         "process.hosts": 1,
         "process.cores": 4,
         "jax.scan.batches": SCAN_BATCHES,
@@ -567,7 +583,12 @@ def op_verify() -> None:
 
 
 def op_torch_test() -> None:
-    """Composite run, same sequence as FLINK_TEST (stream-bench.sh:301-315)."""
+    """Composite run, same sequence as FLINK_TEST (stream-bench.sh:301-315).
+    ``MICROBATCH=1`` routes to the micro-batch composite, so
+    ``ENGINE=hll MICROBATCH=1 CHECKPOINT_DIR=... TORCH_TEST`` composes."""
+    if MICROBATCH:
+        op_torch_microbatch_test()
+        return
     op_setup()
     # a composite test must never adopt an engine left over from a
     # previous (possibly crashed or hung) run via its pidfile
@@ -603,7 +624,7 @@ def op_torch_test() -> None:
     # reach and hllx engines write no window rows: their evidence is the
     # final stats line of this run's engine, as in the reference harness
     if ENGINE in ("session", "reach", "hllx"):
-        evidence, what = _engine_stats_line(), "events"
+        evidence, what = _stats_line("engine", _ENGINE_LOG_START), "events"
         ok = evidence != "" and '"events": 0' not in evidence
     else:
         what = "window rows"
@@ -621,13 +642,56 @@ def op_torch_test() -> None:
     log(f"TORCH_TEST evidence: {evidence}")
 
 
-def _engine_stats_line() -> str:
-    """The last stats line (the JSON with ``"events"``) this run's engine
-    wrote to ``logs/engine.log``, or ""."""
+def op_torch_microbatch() -> None:
+    """Run the fork's count-based barrier-aligned micro-batch mode as a
+    foreground catchup over the journaled topic (the fork replays its
+    events file the same way, ``AdvertisingTopologyNative.java:97-99``),
+    dumping the fork-format latency hash to Redis."""
+    args = ["--confPath", CONF_FILE, "--workdir", WORKDIR,
+            "--brokerDir", BROKER_DIR, "--microbatch", "--device", DEVICE]
+    if ENGINE != "exact":
+        args += ["--engine", ENGINE]
+    if CHECKPOINT_DIR:
+        args += ["--checkpointDir", CHECKPOINT_DIR]
+    logpath = os.path.join(LOG_DIR, "microbatch.log")
+    log_start = os.path.getsize(logpath) if os.path.exists(logpath) else 0
+    rc = _run_tool(_py("streambench_tpu_torch.engine", *args), "microbatch")
+    if rc != 0:
+        raise SystemExit(f"microbatch run failed (rc={rc})")
+    # the zero-measurement guard: a run that folded no events (empty
+    # journal, silent load failure) must not pass quietly; only THIS
+    # invocation's log bytes count
+    evidence = _stats_line("microbatch", log_start)
+    if not evidence or '"events": 0,' in evidence:
+        raise SystemExit(
+            "microbatch run measured no events — nothing was folded "
+            "(empty journal? see logs/microbatch.log)")
+    log(f"microbatch evidence: {evidence}")
+
+
+def op_torch_microbatch_test() -> None:
+    """Composite micro-batch run: journal a paced load, then fold it in
+    barrier-aligned count windows (the fork's research flow)."""
+    op_setup()
+    op_start_redis()
+    op_start_load()
+    log(f"sleeping {TEST_TIME:.0f}s")
+    time.sleep(TEST_TIME)
+    stop_if_needed("load")
+    try:
+        op_torch_microbatch()
+    finally:
+        op_stop_redis()
+
+
+def _stats_line(name: str, start: int) -> str:
+    """The last stats line (the JSON with ``"events"``) written to
+    ``logs/<name>.log`` from byte ``start`` on (this run's lines), or
+    ""."""
     line = ""
     try:
-        with open(os.path.join(LOG_DIR, "engine.log")) as f:
-            f.seek(_ENGINE_LOG_START)        # only THIS run's lines
+        with open(os.path.join(LOG_DIR, f"{name}.log")) as f:
+            f.seek(start)
             for ln in f:
                 if '"events"' in ln:
                     line = ln.strip()
@@ -653,6 +717,8 @@ OPS: dict[str, object] = {
     "STOP_TORCH_PROCESSING": op_stop_torch_processing,
     "VERIFY": op_verify,
     "TORCH_TEST": op_torch_test,
+    "TORCH_MICROBATCH": op_torch_microbatch,
+    "TORCH_MICROBATCH_TEST": op_torch_microbatch_test,
     "STOP_ALL": op_stop_all,
 }
 

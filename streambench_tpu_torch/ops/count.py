@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -34,6 +35,9 @@ THREADS = {"direct": 256, "private": 1024, "global": 256}
 GLOBAL_BLOCKS_PER_SM = 8
 MAX_CELLS = 2**31 - 1            # the kernel's cell index is 32-bit
 _MASK_DTYPES = (torch.bool, torch.uint8)
+# the launch count is bumped by several threads at once (the micro-batch
+# mode's mappers each fold on their own thread): ``+=`` is not atomic
+_LAUNCHES_LOCK = threading.Lock()
 
 
 class LaunchPlan(NamedTuple):
@@ -193,7 +197,7 @@ def count_cells(counts: torch.Tensor, campaign: torch.Tensor,
     ``counts`` int32 ``[C, W]`` contiguous; ``campaign``/``slot`` int32
     ``[B]``; ``count_mask`` bool or uint8 ``[B]``; all on one device.
     ``count_cells.launches`` counts kernel launches (CPU calls do not
-    launch and do not count)."""
+    launch and do not count), under a lock: threads launch at once."""
     _check(counts, campaign, slot, count_mask)
     if not counts.is_cuda:
         if counts.device.type == "cpu":
@@ -211,7 +215,8 @@ def count_cells(counts: torch.Tensor, campaign: torch.Tensor,
                         (ptrs[1] % 16, ptrs[2] % 16, ptrs[3] % 16), index)
     _build.launch("count_cells", _build.count_cells_lib().sb_count_cells,
                   index, *ptrs, ctypes.addressof(plan))
-    count_cells.launches += 1
+    with _LAUNCHES_LOCK:
+        count_cells.launches += 1
     return counts
 
 

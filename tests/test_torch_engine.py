@@ -247,7 +247,9 @@ def test_cli_catchup_on_cpu(tmp_path):
     # --traceDir and the fleet's trace stitching (jax.obs.fleet) are
     # ported; the multi-tenant host's config key stays refused
     ([], "jax.tenants: a:exact", "jax.tenants", None),
-    (["--microbatch"], "", "--microbatch", None),
+    # the micro-batch mode is ported; with the multi-tenant host's flag
+    # it is refused for that flag
+    (["--microbatch", "--tenants", "a:hll"], "", "--tenants", None),
     (["--tenants", "a:exact"], "", "--tenants", None),
 ], ids=["sharded", "engine", "trace", "microbatch", "tenants"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, monkeypatch, extra,

@@ -148,6 +148,54 @@ def test_torch_test_with_device_decode_on_cpu(tmp_path):
             verdict["windows_extra"]) == (0, 0, 0)
 
 
+@pytest.mark.parametrize("op,extra", [
+    ("TORCH_MICROBATCH_TEST", {}),
+    ("TORCH_TEST", {"MICROBATCH": "1", "ENGINE": "hll"})],
+    ids=["composite", "microbatch_routes_torch_test"])
+def test_torch_microbatch_test_on_cpu(tmp_path, op, extra):
+    """The micro-batch composite (the JAX harness's
+    ``JAX_MICROBATCH_TEST``): a paced load journaled (the paced generator
+    writes one partition, so ``PARTITIONS`` stays 1 and SETUP writes
+    ``map.partitions: 1``), then the engine's ``--microbatch`` catchup on
+    the CPU in count windows of ``window.size`` (5,000) events; its stats
+    line in ``logs/microbatch.log`` is the evidence.  ``MICROBATCH=1``
+    routes ``TORCH_TEST`` to it."""
+    wd = str(tmp_path / "run")
+    p = run_harness([op], {
+        "WORKDIR": wd, "REDIS_PORT": str(free_port()), "LOAD": "4000",
+        "TEST_TIME": "4", "DEVICE": "cpu", **extra}, timeout=240)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "microbatch evidence:" in p.stdout
+    conf = open(os.path.join(wd, "localConf.yaml")).read()
+    assert "map.partitions: 1" in conf
+    log = open(os.path.join(wd, "logs", "microbatch.log")).read()
+    stats = json.loads(log.strip().splitlines()[-1])
+    assert stats["engine"] == extra.get("ENGINE", "exact")
+    assert stats["partitions"] == 1 and stats["windows"] > 0
+    assert stats["events"] == stats["windows"] * 5000
+    assert stats["total_views"] > 0
+    assert not os.listdir(os.path.join(wd, "pids"))
+
+
+def test_torch_microbatch_without_events_fails(tmp_path):
+    """The zero-measurement guard: a micro-batch run that folded no
+    events (an empty journal) fails instead of passing quietly."""
+    wd = str(tmp_path / "run")
+    env = {"WORKDIR": wd, "REDIS_PORT": str(free_port()), "DEVICE": "cpu"}
+    try:
+        p = run_harness(["SETUP", "START_REDIS"], env, timeout=180)
+        assert p.returncode == 0, p.stdout + p.stderr
+        # the topic's one partition, empty
+        os.makedirs(os.path.join(wd, "broker"), exist_ok=True)
+        open(os.path.join(wd, "broker", "ad-events-0.jsonl"), "w").close()
+        p = run_harness(["TORCH_MICROBATCH"], env, timeout=180)
+    finally:
+        run_harness(["STOP_ALL"], env)
+    assert p.returncode != 0
+    assert '"events": 0,' in p.stdout
+    assert "microbatch run measured no events" in p.stdout + p.stderr
+
+
 def test_unknown_operation_lists_supported(tmp_path):
     proc = run_harness(["NO_SUCH_OP"], {"WORKDIR": str(tmp_path)})
     assert proc.returncode == 1

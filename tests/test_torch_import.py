@@ -30,7 +30,8 @@ PARALLEL_MODULES = ("collectives", "controller", "distributed", "mesh",
                     "reach", "sharded", "sketches")
 REACH_MODULES = ("cache", "deltaship", "oracle", "query", "replica",
                  "router", "serve")
-DIMENSIONS_MODULES = ("pubsub", "store")
+DIMENSIONS_MODULES = ("__main__", "app", "compute", "pubsub", "schema",
+                      "store", "synthetic")
 
 CHILD = r"""
 import json, pkgutil, subprocess, sys
@@ -97,7 +98,9 @@ def test_importing_every_module_loads_no_jax_no_cuda_and_builds_nothing():
                 "streambench_tpu_torch.ops.session",
                 "streambench_tpu_torch.ops.cms",
                 "streambench_tpu_torch.ops.cmsrows",
-                "streambench_tpu_torch.ops.salsa"} | {
+                "streambench_tpu_torch.ops.salsa",
+                "streambench_tpu_torch.engine.microbatch",
+                "streambench_tpu_torch.handoff"} | {
                     f"streambench_tpu_torch.obs.{m}" for m in OBS_MODULES} | {
                     f"streambench_tpu_torch.chaos.{m}" for m in CHAOS_MODULES} | {
                     f"streambench_tpu_torch.parallel.{m}"

@@ -157,10 +157,10 @@ def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
 
 @pytest.mark.parametrize("extra,conf_line,word,env", [
     # jax.obs.query and jax.obs.fleet run with the reach engine, sharded
-    # or not; with the micro-batch or multi-tenant host, which are not
-    # ported yet, they are refused with it
-    (["--sharded", "--engine", "reach", "--microbatch"],
-     "jax.obs.query: true", "--microbatch", {}),
+    # or not; with the multi-tenant host, which is not ported yet, they
+    # are refused with it (the micro-batch mode is ported)
+    (["--sharded", "--engine", "reach", "--tenants", "a:exact"],
+     "jax.obs.query: true", "--tenants", {}),
     (["--sharded", "--engine", "reach", "--tenants", "a:reach"],
      "jax.obs.fleet: true", "--tenants", {}),
     # jax.obs.shard runs with --sharded on every engine with a sharded
@@ -292,7 +292,7 @@ def test_harness_sharded_with_obs_shard_on_the_cpu(tmp_path):
     # OBS_SHARD, OBS_QUERY and OBS_FLEET run with SHARDED=1 ENGINE=reach
     # (below); the micro-batch and multi-tenant hosts stay refused, and
     # the refusal names both the host's knob and the obs knob
-    ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "reach", "MICROBATCH": "1"}),
+    ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "reach", "TENANTS": "a:hll"}),
     ("OBS_QUERY", {"SHARDED": "1", "ENGINE": "reach",
                    "TENANTS": "a:exact"}),
     ("OBS_FLEET", {"SHARDED": "1", "ENGINE": "reach", "ADMISSION": "1"})],
@@ -331,10 +331,12 @@ def test_harness_setup_with_sharded_reach_writes_the_obs_keys(tmp_path,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("MICROBATCH", "1"), ("TENANTS", "a:exact,b:hll"), ("ADMISSION", "1")])
+    # MICROBATCH is ported: its case moved to another TENANTS list
+    ("TENANTS", "a:hll"), ("TENANTS", "a:exact,b:hll"), ("ADMISSION", "1")],
+    ids=["MICROBATCH-1", "TENANTS-a:exact,b:hll", "ADMISSION-1"])
 def test_harness_refuses_the_host_knobs_not_ported(tmp_path, knob, value):
-    """The reference harness's micro-batch and multi-tenant knobs: SETUP
-    exits non-zero naming the knob instead of running another job."""
+    """The reference harness's multi-tenant knobs: SETUP exits non-zero
+    naming the knob instead of running another job."""
     workdir = str(tmp_path / "run")
     p = subprocess.run(
         [sys.executable, "-m", "streambench_tpu_torch.harness", "SETUP"],

@@ -381,14 +381,17 @@ def test_harness_torch_test_with_engine_reach_on_cpu(tmp_path):
 
 
 def test_harness_still_refuses_sharded_reach(tmp_path):
-    """Sharded reach runs (``tests/test_torch_sharded_reach.py``); its
-    micro-batch form is still refused, by name."""
+    """Sharded reach runs (``tests/test_torch_sharded_reach.py``); the
+    micro-batch mode has no form of it (count windows fold exact counts
+    or HLL registers on one device), so SETUP refuses it by name."""
     env = {"WORKDIR": str(tmp_path / "run"), "DEVICE": "cpu",
            "ENGINE": "reach", "SHARDED": "1", "MICROBATCH": "1"}
     proc = run_harness(["SETUP"], env)
     assert proc.returncode != 0
-    assert "not ported" in proc.stdout + proc.stderr
-    assert "MICROBATCH" in proc.stdout + proc.stderr
+    out = proc.stdout + proc.stderr
+    assert ("MICROBATCH=1 has no count-window form of ENGINE=reach with "
+            "SHARDED=1" in out)
+    assert not os.path.exists(str(tmp_path / "run" / "localConf.yaml"))
 
 
 # chip_smoke.py phase 19, rehearsed on the CPU at a small size

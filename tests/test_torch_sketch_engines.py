@@ -470,12 +470,13 @@ def test_cli_engine_on_cpu_matches_the_jax_cli(tmp_path, engine):
 
 # the sharded HLL and sliding engines are ported; their cases moved to
 # the sharded forms of the engines that were not.  The reach and hllx
-# engines and sharded reach are ported too: every case now pairs an
-# engine with the tenants or micro-batch host, which are not
+# engines, sharded reach and the micro-batch mode are ported too: every
+# case now pairs an engine with the tenants host, which is not
 @pytest.mark.parametrize("extra,conf_line", [
     (["--engine", "reach"], "jax.tenants: a:reach"),
     (["--engine", "hllx"], "jax.tenants: a:hllx"),
-    (["--sharded", "--engine", "reach", "--microbatch"], ""),
+    (["--sharded", "--engine", "reach", "--microbatch"],
+     "jax.tenants: a:reach"),
     (["--sharded", "--engine", "hllx", "--tenants", "a:hllx"], "")],
     ids=["reach", "hllx", "sharded_hll", "sharded_sliding"])
 def test_cli_still_refuses_what_is_not_ported(tmp_path, capsys, extra,
