@@ -85,11 +85,17 @@ def write_ad_mapping_file(campaigns: list[str], ads: list[str],
     ``{"<ad>": "<campaign>"}`` per line; returns the mapping."""
     per = len(ads) // len(campaigns)
     mapping: dict[str, str] = {}
+    # json.dumps({ad: campaign}) is "{" + quoted ad + ": " + quoted
+    # campaign + "}", each quoted by json's own encoder
+    quote = json.encoder.encode_basestring_ascii
+    lines = []
+    for i, campaign in enumerate(campaigns):
+        c = quote(campaign)
+        for ad in ads[i * per : (i + 1) * per]:
+            mapping[ad] = campaign
+            lines.append("{%s: %s}\n" % (quote(ad), c))
     with open(os.path.join(workdir, AD_TO_CAMPAIGN_FILE), "w") as f:
-        for i, campaign in enumerate(campaigns):
-            for ad in ads[i * per : (i + 1) * per]:
-                mapping[ad] = campaign
-                f.write(json.dumps({ad: campaign}) + "\n")
+        f.write("".join(lines))
     return mapping
 
 
@@ -522,6 +528,30 @@ def get_stats(r: RedisLike, workdir: str = ".") -> list[tuple[int, int]]:
     return stats
 
 
+#: lines parsed together (``_json_values``): the caller's events in
+#: chunks of lines, the workdir's journal in blocks of whole lines
+_STATS_CHUNK = 1 << 16
+_STATS_BLOCK = 1 << 24
+
+
+def _json_values(lines: list) -> list:
+    """``[json.loads(ln) for ln in lines]`` by one ``json.loads`` of the
+    lines as one JSON array.  Where the array does not parse, or holds
+    another number of values than lines, or the lines mix ``str`` and
+    ``bytes``, line by line, so a bad line raises as it alone would."""
+    kind = type(lines[0]) if lines else None
+    if kind in (bytes, str) and all(type(ln) is kind for ln in lines):
+        left, sep, right = ((b"[", b",\n", b"]") if kind is bytes
+                            else ("[", ",\n", "]"))
+        try:
+            values = json.loads(left + sep.join(lines) + right)
+        except ValueError:
+            values = None
+        if isinstance(values, list) and len(values) == len(lines):
+            return values
+    return [json.loads(ln) for ln in lines]
+
+
 def dostats(workdir: str = ".", time_divisor_ms: int = 10_000,
             events: Iterable[bytes | str] | None = None,
             mapping_path: str | None = None,
@@ -533,21 +563,16 @@ def dostats(workdir: str = ".", time_divisor_ms: int = 10_000,
     Returns ``campaign -> {time_bucket -> count}`` with *bucket indices*
     (event_time // divisor), as the Clojure original does.  ``mapping``
     supplies the ad->campaign join directly (tests); else it loads from
-    ``mapping_path`` / the workdir file.
+    ``mapping_path`` / the workdir file.  The non-blank lines are parsed
+    a chunk at a time by ``_json_values``.
     """
     if mapping is None:
         mapping = load_ad_mapping_file(
             mapping_path or os.path.join(workdir, AD_TO_CAMPAIGN_FILE))
-    own_file = None
-    if events is None:
-        own_file = open(os.path.join(workdir, KAFKA_JSON_FILE), "rb")
-        events = own_file
     acc: dict[str, dict[int, int]] = {}
-    try:
-        for line in events:
-            if not line.strip():
-                continue
-            ev = json.loads(line)
+
+    def fold(lines: list) -> None:
+        for ev in _json_values([ln for ln in lines if ln.strip()]):
             if ev["event_type"] != "view":
                 continue
             campaign = mapping.get(ev["ad_id"])
@@ -556,9 +581,33 @@ def dostats(workdir: str = ".", time_divisor_ms: int = 10_000,
             bucket = int(ev["event_time"]) // time_divisor_ms
             per = acc.setdefault(campaign, {})
             per[bucket] = per.get(bucket, 0) + 1
-    finally:
-        if own_file is not None:
-            own_file.close()
+
+    if events is None:
+        with open(os.path.join(workdir, KAFKA_JSON_FILE), "rb") as f:
+            rest = b""
+            while block := f.read(_STATS_BLOCK):
+                block = rest + block
+                cut = block.rfind(b"\n") + 1
+                fold(block[:cut].split(b"\n"))
+                rest = block[cut:]
+            fold([rest])
+        return acc
+    chunk: list = []
+    for line in events:
+        chunk.append(line)
+        if len(chunk) >= _STATS_CHUNK:
+            fold(chunk)
+            chunk = []
+    fold(chunk)
+    return acc
+    chunk: list = []
+    for line in events:
+        chunk.append(line)
+        if len(chunk) >= _STATS_CHUNK:
+            fold_lines(chunk)
+            chunk = []
+    if chunk:
+        fold_lines(chunk)
     return acc
 
 

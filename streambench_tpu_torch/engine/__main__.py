@@ -78,9 +78,21 @@ the fork's latency hash and prints the reference's stats line
 (``engine``, ``windows``, ``events``, ``partitions``, ``total_views``,
 ``p50_latency_ms``).
 
-Options and config keys that need parts of the JAX engine not ported yet
-(``--sharded`` with more than one process, and tenants) are refused with
-exit 2.
+``--tenants "name:kind,..."`` (or the key ``jax.tenants``) runs the
+multi-tenant host instead of one engine (``engine.tenants``): every
+tenant tails the shared topic with its own engine on ``--device``, its
+own ``tenant=`` metric namespace, its own sink and, with ``jax.slo.*``
+or ``jax.reach.slo.p99.ms``, its own objective; the device-time ledger
+attributes sampled busy windows per tenant and the blame matrix
+intersects each tenant's waits with the others' busy windows.
+``jax.admission.enabled`` (with ``jax.admission.breach.ticks``,
+``.healthy.ticks``, ``.escalate.ticks``, ``.cooldown.s``) arms the
+admission controller that defers, then sheds, an aggressor's ingest.
+It prints ``tenants up: ...`` and, at the end, one stats line with
+``"engine": "multitenant"``.
+
+``--sharded`` over more than one process (``STREAMBENCH_NUM_PROCESSES``
+> 1) is not ported yet and is refused with exit 2.
 """
 
 from __future__ import annotations
@@ -108,6 +120,7 @@ from streambench_tpu_torch.engine.sketches import (
     SessionCMSEngine,
     SlidingTDigestEngine,
 )
+from streambench_tpu_torch.engine.tenants import run_tenants_cli
 from streambench_tpu_torch.io.fakeredis import make_store
 from streambench_tpu_torch.io.kafka import make_broker
 from streambench_tpu_torch.io.redis_schema import as_redis
@@ -191,9 +204,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the fork's count-based barrier-aligned window "
                         "mode (window.size / map.partitions) over the "
                         "broker topic, then exit (exact or hll)")
-    # a flag of the JAX CLI whose machinery is not ported yet: accepted
-    # only to refuse it with a clear message
-    p.add_argument("--tenants", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--tenants", default=None,
+                   help="run the multi-tenant host instead of one engine: "
+                        "\"name:kind,...\" (kinds: exact/hll/sliding/"
+                        "session/reach/hllx).  Every tenant tails the "
+                        "shared topic with its own engine + tenant= "
+                        "metric namespace; overrides jax.tenants")
     return p
 
 
@@ -214,20 +230,16 @@ def unsupported(args, cfg) -> list[str]:
     device, at any key space, with checkpoint/resume, the exactly-once
     sink, the staged ingest pipeline, the encode pool, the dead-letter
     queue, the Kafka source, device decode (exact engine), the
-    observability layer without tenants (the reach query and fleet keys
-    included), reach serving with its cache and replica shipping, and the
-    exact, HLL, sliding, session and reach engines sharded in one process
-    (``--sharded``), and the fork's micro-batch mode (``--microbatch``)."""
-    out = []
+    observability layer (the reach query and fleet keys included), reach
+    serving with its cache and replica shipping, the exact, HLL,
+    sliding, session and reach engines sharded in one process
+    (``--sharded``), the fork's micro-batch mode (``--microbatch``) and
+    the multi-tenant host (``--tenants``, run before this check).  Only
+    ``--sharded`` over more than one process is left."""
     ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
-    for flag, on in ((f"--sharded over {ranks} processes",
-                      args.sharded and ranks > 1),
-                     ("--tenants", args.tenants)):
-        if on:
-            out.append(flag)
-    if cfg.jax_tenants:
-        out.append("jax.tenants")
-    return out
+    if args.sharded and ranks > 1:
+        return [f"--sharded over {ranks} processes"]
+    return []
 
 
 class _ReachServing:
@@ -378,6 +390,12 @@ def main(argv: list[str] | None = None) -> int:
     except ConfigError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    # multi-tenant host: N topologies, one process, one device — it
+    # owns the whole run (engines, sinks, obs wiring), as in the
+    # reference, ahead of every single-engine check
+    if args.tenants or cfg.jax_tenants:
+        mapping, campaigns = load_mapping(cfg, args.workdir)
+        return run_tenants_cli(cfg, args, mapping, campaigns)
     missing = unsupported(args, cfg)
     if missing:
         print("error: not ported to the PyTorch engine yet (it runs the "
@@ -386,8 +404,8 @@ def main(argv: list[str] | None = None) -> int:
               "encode pool, the dead-letter queue, the Kafka source, the "
               "observability layer, reach serving with its query and "
               "fleet observability, the exact, hll, sliding, session "
-              "and reach engines sharded in one process, and the "
-              "micro-batch mode): "
+              "and reach engines sharded in one process, the "
+              "micro-batch mode and the multi-tenant host): "
               + ", ".join(missing), file=sys.stderr)
         return 2
     if args.microbatch:

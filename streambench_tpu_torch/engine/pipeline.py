@@ -660,6 +660,17 @@ class AdAnalyticsEngine:
         self._span_start = None
 
     # ------------------------------------------------------------------
+    def process_lines(self, lines: list[bytes]) -> int:
+        """Encode + fold ``lines`` one batch at a time (the per-batch
+        path, one dispatch a batch).  Returns the lines taken."""
+        for off in range(0, len(lines), self.batch_size):
+            with self.tracer.span("encode"):
+                batch = self.encoder.encode(lines[off:off + self.batch_size],
+                                            self.batch_size)
+            if batch.n:
+                self._fold(batch)
+        return len(lines)
+
     def process_chunk(self, lines: list[bytes]) -> int:
         """Encode + fold up to ``scan_batches`` batches per group."""
         self.fold_batches(self.encode_chunk_lines(lines))

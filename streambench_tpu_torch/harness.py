@@ -32,9 +32,14 @@ JAX harness's ``JAX_MICROBATCH_TEST``): a paced load journaled for
 catchup over it (``ENGINE`` exact or hll, ``CHECKPOINT_DIR`` its window
 snapshots), whose stats line in ``logs/microbatch.log`` is the evidence;
 SETUP writes ``map.partitions`` = ``PARTITIONS`` (one mapper a broker
-partition).  The reference harness's ``TENANTS`` and ``ADMISSION`` knobs
-need the multi-tenant host, which is not ported yet: SETUP refuses each
-by name rather than run a different job.
+partition).  ``TENANTS="a:exact,b:session,..."`` runs the multi-tenant
+host in place of one engine (SETUP writes ``jax.tenants``; the engine
+prints ``tenants up:``, and ``TORCH_TEST``'s evidence is the host's
+stats line) and ``ADMISSION=1`` arms its admission controller
+(``jax.admission.enabled``), as the JAX harness does.  SETUP refuses
+``TENANTS`` with ``MICROBATCH``, ``SHARDED`` or ``VERIFY`` by name: the
+reference's host runs neither the micro-batch mode nor a mesh, and two
+exact tenants add their counts into the same Redis windows.
 ``VERIFY=1``
 makes ``TORCH_TEST`` hold every window in Redis against the generator's
 oracle over the journal the load wrote (``VERIFY``, before the services
@@ -105,10 +110,11 @@ DEVICE = os.environ.get("DEVICE", "cuda")
 # (the hyper-extended HLL ladder)
 ENGINE = os.environ.get("ENGINE", "exact")
 SHARDED = _flag("SHARDED")
-# MICROBATCH=1 routes TORCH_TEST to the micro-batch composite; the
-# reference harness's multi-tenant knobs are read only to refuse them
-# (SETUP)
+# MICROBATCH=1 routes TORCH_TEST to the micro-batch composite
 MICROBATCH = _flag("MICROBATCH")
+# Multi-tenant host: TENANTS="a:exact,b:session,..." runs N tenant
+# engines in one process on one device (jax.tenants); ADMISSION=1 arms
+# the measurement-actuated admission controller (jax.admission.enabled)
 TENANTS = os.environ.get("TENANTS", "")
 ADMISSION = _flag("ADMISSION")
 # Fake Kafka as a standalone TCP broker process (START_KAFKA/STOP_KAFKA):
@@ -272,16 +278,19 @@ def op_setup() -> None:
     from streambench_tpu_torch import native
     from streambench_tpu_torch.config import write_local_conf
 
-    unported = [k for k, on in (("TENANTS", bool(TENANTS)),
-                                ("ADMISSION", ADMISSION)) if on]
-    if unported:
-        # the multi-tenant host is not ported yet; the refusal names the
-        # obs knobs asked for with it
+    with_tenants = [k for k, on in (("MICROBATCH", MICROBATCH),
+                                    ("SHARDED", SHARDED),
+                                    ("VERIFY", VERIFY)) if on and TENANTS]
+    if with_tenants:
+        # the reference's host folds every tenant on one device through
+        # the per-batch path: no count windows, no mesh; and exact
+        # tenants would add their counts into the same windows.  The
+        # refusal names the obs knobs asked for with it
         knobs = [k for k, on in (("OBS_SHARD", OBS_SHARD),
                                  ("OBS_QUERY", OBS_QUERY),
                                  ("OBS_FLEET", OBS_FLEET)) if on]
-        raise SystemExit("not ported to the PyTorch harness yet: "
-                         + ", ".join(unported)
+        raise SystemExit("not ported to the PyTorch harness: TENANTS with "
+                         + ", ".join(with_tenants)
                          + (f" (asked for with {', '.join(knobs)})"
                             if knobs else ""))
     if MICROBATCH and (ENGINE not in ("exact", "hll") or SHARDED):
@@ -342,6 +351,8 @@ def op_setup() -> None:
         "jax.obs.shard": OBS_SHARD,
         "jax.obs.query": OBS_QUERY,
         "jax.obs.fleet": OBS_FLEET,
+        "jax.tenants": TENANTS,
+        "jax.admission.enabled": ADMISSION,
     })
     log(f"wrote {CONF_FILE}")
     native.build()
@@ -513,13 +524,15 @@ def op_start_torch_processing() -> None:
                                         *args))
     # wait for the ready marker, printed after warmup has built the
     # kernels, so a following START_LOAD measures the stream, not a
-    # compiler; only this instance's log bytes count
+    # compiler; only this instance's log bytes count.  The multi-tenant
+    # host prints "tenants up:" instead of "engine up:"
     deadline = time.monotonic() + 300
     while time.monotonic() < deadline:
         try:
             with open(logpath) as f:
                 f.seek(log_start)
-                if "engine up:" in f.read():
+                txt = f.read()
+                if "engine up:" in txt or "tenants up:" in txt:
                     return
         except FileNotFoundError:
             pass
@@ -621,9 +634,10 @@ def op_torch_test() -> None:
         op_stop_redis()
     # a composite test that produced load but measured NOTHING is a
     # failure (a stale or hung engine), not a quiet success.  The session,
-    # reach and hllx engines write no window rows: their evidence is the
-    # final stats line of this run's engine, as in the reference harness
-    if ENGINE in ("session", "reach", "hllx"):
+    # reach and hllx engines write no window rows, and a tenant host may
+    # run none that does: their evidence is the final stats line of this
+    # run's engine, as in the reference harness
+    if TENANTS or ENGINE in ("session", "reach", "hllx"):
         evidence, what = _stats_line("engine", _ENGINE_LOG_START), "events"
         ok = evidence != "" and '"events": 0' not in evidence
     else:

@@ -55,12 +55,16 @@ def window_digest_of(rows) -> dict:
     it).  Two stores with the same windows and counts have the same
     digest; a window moved, added, dropped or miscounted changes it."""
     n = seen = digest = 0
+    ts_hash: dict = {}      # a window start recurs across campaigns
     for campaign, ts, count in rows:
         count = int(count)
         n += 1
         seen += count
+        h = ts_hash.get(ts)
+        if h is None:
+            h = ts_hash[ts] = _fnv1a64(str(ts))
         digest = (digest + _mix64(_fnv1a64(campaign) ^ _mix64(
-            _fnv1a64(str(ts)) ^ _mix64(count & _M64)))) & _M64
+            h ^ _mix64(count & _M64)))) & _M64
     return {"windows": n, "seen": seen, "digest": f"{digest:016x}"}
 
 

@@ -1,5 +1,4 @@
-"""Live telemetry of the PyTorch port: ``streambench_tpu/obs/`` without
-its tenant layers.
+"""Live telemetry of the PyTorch port: the port of ``streambench_tpu/obs/``.
 
 All default-off; importing the package builds nothing and does not
 initialise CUDA (the device modules import torch inside the calls that
@@ -59,7 +58,13 @@ need it):
 - ``autoscale`` — the controller that turns those verdicts into replica
   count, ship cadence and poll interval actuations
 
-Not ported yet: ``tenancy`` and ``admission`` (the multi-tenant host).
+- ``tenancy``   — tenant-scoped views over one shared registry (every
+  instrument labeled ``tenant=``) and the device-time ledger: per-tenant
+  attributed busy time, the N×N blame matrix of victim waits against
+  aggressor busy windows, and its partition check
+- ``admission`` — the measurement-actuated admission controller: a
+  victim's burn plus the blame matrix's aggressor -> defer, then shed,
+  the aggressor's ingest; released on sustained health
 
 Enable on the engine CLI via config keys (``jax.metrics.interval.ms``
 > 0 and/or ``jax.metrics.port`` >= 0); embed via::
@@ -74,6 +79,9 @@ Enable on the engine CLI via config keys (``jax.metrics.interval.ms``
     server = MetricsServer(registry, port=0, refresh=sampler.collect_now)
 """
 
+from streambench_tpu_torch.obs.admission import (  # noqa: F401
+    AdmissionController,
+)
 from streambench_tpu_torch.obs.autoscale import (  # noqa: F401
     AutoscaleController,
 )
@@ -118,6 +126,10 @@ from streambench_tpu_torch.obs.sampler import (  # noqa: F401
 )
 from streambench_tpu_torch.obs.slo import SloTracker  # noqa: F401
 from streambench_tpu_torch.obs.spans import SpanTracer  # noqa: F401
+from streambench_tpu_torch.obs.tenancy import (  # noqa: F401
+    DeviceTimeLedger,
+    TenantRegistry,
+)
 from streambench_tpu_torch.obs.xfer import (  # noqa: F401
     ShardSkew,
     TransferLedger,

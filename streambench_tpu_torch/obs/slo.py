@@ -1,7 +1,6 @@
 """Config-driven latency/throughput objectives with burn-rate gates.
 
-The port of ``streambench_tpu/obs/slo.py``, without the per-tenant
-trackers (the port has no tenants yet).
+The port of ``streambench_tpu/obs/slo.py``.
 
 ROADMAP item 4's live serving workload needs "load-shedding and latency
 SLOs measured by the obs stack"; until now a run could only be judged
@@ -65,7 +64,18 @@ class SloTracker:
                  budget: float = 0.01, fast_s: float = 30.0,
                  slow_s: float = 180.0, use_lifecycle: bool = False,
                  annotate=None, flightrec=None, capture=None,
-                 queryattr=None, clock=time.monotonic):
+                 queryattr=None, tenant: "str | None" = None,
+                 clock=time.monotonic):
+        # multi-tenant: a tracker scoped to one tenant is built over
+        # that tenant's TenantRegistry view — its gauges and
+        # get-or-create histograms pick up the ``tenant=`` label from
+        # the view, so N trackers over one shared registry never share
+        # an instrument.  ``tenant`` here only steers the JOURNAL shape
+        # (the per-tenant block nests under
+        # ``rec["slo_tenants"][name]`` instead of claiming the
+        # process-wide ``rec["slo"]`` key) and stamps breach events
+        # with the tenant name.
+        self.tenant = tenant
         self.p99_ms = max(int(p99_ms), 0)
         self.rate_evps = max(int(rate_evps), 0)
         # jax.reach.slo.p99.ms — reach-serving latency objective: a
@@ -195,6 +205,15 @@ class SloTracker:
                 "slow": round(self._window_burn(self.slow_s, 5, 6), 3)}
         return out
 
+    def fast_burn(self) -> float:
+        """Worst fast-window burn across this tracker's objectives —
+        the scalar the admission controller's ``burns()`` callable
+        reports per tenant (fast window: admission wants onset, the
+        two-window breach verdict stays the pass/fail arbiter)."""
+        burns = self.burn_rates()
+        vals = [wins.get("fast", 0.0) for wins in burns.values()]
+        return max(vals) if vals else 0.0
+
     # ------------------------------------------------------------------
     def collect(self, rec: dict, dt_s: float) -> None:
         """Sampler-collector hook: append one sample, recompute burns,
@@ -240,6 +259,8 @@ class SloTracker:
             self._c_breach.inc()
             fields = {"burn": burns, "bad_windows": bad,
                       "total_windows": total}
+            if self.tenant is not None:
+                fields["tenant"] = self.tenant
             if self.reach_p99_ms and self.queryattr is not None:
                 # per-segment burn attribution: the breach event says
                 # where the slow queries' time went
@@ -261,7 +282,8 @@ class SloTracker:
                 except Exception:
                     pass   # capture failure must not kill the tick
         elif not breaching and self._in_breach:
-            rcv = {"burn": burns}
+            rcv = ({"burn": burns} if self.tenant is None
+                   else {"burn": burns, "tenant": self.tenant})
             if self.annotate is not None:
                 try:
                     self.annotate("slo_recovered", **rcv)
@@ -276,7 +298,10 @@ class SloTracker:
         if self.reach_p99_ms:
             block["bad_reach"] = r_bad
             block["total_reach"] = r_total
-        rec["slo"] = block
+        if self.tenant is None:
+            rec["slo"] = block
+        else:
+            rec.setdefault("slo_tenants", {})[self.tenant] = block
 
     # ------------------------------------------------------------------
     def verdict(self) -> dict:
@@ -302,6 +327,8 @@ class SloTracker:
             "breaches": self.breaches,
             "pass": self.breaches == 0 and not self._in_breach,
         }
+        if self.tenant is not None:
+            out["tenant"] = self.tenant
         if self._reach_hist is not None:
             r_total = self._reach_hist.count
             out["bad_reach"] = r_total - self._reach_hist.count_le(

@@ -628,8 +628,11 @@ class ReachQueryServer:
 
     def wait_intervals(self) -> list:
         """Raw [admit_ns, pop_ns] queue-wait intervals of evaluated
-        queries (monotonic clock, bounded ring)."""
-        return [list(t) for t in self._wait_ring]
+        queries (monotonic clock, bounded ring).  ``tuple()`` copies the
+        ring in one C call, atomic under the GIL: the worker appends to
+        it while a reader (the multi-tenant host's ``drain_waits``)
+        walks it."""
+        return [list(t) for t in tuple(self._wait_ring)]
 
     def _evaluate(self, items: list, state) -> None:
         ql = self._queryattr

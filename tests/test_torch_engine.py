@@ -241,16 +241,17 @@ def test_cli_catchup_on_cpu(tmp_path):
     # --sharded runs every engine with a sharded form in one process;
     # over more than one process it stays refused
     (["--sharded"], "", "--sharded over 2 processes", "2"),
-    # every engine of the reference is ported (hllx the last); the
-    # multi-tenant host that takes them as tenant kinds is not
-    (["--tenants", "a:hllx"], "", "--tenants", None),
-    # --traceDir and the fleet's trace stitching (jax.obs.fleet) are
-    # ported; the multi-tenant host's config key stays refused
-    ([], "jax.tenants: a:exact", "jax.tenants", None),
-    # the micro-batch mode is ported; with the multi-tenant host's flag
-    # it is refused for that flag
-    (["--microbatch", "--tenants", "a:hll"], "", "--tenants", None),
-    (["--tenants", "a:exact"], "", "--tenants", None),
+    # every engine of the reference is ported, and so is the
+    # multi-tenant host (--tenants and jax.tenants run it, as the
+    # reference's CLI does: tests/test_torch_tenants.py); these cases
+    # moved to the one combination still refused
+    (["--sharded", "--engine", "hllx"], "", "--sharded over 2 processes",
+     "2"),
+    (["--sharded", "--traceDir", "trace"], "jax.obs.fleet: true",
+     "--sharded over 3 processes", "3"),
+    (["--microbatch", "--sharded"], "", "--sharded over 2 processes", "2"),
+    (["--sharded", "--engine", "session"], "jax.admission.enabled: true",
+     "--sharded over 4 processes", "4"),
 ], ids=["sharded", "engine", "trace", "microbatch", "tenants"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, monkeypatch, extra,
                                        conf_line, word, ranks):

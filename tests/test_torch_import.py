@@ -10,6 +10,7 @@ because ``"streambench_tpu_torch".startswith("streambench_tpu")``.
 """
 
 import ast
+import glob
 import json
 import os
 import subprocess
@@ -68,6 +69,7 @@ print(json.dumps({
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    out += glob.glob(os.path.join(REPO, "chip_*_probe.py"))
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -157,12 +157,12 @@ def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
 
 @pytest.mark.parametrize("extra,conf_line,word,env", [
     # jax.obs.query and jax.obs.fleet run with the reach engine, sharded
-    # or not; with the multi-tenant host, which is not ported yet, they
-    # are refused with it (the micro-batch mode is ported)
-    (["--sharded", "--engine", "reach", "--tenants", "a:exact"],
-     "jax.obs.query: true", "--tenants", {}),
-    (["--sharded", "--engine", "reach", "--tenants", "a:reach"],
-     "jax.obs.fleet: true", "--tenants", {}),
+    # or not, and the multi-tenant host runs too: they are refused only
+    # with --sharded over more than one process
+    (["--sharded", "--engine", "reach"], "jax.obs.query: true",
+     "--sharded over 2 processes", {"STREAMBENCH_NUM_PROCESSES": "2"}),
+    (["--sharded", "--engine", "reach"], "jax.obs.fleet: true",
+     "--sharded over 3 processes", {"STREAMBENCH_NUM_PROCESSES": "3"}),
     # jax.obs.shard runs with --sharded on every engine with a sharded
     # form in one process; more processes stay refused
     (["--sharded", "--engine", "reach"], "jax.obs.shard: true",
@@ -290,12 +290,14 @@ def test_harness_sharded_with_obs_shard_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("knob,extra", [
     # OBS_SHARD, OBS_QUERY and OBS_FLEET run with SHARDED=1 ENGINE=reach
-    # (below); the micro-batch and multi-tenant hosts stay refused, and
-    # the refusal names both the host's knob and the obs knob
+    # (below), and the multi-tenant host runs; the host with SHARDED=1
+    # stays refused (the reference's host has no mesh), and the refusal
+    # names both the host's knob and the obs knob
     ("OBS_SHARD", {"SHARDED": "1", "ENGINE": "reach", "TENANTS": "a:hll"}),
     ("OBS_QUERY", {"SHARDED": "1", "ENGINE": "reach",
                    "TENANTS": "a:exact"}),
-    ("OBS_FLEET", {"SHARDED": "1", "ENGINE": "reach", "ADMISSION": "1"})],
+    ("OBS_FLEET", {"SHARDED": "1", "ENGINE": "reach", "TENANTS": "a:reach",
+                   "ADMISSION": "1"})],
     ids=["OBS_SHARD", "OBS_QUERY", "OBS_FLEET"])
 def test_harness_refuses_the_obs_knobs_not_ported(tmp_path, knob, extra):
     workdir = str(tmp_path / "run")
@@ -330,18 +332,24 @@ def test_harness_setup_with_sharded_reach_writes_the_obs_keys(tmp_path,
     assert f"{key}: true" in conf
 
 
-@pytest.mark.parametrize("knob,value", [
-    # MICROBATCH is ported: its case moved to another TENANTS list
-    ("TENANTS", "a:hll"), ("TENANTS", "a:exact,b:hll"), ("ADMISSION", "1")],
+@pytest.mark.parametrize("knob,env", [
+    # MICROBATCH, TENANTS and ADMISSION are ported (TENANTS and ADMISSION
+    # write jax.tenants and jax.admission.enabled, as stream_bench.py
+    # does: tests/test_torch_tenants.py); each case moved to a
+    # combination the reference's host cannot run, still refused by name
+    ("MICROBATCH", {"TENANTS": "a:hll", "MICROBATCH": "1"}),
+    ("SHARDED", {"TENANTS": "a:exact,b:hll", "SHARDED": "1"}),
+    ("VERIFY", {"TENANTS": "a:exact", "ADMISSION": "1", "VERIFY": "1"})],
     ids=["MICROBATCH-1", "TENANTS-a:exact,b:hll", "ADMISSION-1"])
-def test_harness_refuses_the_host_knobs_not_ported(tmp_path, knob, value):
-    """The reference harness's multi-tenant knobs: SETUP exits non-zero
-    naming the knob instead of running another job."""
+def test_harness_refuses_the_host_knobs_not_ported(tmp_path, knob, env):
+    """The multi-tenant host with a knob it has no form for: SETUP exits
+    non-zero naming both instead of running another job."""
     workdir = str(tmp_path / "run")
     p = subprocess.run(
         [sys.executable, "-m", "streambench_tpu_torch.harness", "SETUP"],
-        cwd=REPO, env=_harness_env(workdir, _free_port(), **{knob: value}),
+        cwd=REPO, env=_harness_env(workdir, _free_port(), **env),
         capture_output=True, text=True, timeout=120)
     assert p.returncode != 0
-    assert f"not ported to the PyTorch harness yet: {knob}" in p.stderr
+    assert f"not ported to the PyTorch harness: TENANTS with {knob}" \
+        in p.stderr
     assert not os.path.exists(os.path.join(workdir, "localConf.yaml"))

@@ -419,3 +419,50 @@ def test_query_storm_under_sink_outage_and_crashes(tmp_path):
         t.join(timeout=10)
         srv.close()
         ps.close()
+
+
+def test_wait_intervals_while_the_worker_appends():
+    """The multi-tenant host reads the wait ring (``drain_waits``) while
+    the server's worker appends to it: a reader that walked the deque in
+    Python met "deque mutated during iteration" on the card.  Twelve
+    submitters and a reader, a 1 us switch interval, a full ring."""
+    import sys
+
+    st = tiny_state(seed=9)
+    srv = ReachQueryServer(list("abcd"), depth=64, batch=1)
+    srv.update_state(st.mins, st.registers, epoch=1)
+    srv._wait_ring.extend((i, i + 1) for i in range(8192))
+    stop = threading.Event()
+    errors = []
+
+    def submit(seed):
+        rng = random.Random(seed)
+        while not stop.is_set():
+            srv.submit(rng.sample("abcd", 2), "union", lambda d: None)
+            time.sleep(0)
+
+    def read():
+        try:
+            while not stop.is_set():
+                assert len(srv.wait_intervals()) == 8192
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=submit, args=(i,), daemon=True)
+               for i in range(12)]
+    threads.append(threading.Thread(target=read, daemon=True))
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(2.0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+        sys.setswitchinterval(old)
+        srv.close()
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert srv.served > 0

@@ -470,17 +470,18 @@ def test_cli_engine_on_cpu_matches_the_jax_cli(tmp_path, engine):
 
 # the sharded HLL and sliding engines are ported; their cases moved to
 # the sharded forms of the engines that were not.  The reach and hllx
-# engines, sharded reach and the micro-batch mode are ported too: every
-# case now pairs an engine with the tenants host, which is not
+# engines, sharded reach, the micro-batch mode and the tenants host are
+# ported too: every case now runs its engine sharded over more than one
+# process, the one combination the CLI still refuses
 @pytest.mark.parametrize("extra,conf_line", [
-    (["--engine", "reach"], "jax.tenants: a:reach"),
-    (["--engine", "hllx"], "jax.tenants: a:hllx"),
-    (["--sharded", "--engine", "reach", "--microbatch"],
-     "jax.tenants: a:reach"),
-    (["--sharded", "--engine", "hllx", "--tenants", "a:hllx"], "")],
+    (["--sharded", "--engine", "reach"], ""),
+    (["--sharded", "--engine", "hllx"], ""),
+    (["--sharded", "--engine", "hll", "--microbatch"], ""),
+    (["--sharded", "--engine", "sliding"], "jax.admission.enabled: true")],
     ids=["reach", "hllx", "sharded_hll", "sharded_sliding"])
-def test_cli_still_refuses_what_is_not_ported(tmp_path, capsys, extra,
-                                              conf_line):
+def test_cli_still_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch,
+                                              extra, conf_line):
+    monkeypatch.setenv("STREAMBENCH_NUM_PROCESSES", "2")
     conf = tmp_path / "conf.yaml"
     conf.write_text('redis.host: ":inprocess:"\n' + conf_line + "\n")
     rc = cli.main(["--confPath", str(conf), "--workdir", str(tmp_path),
