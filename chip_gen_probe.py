@@ -10,12 +10,17 @@ B, A) on the same inputs, and must agree:
   campaigns, 1e6 ads), as ``uuid.UUID(int=..., version=4)`` strings
   (plain) and as ``utils/ids.py:make_ids`` formats them (port);
 - ``load_ad_mapping_file``: config #5's 1e6-line map, ``json.loads`` a
-  line as the port reads it (port) and as one JSON array of the lines
-  (array, the form ``dostats`` takes; the map does not take it, since it
-  was no faster on the card's host);
+  line as the port reads it (port) and one scan a line over the lines
+  joined into one text (scan, the form ``dostats`` takes; the map does
+  not take it, since it was no faster on the card's host);
 - ``dostats``: the oracle over config #5's journal (``--events``), a
-  line at a time (plain) and the port's chunks, each one JSON array
-  (port).
+  line at a time (plain) and the port's chunks, each scanned as one
+  text, one value a line (port);
+- ``dostats_scan``: the same oracle with each chunk parsed as one JSON
+  array of its lines (array: the earlier form, faster only in that it
+  skips the check that each value ends at its own line's end, so it
+  counted a torn journal that the reference rejects) and as the port
+  scans it (scan): what the check costs.
 
 One JSON line per pair with each run's seconds and the medians; ``--out
 FILE`` keeps them together.
@@ -60,7 +65,35 @@ def plain_dostats(path: str, mapping: dict, divisor_ms: int) -> dict:
     return acc
 
 
-def array_load_map(path: str) -> dict:
+def array_values(lines: list) -> list:
+    """A chunk's values by one ``json.loads`` of its lines as one JSON
+    array, line by line where that array does not hold one value a line
+    (the earlier form of ``gen._json_values``)."""
+    kind = type(lines[0]) if lines else None
+    if kind in (bytes, str) and all(type(ln) is kind for ln in lines):
+        left, sep, right = ((b"[", b",\n", b"]") if kind is bytes
+                            else ("[", ",\n", "]"))
+        try:
+            values = json.loads(left + sep.join(lines) + right)
+        except ValueError:
+            values = None
+        if isinstance(values, list) and len(values) == len(lines):
+            return values
+    return [json.loads(ln) for ln in lines]
+
+
+def dostats_with(values, workdir: str, divisor_ms: int, mapping: dict):
+    """``gen.dostats`` with its chunks parsed by ``values``."""
+    from streambench_tpu_torch.datagen import gen
+
+    saved, gen._json_values = gen._json_values, values
+    try:
+        return gen.dostats(workdir, divisor_ms, mapping=mapping)
+    finally:
+        gen._json_values = saved
+
+
+def scan_load_map(path: str) -> dict:
     from streambench_tpu_torch.datagen.gen import _json_values
 
     mapping = {}
@@ -111,13 +144,18 @@ def main() -> int:
         map_path = os.path.join(workdir, gen.AD_TO_CAMPAIGN_FILE)
         lines.append(in_turns("load_ad_mapping_file",
                               lambda: gen.load_ad_mapping_file(map_path),
-                              lambda: array_load_map(map_path),
-                              arms=("port", "array")))
+                              lambda: scan_load_map(map_path),
+                              arms=("port", "scan")))
         divisor = cfg.jax_time_divisor_ms
         journal = os.path.join(workdir, gen.KAFKA_JSON_FILE)
         lines.append(in_turns(
             "dostats", lambda: plain_dostats(journal, mapping, divisor),
             lambda: gen.dostats(workdir, divisor, mapping=mapping)))
+        lines.append(in_turns(
+            "dostats_scan",
+            lambda: dostats_with(array_values, workdir, divisor, mapping),
+            lambda: gen.dostats(workdir, divisor, mapping=mapping),
+            arms=("array", "scan")))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if args.out:

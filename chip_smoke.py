@@ -269,7 +269,14 @@ result line) when any phase fails:
    dispatch issues, by kind and bytes, from the engine's own counter
    (``collective_report``), each bracketed by CUDA events, and the NCCL
    kernels' device time and the c10d calls' host time a dispatch under
-   ``torch.profiler``.
+   ``torch.profiler``.  (d) ``python -m streambench_tpu_torch.engine
+   --sharded`` with ``jax.mesh.shape: [2]`` over phase 6's journal, one
+   rank a card: on a host of one card it must exit 2 within seconds with
+   the refusal naming 2 ranks and 1 card, and start no rank
+   (``"multi_rank": "refused: 2 ranks, 1 card"``); with two cards the
+   two NCCL ranks fold the journal into a RESP store process whose
+   windows must be phase 6's by the window digest, every rank exiting 0
+   and launching K1 (its ev/s beside the runs above).
 
 18. The sharded sketch engines (M16b, ``parallel.sketches``) on the
    ``(1, 1)`` NCCL mesh of phase 17, over phase 15's and 16's journals,
@@ -488,6 +495,7 @@ is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --only-hllx-reach  # phases 1-3, 15, 19 and 21
     python3 chip_smoke.py --only-microbatch-dims  # phases 1-3 and 22
     python3 chip_smoke.py --only-tenants   # phases 1-3 and 23 alone
+    python3 chip_smoke.py --only-sharded-ranks  # phases 1-3 and 17 (d)
 """
 
 from __future__ import annotations
@@ -4237,6 +4245,189 @@ def _collective_kernels(engine, repeats: int = 20) -> dict:
     }
 
 
+RANKS = 2
+# --only-sharded-ranks's journal
+RANKS_ONLY_EVENTS = 100_000
+
+
+class _RanksCli:
+    """Phase 17 (d): the engine CLI with ``--sharded`` and
+    ``jax.mesh.shape: [2]`` over phase 6's journal, one rank a device.
+    With fewer cards than ranks it must exit 2 with the refusal that
+    names both counts, and start no rank: that process starts at once
+    and runs beside the rest of the phase (it touches no card), and
+    ``finish`` checks it.  With two cards (or on the CPU, gloo ranks)
+    ``finish`` runs the two ranks, which fold the journal into a RESP
+    store process whose windows must be phase 6's by the window digest
+    (``want_digest``, else the journal's exact windows'); each rank's K1
+    launches come from the stats line."""
+
+    def __init__(self, data: Config5Data, device: str = "cuda"):
+        import torch
+        import yaml
+
+        self.data = data
+        with open(os.path.join(REPO, "conf", "benchmarkConf.yaml")) as f:
+            conf = yaml.safe_load(f)
+        self.port = _free_port()
+        conf.update(data.keys, **{"redis.host": "127.0.0.1",
+                                  "redis.port": self.port,
+                                  "jax.mesh.shape": [RANKS]})
+        conf_path = os.path.join(data.workdir, "ranks_conf.yaml")
+        with open(conf_path, "w") as f:
+            yaml.safe_dump(conf, f)
+        self.argv = [sys.executable, "-m", "streambench_tpu_torch.engine",
+                     "--confPath", conf_path, "--workdir", data.workdir,
+                     "--catchup", "--sharded", "--device", device]
+        self.env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+        self.logs = [os.path.join(data.workdir, f"engine.rank{k}.log")
+                     for k in range(1, RANKS)]
+        self.device = device
+        self.cards = torch.cuda.device_count() if device == "cuda" else None
+        self.refused = None
+        if self.cards is not None and self.cards < RANKS:
+            for path in self.logs:
+                if os.path.exists(path):
+                    os.unlink(path)
+            t0 = time.perf_counter()
+            self.refused = proc = subprocess.Popen(
+                self.argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=self.env, cwd=REPO)
+            # the process's own time to its exit, taken while the phase
+            # runs on
+            self.exit_s = None
+
+            def timed_exit() -> None:
+                proc.wait()
+                self.exit_s = time.perf_counter() - t0
+
+            self._exited = threading.Thread(target=timed_exit, daemon=True)
+            self._exited.start()
+
+    def finish(self, want_digest: dict | None) -> dict:
+        if self.refused is not None:
+            return self._refusal()
+        return self._run(want_digest)
+
+    def _refusal(self) -> dict:
+        proc, cards = self.refused, self.cards
+        try:
+            _, err = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        self._exited.join(timeout=10)
+        out = {"multi_rank": f"refused: {RANKS} ranks, {cards} card"
+                             + ("" if cards == 1 else "s"),
+               "exit_code": proc.returncode, "refusal_s": self.exit_s}
+        print(f"[sharded_ranks] {json.dumps(out)}", flush=True)
+        words = (f"error: --sharded over {RANKS} ranks: {RANKS} ranks on "
+                 f"cuda need {RANKS} cards, one a rank; this host has "
+                 f"{cards}")
+        if proc.returncode != 2 or words not in err:
+            raise AssertionError(f"sharded ranks: {RANKS} ranks on {cards} "
+                                 f"card(s) were not refused by name: rc "
+                                 f"{proc.returncode}, {err[-2000:]}")
+        if any(os.path.exists(p) for p in self.logs):
+            raise AssertionError("sharded ranks: a rank started before the "
+                                 "refusal")
+        return out
+
+    def _run(self, want_digest: dict | None) -> dict:
+        from streambench_tpu_torch.io.fakeredis import window_digest_of
+        from streambench_tpu_torch.io.redis_schema import read_seen_counts
+
+        data = self.data
+        server = subprocess.Popen(
+            [sys.executable, "-m", "streambench_tpu_torch.io.fakeredis",
+             "--host", "127.0.0.1", "--port", str(self.port)],
+            env=self.env, cwd=REPO, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        try:
+            r = _await_resp(self.port)
+            for i in range(0, len(data.campaigns), 10_000):
+                r.execute("SADD", "campaigns",
+                          *data.campaigns[i:i + 10_000])
+            t0 = time.perf_counter()
+            proc = subprocess.run(self.argv, capture_output=True, text=True,
+                                  timeout=900, env=self.env, cwd=REPO)
+            cli_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"sharded ranks: the CLI exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            lines = proc.stdout.strip().splitlines()
+            stats = json.loads(lines[-1])
+            t0 = time.perf_counter()
+            digest = window_digest_of(
+                (c, str(ts), n) for c, per in read_seen_counts(r).items()
+                for ts, n in per.items())
+            out = {"multi_rank": f"ran: {RANKS} ranks",
+                   "engine_up": next(ln for ln in lines
+                                     if ln.startswith("engine up:")),
+                   "events": stats["events"], "dropped": stats["dropped"],
+                   "events_per_s": stats["events_per_s"], "cli_s": cli_s,
+                   "count_cells_launches_by_rank": [
+                       stats["kernel_launches"]["count_cells"]] + [
+                       (f["kernel_launches"] or {}).get("count_cells")
+                       for f in stats["followers"]],
+                   "follower_exit_codes": [f["exit_code"]
+                                           for f in stats["followers"]],
+                   "store_digest": digest,
+                   "store_read_s": time.perf_counter() - t0}
+        finally:
+            server.kill()
+            server.communicate()
+        print(f"[sharded_ranks] {json.dumps(out)}", flush=True)
+        if stats["events"] != data.events or stats["dropped"]:
+            raise AssertionError(f"sharded ranks: folded {stats['events']} "
+                                 f"of {data.events}, dropped "
+                                 f"{stats['dropped']}")
+        if out["follower_exit_codes"] != [0] * (RANKS - 1):
+            raise AssertionError(f"sharded ranks: a rank exited "
+                                 f"{out['follower_exit_codes']}")
+        if self.device == "cuda" and not all(
+                n and n > 0 for n in out["count_cells_launches_by_rank"]):
+            raise AssertionError(f"sharded ranks: the count kernel did not "
+                                 f"launch on every rank: "
+                                 f"{out['count_cells_launches_by_rank']}")
+        if want_digest is None:
+            want_digest = _journal_digest(data)
+        if digest != want_digest:
+            raise AssertionError(f"sharded ranks: the store's windows "
+                                 f"{digest} are not phase 6's "
+                                 f"{want_digest}")
+        return out
+
+
+def _await_resp(port: int):
+    """A client of the RESP store process on ``port``, once it answers."""
+    from streambench_tpu_torch.io.resp import RespClient
+
+    for _ in range(200):
+        try:
+            r = RespClient("127.0.0.1", port)
+            r.ping()
+            return r
+        except OSError:
+            time.sleep(0.05)
+    raise AssertionError("the RESP store process did not start")
+
+
+def _journal_digest(data: Config5Data) -> dict:
+    """The window digest of the journal's exact windows (``gen.dostats``)."""
+    from streambench_tpu_torch.datagen import gen
+    from streambench_tpu_torch.io.fakeredis import window_digest_of
+
+    divisor = data.config().jax_time_divisor_ms
+    return window_digest_of(
+        (c, str(b * divisor), n)
+        for c, per in gen.dostats(data.workdir, divisor,
+                                  mapping=data.mapping).items()
+        for b, n in per.items())
+
+
 def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
                   device: str = "cuda") -> dict:
     """Phase 17: ``ShardedWindowEngine`` on a ``(1, 1)`` NCCL mesh over
@@ -4260,6 +4451,7 @@ def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
     cfg = data.config()
     on_card = device == "cuda"
     drain_kind = "rows_compact" if on_card else "rows_host"
+    ranks_cli = _RanksCli(data, device)
     t0 = time.perf_counter()
     mesh = build_mesh(1, 1, device=device)
     out: dict = {"mesh": repr(mesh), "backend": mesh.backend,
@@ -4357,6 +4549,7 @@ def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
             "events_per_s_with_close"]
     finally:
         dist.destroy_process_group()
+    out["multi_rank"] = ranks_cli.finish(unsharded["store_digest"])
     step = out["collectives"]["step"]
     step.setdefault("device_ms_median", "not measured")
     print(f"[sharded] ev/s {out['plain']['events_per_s']} "
@@ -4370,7 +4563,12 @@ def phase_sharded(data: Config5Data, want: dict, unsharded: dict,
           f"{out.get('collective_kernels', {}).get('device_ms_per_dispatch', 'not measured')}"
           f" ms of NCCL kernels; jax.obs.shard run "
           f"{out['obs_shard']['events_per_s']} ev/s, skew "
-          f"{out['obs_shard']['shard_skew']}", flush=True)
+          f"{out['obs_shard']['shard_skew']}; over {RANKS} ranks "
+          f"{out['multi_rank']['multi_rank']}, "
+          f"{out['multi_rank'].get('events_per_s', 'not run')} ev/s, K1 "
+          f"launches by rank "
+          f"{out['multi_rank'].get('count_cells_launches_by_rank', 'not run')}",
+          flush=True)
     return out
 
 
@@ -8633,6 +8831,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--only-tenants", action="store_true",
                     help="a diagnostic: phases 1-3 and 23 alone (no result "
                     "line)")
+    ap.add_argument("--only-sharded-ranks", action="store_true",
+                    help="a diagnostic: phases 1-3 and 17 (d), --sharded "
+                    "over 2 ranks from the engine CLI, alone over a config "
+                    "#5 journal of RANKS_ONLY_EVENTS (no result line)")
     args = ap.parse_args(argv)
     lap = Laps()
 
@@ -8768,6 +8970,23 @@ def main(argv: list[str] | None = None) -> int:
                           indent=1, default=str)
         print(smi, flush=True)
         return 0
+    if args.only_sharded_ranks:
+        lap("1-3 device, build, K1 cases")
+        data = Config5Data(RANKS_ONLY_EVENTS, name="smoke_ranks")
+        try:
+            ranks = _RanksCli(data).finish(None)
+        finally:
+            data.remove()
+        lap("17 (d) sharded over ranks")
+        laps = lap.as_dict()
+        print(f"[smoke] seconds by phase {json.dumps(laps)}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"kernel_cases": cases, "sharded_ranks": ranks,
+                           "phase_seconds": laps, "nvidia_smi": smi}, f,
+                          indent=1)
+        print(smi, flush=True)
+        return 0
     if args.only_sketches:
         sketch = phase_sketches()
         if args.out:
@@ -8878,6 +9097,10 @@ def main(argv: list[str] | None = None) -> int:
             "config5_catchup": large["count_cells_launches"],
             **{f"sharded_config5_{k}": sharded[k]["count_cells_launches"]
                for k in SHARDED_RUNS},
+            # by rank; on one card the path is refused, not run
+            f"sharded_config5_{RANKS}_ranks": sharded["multi_rank"].get(
+                "count_cells_launches_by_rank",
+                f"not run: {sharded['multi_rank']['multi_rank']}"),
             "exactly_once_resume": xo["count_cells_launches"],
             "pipelined_catchup": pipelined["count_cells_launches"],
             "paced_ysb": paced["count_cells_launches"],

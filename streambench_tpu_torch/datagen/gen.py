@@ -532,23 +532,38 @@ def get_stats(r: RedisLike, workdir: str = ".") -> list[tuple[int, int]]:
 #: chunks of lines, the workdir's journal in blocks of whole lines
 _STATS_CHUNK = 1 << 16
 _STATS_BLOCK = 1 << 24
+#: one value at an offset, as ``json.loads`` scans it; the whitespace
+#: ``json.loads`` skips around a value
+_scan_json = json.JSONDecoder().scan_once
+_JSON_WS = " \t\n\r"
 
 
 def _json_values(lines: list) -> list:
-    """``[json.loads(ln) for ln in lines]`` by one ``json.loads`` of the
-    lines as one JSON array.  Where the array does not parse, or holds
-    another number of values than lines, or the lines mix ``str`` and
-    ``bytes``, line by line, so a bad line raises as it alone would."""
+    """``[json.loads(ln) for ln in lines]``, one C scan a line over the
+    lines joined into one text.  A scan's value must end at its own
+    line's end (JSON whitespace may follow it there); where one does not,
+    or a line is not ASCII, or the lines mix ``str`` and ``bytes``, line
+    by line, so that a line the reference rejects raises here too."""
     kind = type(lines[0]) if lines else None
     if kind in (bytes, str) and all(type(ln) is kind for ln in lines):
-        left, sep, right = ((b"[", b",\n", b"]") if kind is bytes
-                            else ("[", ",\n", "]"))
-        try:
-            values = json.loads(left + sep.join(lines) + right)
-        except ValueError:
-            values = None
-        if isinstance(values, list) and len(values) == len(lines):
-            return values
+        joined = (b"\n" if kind is bytes else "\n").join(lines)
+        if joined.isascii():
+            text = joined.decode("ascii") if kind is bytes else joined
+            values = []
+            pos = 0
+            try:
+                for n in map(len, lines):
+                    value, end = _scan_json(text, pos)
+                    pos += n
+                    if end != pos and (end > pos
+                                       or text[end:pos].strip(_JSON_WS)):
+                        break
+                    values.append(value)
+                    pos += 1
+                else:
+                    return values
+            except (StopIteration, ValueError):
+                pass
     return [json.loads(ln) for ln in lines]
 
 
@@ -599,15 +614,6 @@ def dostats(workdir: str = ".", time_divisor_ms: int = 10_000,
             fold(chunk)
             chunk = []
     fold(chunk)
-    return acc
-    chunk: list = []
-    for line in events:
-        chunk.append(line)
-        if len(chunk) >= _STATS_CHUNK:
-            fold_lines(chunk)
-            chunk = []
-    if chunk:
-        fold_lines(chunk)
     return acc
 
 

@@ -23,8 +23,9 @@ topic, flushes the canonical Redis window schema, and at the end
 (catchup drained, duration, idle timeout, or SIGTERM, after folding what
 the topic holds) closes the engine and prints the same JSON stats
 line as ``python -m streambench_tpu.engine``.  ``--sharded`` runs the
-engine on the ``(data, campaign)`` mesh of ``jax.mesh.shape`` (one rank:
-NCCL on the card, gloo on the CPU): ``parallel.ShardedWindowEngine`` for
+engine on the ``(data, campaign)`` mesh of ``jax.mesh.shape`` (one rank
+a device, below: NCCL on the card, gloo on the CPU):
+``parallel.ShardedWindowEngine`` for
 ``exact``, as ``bench.py`` runs BASELINE #5, and the sharded sketch
 engines of ``parallel.sketches`` for ``hll``, ``sliding`` and
 ``session``, and ``parallel.reach.ShardedReachEngine`` for ``reach``,
@@ -91,18 +92,43 @@ admission controller that defers, then sheds, an aggressor's ingest.
 It prints ``tenants up: ...`` and, at the end, one stats line with
 ``"engine": "multitenant"``.
 
-``--sharded`` over more than one process (``STREAMBENCH_NUM_PROCESSES``
-> 1) is not ported yet and is refused with exit 2.
+``--sharded`` runs one rank a device, as many as the product of
+``jax.mesh.shape`` asks for (JAX's CLI takes as many devices): the
+process the user started is rank 0 and starts ranks 1..N-1 as child
+processes of this module with the same arguments
+(``STREAMBENCH_NUM_PROCESSES``, ``STREAMBENCH_PROCESS_ID`` and
+``STREAMBENCH_COORDINATOR`` set for them, on a free localhost port); a
+process that finds those variables set takes its rank from them and
+starts nothing (an outside launcher's form).  Rank k folds on
+``cuda:k``, or with ``--device cpu`` on the CPU over gloo.  Rank 0 runs
+the path above; the other ranks build the same sharded engine, open no
+store and no broker, run what rank 0 sends them (``follow``) and exit 0
+when rank 0 closes its engine; their output goes to
+``<workdir>/engine.rank<k>.log``.  ``engine up:`` comes once every rank
+has warmed up, and the stats line adds each other rank's exit code
+(``followers``).  A rank that dies ends the run non-zero: rank 0 exits
+1 when another rank exits before its close, and the others die with
+rank 0.  Refused with exit 2: more ranks on ``cuda`` than the host has
+cards, a mesh whose rank count is not an outside
+``STREAMBENCH_NUM_PROCESSES``, and ``--sharded --engine hllx``.
+``STREAMBENCH_MESH_TIMEOUT_S`` sets the groups' timeout (default 300 s).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import math
 import os
 import signal
+import socket
+import subprocess
 import sys
+import threading
+import time
 
+import torch
 import torch.distributed as dist
 
 from streambench_tpu_torch.checkpoint import Checkpointer
@@ -152,7 +178,12 @@ from streambench_tpu_torch.parallel import (
     ShardedWindowEngine,
     mesh_from_config,
 )
-from streambench_tpu_torch.parallel.mesh import CAMPAIGN_AXIS, DATA_AXIS
+from streambench_tpu_torch.parallel.mesh import (
+    CAMPAIGN_AXIS,
+    DATA_AXIS,
+    DEFAULT_TIMEOUT_S,
+    check_cards,
+)
 from streambench_tpu_torch.reach.cache import ReachQueryCache
 from streambench_tpu_torch.reach.deltaship import (
     DELTA_AUTO_MIN_CAMPAIGNS,
@@ -199,7 +230,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="run the engine sharded over the mesh of "
                         "jax.mesh.shape (exact, hll, sliding, session or "
-                        "reach; one process: NCCL on cuda, gloo on cpu)")
+                        "reach), one rank a device: NCCL on cuda (rank k "
+                        "on cuda:k), gloo on cpu")
     p.add_argument("--microbatch", action="store_true",
                    help="run the fork's count-based barrier-aligned window "
                         "mode (window.size / map.partitions) over the "
@@ -224,22 +256,189 @@ SHARDED_ENGINES = {"exact": ShardedWindowEngine, "hll": ShardedHLLEngine,
                    "reach": ShardedReachEngine}
 
 
-def unsupported(args, cfg) -> list[str]:
-    """What this run asks for beyond what the port runs: every engine of
-    the reference (exact, HLL, sliding, session, reach, hllx) on one
-    device, at any key space, with checkpoint/resume, the exactly-once
-    sink, the staged ingest pipeline, the encode pool, the dead-letter
-    queue, the Kafka source, device decode (exact engine), the
-    observability layer (the reach query and fleet keys included), reach
-    serving with its cache and replica shipping, the exact, HLL,
-    sliding, session and reach engines sharded in one process
-    (``--sharded``), the fork's micro-batch mode (``--microbatch``) and
-    the multi-tenant host (``--tenants``, run before this check).  Only
-    ``--sharded`` over more than one process is left."""
-    ranks = int(os.environ.get("STREAMBENCH_NUM_PROCESSES", "1"))
-    if args.sharded and ranks > 1:
-        return [f"--sharded over {ranks} processes"]
-    return []
+def mesh_ranks(cfg) -> int:
+    """The ranks ``jax.mesh.shape`` asks for: the product of its axes, as
+    JAX's mesh takes that many devices."""
+    return math.prod(cfg.jax_mesh_shape)
+
+
+def rank_refusal(args, cfg) -> str | None:
+    """Why ``--sharded`` cannot start its ranks, or None: a mesh whose
+    rank count is not an outside launcher's ``STREAMBENCH_NUM_PROCESSES``,
+    or more ranks on ``cuda`` than the host has cards (two ranks on one
+    card fail inside NCCL)."""
+    if not args.sharded:
+        return None
+    n = mesh_ranks(cfg)
+    outside = os.environ.get("STREAMBENCH_NUM_PROCESSES")
+    if outside is not None and int(outside) != n:
+        return (f"jax.mesh.shape {list(cfg.jax_mesh_shape)} needs {n} "
+                f"ranks; STREAMBENCH_NUM_PROCESSES={outside}")
+    dev = torch.device(args.device)
+    if n == 1 or dev.type != "cuda":
+        return None
+    if dev.index is not None:
+        return (f"--sharded over {n} ranks puts rank k on cuda:k; it "
+                f"takes --device cuda, not {dev}")
+    try:
+        check_cards(n)
+    except ValueError as e:
+        return f"--sharded over {n} ranks: {e}"
+    return None
+
+
+def _mesh_timeout_s() -> float:
+    return float(os.environ.get("STREAMBENCH_MESH_TIMEOUT_S",
+                                DEFAULT_TIMEOUT_S))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _last_json(path: str) -> dict:
+    """The last line of ``path`` that is a JSON object, or {}."""
+    try:
+        with open(path) as f:
+            lines = f.read().strip().splitlines()
+    except OSError:
+        return {}
+    for ln in reversed(lines):
+        try:
+            out = json.loads(ln)
+        except ValueError:
+            continue
+        if isinstance(out, dict):
+            return out
+    return {}
+
+
+class _Followers:
+    """Ranks 1..N-1 of ``--sharded``, started by rank 0 as child
+    processes of this module with its arguments; their output goes to
+    ``<workdir>/engine.rank<k>.log``.  Until ``closed()`` a rank that
+    exits ends rank 0 with exit 1 (a watcher thread)."""
+
+    def __init__(self, argv: list[str], n: int, workdir: str):
+        os.environ.update(STREAMBENCH_NUM_PROCESSES=str(n),
+                          STREAMBENCH_PROCESS_ID="0",
+                          STREAMBENCH_COORDINATOR=f"127.0.0.1:{_free_port()}")
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env = dict(os.environ, STREAMBENCH_LEADER_PID=str(os.getpid()),
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        self.logs = [os.path.join(workdir, f"engine.rank{k}.log")
+                     for k in range(1, n)]
+        self.procs = []
+        for k, path in enumerate(self.logs, 1):
+            with open(path, "wb") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "streambench_tpu_torch.engine",
+                     *argv], env=dict(env, STREAMBENCH_PROCESS_ID=str(k)),
+                    stdout=log, stderr=subprocess.STDOUT))
+        self._closed = False
+        threading.Thread(target=self._watch, daemon=True,
+                         name="followers").start()
+
+    def _watch(self) -> None:
+        while not self._closed:
+            if self.report_lost() and not self._closed:
+                os._exit(1)
+            time.sleep(0.2)
+
+    def report_lost(self, wait_s: float = 0.0) -> bool:
+        """Whether a rank has exited, waiting up to ``wait_s`` for one to:
+        if so, name it on stderr and kill the others."""
+        deadline = time.monotonic() + wait_s
+        while True:
+            for k, proc in enumerate(self.procs, 1):
+                rc = proc.poll()
+                if rc is not None:
+                    print(f"error: rank {k} exited with code {rc} before "
+                          f"rank 0 closed its engine; see "
+                          f"{self.logs[k - 1]}", file=sys.stderr,
+                          flush=True)
+                    for p in self.procs:
+                        p.kill()
+                    return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+
+    def closed(self) -> None:
+        """Rank 0 has closed its engine: the other ranks may now exit."""
+        self._closed = True
+
+    def wait(self, timeout_s: float = 60.0) -> list[dict]:
+        """Each rank's exit code and its own stats line's kernel
+        launches, once it has exited (killed after ``timeout_s``)."""
+        out = []
+        deadline = time.monotonic() + timeout_s
+        for k, proc in enumerate(self.procs, 1):
+            try:
+                rc = proc.wait(max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            out.append({"rank": k, "exit_code": rc,
+                        "kernel_launches": _last_json(
+                            self.logs[k - 1]).get("kernel_launches")})
+        return out
+
+
+def _exit_with(leader_pid: int) -> None:
+    """Die with the rank 0 that started this process: the kernel sends
+    SIGKILL when the parent dies (``PR_SET_PDEATHSIG``), and a parent
+    gone already ends this process now."""
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    if os.getppid() != leader_pid:
+        os._exit(1)
+
+
+def _launches() -> dict:
+    return {"count_cells": count_cells.launches,
+            "decode_rows": decode_rows.launches,
+            "cms_rows": cmsrows.kernel_launches()}
+
+
+def _reset_launches() -> None:
+    count_cells.launches = 0
+    decode_rows.launches = 0
+    cmsrows.reset_launches()
+
+
+def _follow(args, cfg) -> int:
+    """A rank other than 0: build the sharded engine and its warm-up twin
+    as rank 0 does, run what rank 0 sends each, and print this rank's
+    launches once rank 0 has closed its engine.  It opens no store and
+    no broker; SIGTERM and SIGINT are rank 0's to act on."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    leader = os.environ.get("STREAMBENCH_LEADER_PID")
+    if leader:
+        _exit_with(int(leader))
+    mapping, campaigns = load_mapping(cfg, args.workdir)
+    mesh = mesh_from_config(cfg, device=args.device,
+                            timeout_s=_mesh_timeout_s())
+
+    def make_engine():
+        return SHARDED_ENGINES[args.engine](
+            cfg, mapping, mesh, campaigns=campaigns, device=args.device)
+
+    engine = make_engine()
+    warm = make_engine()
+    warm.follow()
+    del warm
+    _reset_launches()
+    engine.follow()
+    dist.barrier(group=mesh.host_group)
+    dist.destroy_process_group()
+    print(json.dumps({"rank": mesh.rank,
+                      "kernel_launches": _launches()}), flush=True)
+    return 0
 
 
 class _ReachServing:
@@ -384,6 +583,7 @@ def _run_microbatch(args, cfg) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     try:
         cfg = find_and_read_config_file(args.confPath)
@@ -396,17 +596,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.tenants or cfg.jax_tenants:
         mapping, campaigns = load_mapping(cfg, args.workdir)
         return run_tenants_cli(cfg, args, mapping, campaigns)
-    missing = unsupported(args, cfg)
-    if missing:
-        print("error: not ported to the PyTorch engine yet (it runs the "
-              "exact, hll, sliding, session, reach and hllx engines with "
-              "checkpoints, the exactly-once sink, the ingest pipeline, the "
-              "encode pool, the dead-letter queue, the Kafka source, the "
-              "observability layer, reach serving with its query and "
-              "fleet observability, the exact, hll, sliding, session "
-              "and reach engines sharded in one process, the "
-              "micro-batch mode and the multi-tenant host): "
-              + ", ".join(missing), file=sys.stderr)
+    refusal = rank_refusal(args, cfg)
+    if refusal:
+        print(f"error: {refusal}", file=sys.stderr)
         return 2
     if args.microbatch:
         return _run_microbatch(args, cfg)
@@ -415,18 +607,39 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: --sharded supports exact/hll/sliding/session/reach, "
               f"not --engine {args.engine}", file=sys.stderr)
         return 2
+    followers = None
+    if args.sharded and mesh_ranks(cfg) > 1:
+        if "STREAMBENCH_NUM_PROCESSES" not in os.environ:
+            followers = _Followers(argv, mesh_ranks(cfg), args.workdir)
+        elif int(os.environ.get("STREAMBENCH_PROCESS_ID", "0")) != 0:
+            return _follow(args, cfg)
+    try:
+        return _run_engine(args, cfg, followers)
+    except Exception as e:
+        # a collective that met a dead rank: name the rank
+        if followers is not None and followers.report_lost(wait_s=2.0):
+            print(f"error: {type(e).__name__}: {e}", file=sys.stderr,
+                  flush=True)
+            return 1
+        raise
 
+
+def _run_engine(args, cfg, followers: _Followers | None) -> int:
+    """The engine's run: rank 0's with ``--sharded`` over ranks, else the
+    whole run."""
     mapping, campaigns = load_mapping(cfg, args.workdir)
     redis = _redis(cfg)
     engine_cls = ENGINES[args.engine]
     mesh = None
     if args.sharded:
-        # one rank: a world-size-1 group, NCCL on the card, gloo on the CPU
+        # one rank a device: NCCL on the card, gloo on the CPU
         try:
-            mesh = mesh_from_config(cfg, device=args.device)
+            mesh = mesh_from_config(cfg, device=args.device,
+                                    timeout_s=_mesh_timeout_s())
         except ValueError as e:
             print(f"error: --sharded: {e}", file=sys.stderr)
             return 2
+    ranks = mesh.size if mesh is not None else 1
 
     def make_engine(r):
         if mesh is not None:
@@ -475,9 +688,6 @@ def main(argv: list[str] | None = None) -> int:
     runner = StreamRunner(engine, reader, checkpointer=checkpointer,
                           ingest_pipeline=cfg.jax_ingest_pipeline,
                           flightrec=flightrec, spans=spans)
-    if runner.resume():
-        print(f"resumed from checkpoint: offset={runner._reader_position()} "
-              f"events={engine.events_processed}", flush=True)
     # The handlers only set flags: the flight dump and the capture
     # trigger take locks the host loop may hold when a signal lands, so
     # they run on the host loop (the dump once the run has stopped, the
@@ -502,6 +712,14 @@ def main(argv: list[str] | None = None) -> int:
     warm.warmup()
     warm.close()
     del warm
+    if ranks > 1:
+        # from here on the other ranks follow this engine: keep them
+        # waiting while this rank sets up and whenever it idles
+        engine.keepalive()
+    # after the warm-up, which the other ranks follow on its own engine
+    if runner.resume():
+        print(f"resumed from checkpoint: offset={runner._reader_position()} "
+              f"events={engine.events_processed}", flush=True)
 
     # Live telemetry (obs/, default-off): jax.metrics.interval.ms > 0
     # starts the sampler journaling snapshots to <workdir>/metrics.jsonl;
@@ -646,9 +864,10 @@ def main(argv: list[str] | None = None) -> int:
         occupancy.mark_steady()
     # the kernels' launches over the run itself (warmup's excluded); CPU
     # folds take the plain versions and launch nothing
-    count_cells.launches = 0
-    decode_rows.launches = 0
-    cmsrows.reset_launches()
+    _reset_launches()
+    if ranks > 1:
+        # the ready marker means the whole mesh is ready
+        engine.sync()
 
     print(f"engine up: engine={args.engine} topic={cfg.kafka_topic} "
           f"redis={cfg.redis_host}:"
@@ -658,7 +877,8 @@ def main(argv: list[str] | None = None) -> int:
           f"decode={'device' if engine._devdecode is not None else 'host'} "
           f"encode_workers={cfg.jax_encode_workers}"
           + (f" mesh={mesh.shape[DATA_AXIS]}x{mesh.shape[CAMPAIGN_AXIS]} "
-             f"backend={mesh.backend}" if mesh is not None else ""),
+             f"backend={mesh.backend} ranks={ranks}"
+             if mesh is not None else ""),
           flush=True)
     try:
         with device_trace(args.traceDir, engine.device):
@@ -684,6 +904,18 @@ def main(argv: list[str] | None = None) -> int:
         # writer; finish the stats line and exit non-zero
         close_err = e
         print(f"error: {e}", file=sys.stderr, flush=True)
+    left = None
+    if ranks > 1:
+        if followers is not None:
+            followers.closed()
+        try:
+            # every rank has stopped following: now they may leave
+            dist.barrier(group=mesh.host_group)
+        except RuntimeError as e:
+            print(f"error: the other ranks did not close: {e}",
+                  file=sys.stderr, flush=True)
+        if followers is not None:
+            left = followers.wait()
     reader.close()
     if deadletter is not None:
         deadletter.close()
@@ -708,10 +940,11 @@ def main(argv: list[str] | None = None) -> int:
         "events_per_s": round(stats.events_per_s, 1),
         "dropped": engine.dropped, "wall_s": round(stats.wall_s, 2),
         "faults": stats.faults,
-        "kernel_launches": {"count_cells": count_cells.launches,
-                            "decode_rows": decode_rows.launches,
-                            "cms_rows": cmsrows.kernel_launches()},
+        "kernel_launches": _launches(),
     }
+    if left is not None:
+        # a run that lost a rank must not look clean
+        stats_line["followers"] = left
     if occupancy is not None:
         # the MEASURED busy ratio + the steady-state build invariant
         occ_sum = occupancy.summary()
@@ -759,7 +992,8 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps(stats_line), flush=True)
     if mesh is not None:
         dist.destroy_process_group()
-    return 1 if close_err is not None else 0
+    lost = any(f["exit_code"] != 0 for f in left or ())
+    return 1 if close_err is not None or lost else 0
 
 
 if __name__ == "__main__":

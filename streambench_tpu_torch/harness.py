@@ -25,9 +25,12 @@ address, default ``127.0.0.1:9092``), ``INGEST_PIPELINE`` (off/on/auto),
 ``--engine``; the session, reach and hllx engines write no window rows,
 so ``TORCH_TEST``'s evidence for them is the engine's stats line),
 ``SHARDED=1`` (the engine sharded over the mesh, ``--sharded``: the
-exact, hll, sliding, session and reach engines).  ``MICROBATCH=1`` makes
-``TORCH_TEST`` the micro-batch composite ``TORCH_MICROBATCH_TEST`` (the
-JAX harness's ``JAX_MICROBATCH_TEST``): a paced load journaled for
+exact, hll, sliding, session and reach engines; a ``jax.mesh.shape``
+of N devices in the conf runs N ranks from the one engine process, and
+SETUP keeps the keys a conf already holds that no knob sets).
+``MICROBATCH=1`` makes ``TORCH_TEST`` the micro-batch composite
+``TORCH_MICROBATCH_TEST`` (the JAX harness's ``JAX_MICROBATCH_TEST``):
+a paced load journaled for
 ``TEST_TIME``, then ``TORCH_MICROBATCH``, the engine's ``--microbatch``
 catchup over it (``ENGINE`` exact or hll, ``CHECKPOINT_DIR`` its window
 snapshots), whose stats line in ``logs/microbatch.log`` is the evidence;
@@ -276,7 +279,10 @@ def op_setup() -> None:
     and build the native host library (the only thing to compile before
     the engine's own warmup)."""
     from streambench_tpu_torch import native
-    from streambench_tpu_torch.config import write_local_conf
+    from streambench_tpu_torch.config import (
+        find_and_read_config_file,
+        write_local_conf,
+    )
 
     with_tenants = [k for k, on in (("MICROBATCH", MICROBATCH),
                                     ("SHARDED", SHARDED),
@@ -313,7 +319,11 @@ def op_setup() -> None:
             and not any(running_pid(n) is not None
                         for n in ("load", "engine"))):
         shutil.rmtree(BROKER_DIR, ignore_errors=True)
-    write_local_conf(CONF_FILE, {
+    # the keys an existing conf holds and no knob sets (a mesh shape for
+    # SHARDED=1, say) stay as they are
+    kept = (dict(find_and_read_config_file(CONF_FILE).raw)
+            if os.path.exists(CONF_FILE) else {})
+    write_local_conf(CONF_FILE, {**kept, **{
         "kafka.bootstrap": KAFKA_BOOTSTRAP,
         "kafka.fake": KAFKA_FAKE,
         "kafka.brokers": ["localhost"],
@@ -353,7 +363,7 @@ def op_setup() -> None:
         "jax.obs.fleet": OBS_FLEET,
         "jax.tenants": TENANTS,
         "jax.admission.enabled": ADMISSION,
-    })
+    }})
     log(f"wrote {CONF_FILE}")
     native.build()
     log("native encoder ready")

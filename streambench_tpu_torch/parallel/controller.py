@@ -24,10 +24,19 @@ its single-device parent, calls ``_init_controller(mesh)`` and defines:
 - ``_do_<name>`` for each further device call it issues through
   ``_command(name, ...)``.
 
-At world size 1 ``_command`` just makes the call.
+At world size 1 ``_command`` just makes the call.  Calls may come from
+more than one thread of rank 0 (a query server's, the keepalive's): each
+is made whole under one lock.  A follower waits for each call under the
+mesh's timeout, and rank 0 may send none for longer (a long flush
+interval, a long write), so ``keepalive`` starts a thread on rank 0 that
+sends a no-op when no call went out for a second, until the close; and
+``sync`` waits until every rank has run every call sent before it.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
@@ -72,6 +81,13 @@ class SingleController:
         # set while collective_report records a dispatch
         self._recorder: collectives.Recorder | None = None
         self._obs_reg = None
+        # each call made whole: the host loop, a query server's thread
+        # and the keepalive's may all command
+        self._cmd_lock = threading.RLock()
+        # when rank 0 last sent the other ranks a call; set to end the
+        # keepalive thread
+        self._sent_at = time.monotonic()
+        self._keepalive_off: threading.Event | None = None
 
     # ------------------------------------------------------------------
     # the protocol
@@ -84,14 +100,50 @@ class SingleController:
             raise RuntimeError(f"rank {self.mesh.rank} follows rank 0: "
                                "call follow(), not the engine's entry "
                                "points")
-        if per_rank is not None:
-            args = per_rank(self.mesh.rank)
-        if self._leads:
-            dist.scatter_object_list(
-                [None], [(name, per_rank(r) if per_rank else args)
-                         for r in range(self.mesh.size)],
-                src=0, group=self.mesh.host_group)
-        return getattr(self, "_do_" + name)(*args)
+        with self._cmd_lock:
+            if per_rank is not None:
+                args = per_rank(self.mesh.rank)
+            if self._leads:
+                dist.scatter_object_list(
+                    [None], [(name, per_rank(r) if per_rank else args)
+                             for r in range(self.mesh.size)],
+                    src=0, group=self.mesh.host_group)
+                self._sent_at = time.monotonic()
+            return getattr(self, "_do_" + name)(*args)
+
+    def keepalive(self, every_s: float = 1.0) -> None:
+        """On rank 0 of a multi-rank engine, start a thread that sends the
+        other ranks a no-op whenever no call went out for ``every_s``
+        seconds, until the close: a follower's wait for its next call
+        then never reaches the mesh's timeout while rank 0 lives.  A
+        no-op elsewhere."""
+        if not self._leads or self._keepalive_off is not None:
+            return
+        off = self._keepalive_off = threading.Event()
+
+        def run() -> None:
+            while not off.wait(every_s / 4):
+                if time.monotonic() - self._sent_at < every_s:
+                    continue
+                with self._cmd_lock:
+                    if off.is_set():
+                        return
+                    if time.monotonic() - self._sent_at >= every_s:
+                        self._command("noop")
+
+        threading.Thread(target=run, daemon=True, name="keepalive").start()
+
+    def _do_noop(self) -> None:
+        pass
+
+    def sync(self) -> None:
+        """A barrier on the host group, sent as a call so that it lands in
+        the order of the calls: once it returns on rank 0, every rank has
+        run every call sent before it."""
+        self._command("barrier")
+
+    def _do_barrier(self) -> None:
+        dist.barrier(group=self.mesh.host_group)
 
     def follow(self) -> None:
         """Run the device calls rank 0 sends until it closes its engine
@@ -122,7 +174,10 @@ class SingleController:
             self._close_rank0()
         finally:
             if self._leads:
-                self._command("stop")
+                with self._cmd_lock:
+                    if self._keepalive_off is not None:
+                        self._keepalive_off.set()
+                    self._command("stop")
 
     def _close_rank0(self) -> None:
         """What ``close`` does on rank 0: the single-device engine's."""

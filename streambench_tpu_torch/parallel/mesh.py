@@ -22,6 +22,9 @@ host-side votes and commands run on a gloo group over all ranks beside
 them.  Nothing picks a backend behind the caller's back.  Each group has
 a timeout, so ranks that fall out of step raise instead of hanging.
 
+Rank k folds on card k (``cuda:k``); a host with fewer cards than ranks
+is refused by name, before NCCL would fail on two ranks sharing a card.
+
 With no launcher environment (``STREAMBENCH_NUM_PROCESSES`` unset or 1)
 the process starts its own world-size-1 group on an in-memory store; the
 collectives still run, on groups of one rank, as the reference's ``psum``
@@ -53,10 +56,22 @@ def backend_for(device: torch.device) -> str:
 
 def rank_device(device: torch.device, rank: int) -> torch.device:
     """The device rank ``rank`` folds on: ``device`` itself on the CPU or
-    when it names a card, else card ``rank % device_count``."""
+    when it names a card, else card ``rank`` (``cuda:<rank>``).  A rank
+    without a card of its own raises: two ranks on one card would fail
+    inside NCCL's own start."""
     if device.type != "cuda" or device.index is not None:
         return device
-    return torch.device("cuda", rank % torch.cuda.device_count())
+    check_cards(rank + 1)
+    return torch.device("cuda", rank)
+
+
+def check_cards(ranks: int) -> None:
+    """Raise ``ValueError`` unless this host has a card for each of
+    ``ranks`` ranks."""
+    cards = torch.cuda.device_count()
+    if ranks > cards:
+        raise ValueError(f"{ranks} ranks on cuda need {ranks} cards, one "
+                         f"a rank; this host has {cards}")
 
 
 def init_process_group(device: torch.device | str | None = None, *,
@@ -91,6 +106,8 @@ def init_process_group(device: torch.device | str | None = None, *,
         process_id = int(os.environ.get("STREAMBENCH_PROCESS_ID", "0"))
     if num_processes < 1 or not 0 <= process_id < num_processes:
         raise ValueError(f"process {process_id} of {num_processes}")
+    if dev.type == "cuda" and dev.index is None:
+        check_cards(num_processes)
     dev = rank_device(dev, process_id)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -150,7 +167,10 @@ def build_mesh(data: int = 0, campaign: int = 1,
     4x2.  A shape whose product is not the world size raises."""
     if campaign < 1:
         raise ValueError(f"campaign axis must be >= 1, got {campaign}")
-    rank, world, dev = init_process_group(device, timeout_s=timeout_s)
+    # the start waits for every rank's process to come up: the longer of
+    # the two timeouts; the groups below take the caller's
+    rank, world, dev = init_process_group(
+        device, timeout_s=max(timeout_s, DEFAULT_TIMEOUT_S))
     if data <= 0:
         if world % campaign:
             raise ValueError(f"{world} ranks not divisible by "

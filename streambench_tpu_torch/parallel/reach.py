@@ -43,7 +43,6 @@ the same push while later folds update the live planes in place.
 
 from __future__ import annotations
 
-import threading
 import weakref
 
 import numpy as np
@@ -181,9 +180,9 @@ class ShardedReachEngine(_CampaignSharded, ReachSketchEngine):
         self._init_campaign_mesh(mesh)
         self.state = sharded_reach_init(self.encoder.num_campaigns, self.k,
                                         self.registers, mesh)
-        # the host loop and the query server's thread both command
-        self._cmd_lock = threading.RLock()
         self._closed = False
+        # rank 0's planes at a multi-rank close, read after it
+        self._close_planes: dict | None = None
         # push generation -> this rank's pushed planes (rank 0 keeps a
         # weak reference to the signature clone the server holds, the
         # other ranks the clones, until rank 0 sees the server drop it)
@@ -210,6 +209,11 @@ class ShardedReachEngine(_CampaignSharded, ReachSketchEngine):
     def _close_rank0(self) -> None:
         try:
             super()._close_rank0()
+            if self._leads:
+                # the other ranks stop following at close: keep the
+                # close-time planes for what reads them after it (the
+                # CLI ships them once its server has drained)
+                self._close_planes = self.planes()
         finally:
             self._closed = True
 
@@ -321,7 +325,10 @@ class ShardedReachEngine(_CampaignSharded, ReachSketchEngine):
     def planes(self) -> dict:
         """The whole planes as the reference's numpy arrays, trimmed to
         the real campaigns: ``mins`` uint32 ``[C, k]``, ``registers``
-        int32 ``[C, R]`` (a gather and a device sync)."""
+        int32 ``[C, R]`` (a gather and a device sync; after a
+        multi-rank close, the planes gathered at the close)."""
+        if self._close_planes is not None:
+            return self._close_planes
         return self._command("gather_planes")
 
     def _do_gather_planes(self):

@@ -2,9 +2,10 @@
 package's on the same journals; and the generator's seeded ids and
 ad -> campaign file, written and read, against the JAX package's.
 
-The port parses a chunk of lines as one JSON array, and line by line
-with ``json`` where that array does not hold one value a line: both
-ways must give the reference's counts, on generator journals (the
+The port scans a chunk of lines as one text, one value a line, and
+parses line by line with ``json`` where a value does not end at its own
+line's end: both ways must give the reference's counts, and a torn
+journal must raise in both oracles, on generator journals (the
 Python and the native formatter, skew on) and on lines in other forms
 (other spacing, escapes, blank lines, ``str`` lines, a line without its
 newline, ads the map does not know, a newline inside an element).
@@ -118,6 +119,34 @@ def test_a_newline_inside_an_element_is_read_as_json(tmp_path):
         gen.dostats(wd, events=joined, mapping=_mapping(wd))
     with pytest.raises(json.JSONDecodeError):
         jax_gen.dostats(wd, events=joined, mapping=_mapping(wd))
+
+
+@pytest.mark.parametrize("lines", [
+    # two values on line 1 and one torn across lines 1 and 2: as many
+    # values as lines, if the two lines are read as one text
+    [b'{"event_type": "view", "ad_id": "a", "event_time": 1}, '
+     b'{"event_type": "view", "ad_id": "a"',
+     b'"event_time": 3}'],
+    # one line ends inside a list that the next line closes
+    [b'{"event_type": "view", "ad_id": "a", "event_time": 1}, '
+     b'{"event_type": "view", "ad_id": "a", "x": [{"y": 1}',
+     b'{"y": 2}], "event_time": 3}'],
+], ids=["torn_after_two", "torn_in_a_list"])
+def test_a_torn_journal_raises_as_in_the_reference(tmp_path, lines):
+    """Lines that are not one JSON value each raise in both oracles,
+    whether the lines come as the caller's events or as the journal."""
+    mapping = {"a": "c"}
+    for events in (lines, [ln + b"\n" for ln in lines],
+                   [ln.decode() for ln in lines]):
+        with pytest.raises(json.JSONDecodeError):
+            gen.dostats(str(tmp_path), events=events, mapping=mapping)
+        with pytest.raises(json.JSONDecodeError):
+            jax_gen.dostats(str(tmp_path), events=events, mapping=mapping)
+    (tmp_path / gen.KAFKA_JSON_FILE).write_bytes(b"\n".join(lines) + b"\n")
+    with pytest.raises(json.JSONDecodeError):
+        gen.dostats(str(tmp_path), mapping=mapping)
+    with pytest.raises(json.JSONDecodeError):
+        jax_gen.dostats(str(tmp_path), mapping=mapping)
 
 
 @pytest.mark.parametrize("block", [1 << 24, 4096])

@@ -237,33 +237,46 @@ def test_cli_catchup_on_cpu(tmp_path):
     assert stats["windows_written"] > 0 and stats["faults"] == {}
 
 
-@pytest.mark.parametrize("extra,conf_line,word,ranks", [
-    # --sharded runs every engine with a sharded form in one process;
-    # over more than one process it stays refused
-    (["--sharded"], "", "--sharded over 2 processes", "2"),
-    # every engine of the reference is ported, and so is the
-    # multi-tenant host (--tenants and jax.tenants run it, as the
-    # reference's CLI does: tests/test_torch_tenants.py); these cases
-    # moved to the one combination still refused
-    (["--sharded", "--engine", "hllx"], "", "--sharded over 2 processes",
-     "2"),
+@pytest.mark.parametrize("extra,conf_line,word,ranks,cards", [
+    # --sharded runs one rank a device, as many as jax.mesh.shape asks
+    # for; what stays refused: more ranks on cuda than the host has
+    # cards (named before any rank starts), a mesh whose rank count is
+    # not an outside launcher's, and hllx (the reference's refusal)
+    (["--sharded", "--device", "cuda"], "jax.mesh.shape: [2]",
+     "--sharded over 2 ranks: 2 ranks on cuda need 2 cards, one a rank; "
+     "this host has 1", None, 1),
+    (["--sharded", "--engine", "hllx"], "",
+     "--sharded supports exact/hll/sliding/session/reach, not --engine "
+     "hllx", None, None),
     (["--sharded", "--traceDir", "trace"], "jax.obs.fleet: true",
-     "--sharded over 3 processes", "3"),
-    (["--microbatch", "--sharded"], "", "--sharded over 2 processes", "2"),
-    (["--sharded", "--engine", "session"], "jax.admission.enabled: true",
-     "--sharded over 4 processes", "4"),
+     "jax.mesh.shape [1] needs 1 ranks; STREAMBENCH_NUM_PROCESSES=3", "3",
+     None),
+    (["--microbatch", "--sharded"], "jax.mesh.shape: [2]",
+     "jax.mesh.shape [2] needs 2 ranks; STREAMBENCH_NUM_PROCESSES=4", "4",
+     None),
+    (["--sharded", "--engine", "session", "--device", "cuda"],
+     "jax.admission.enabled: true\njax.mesh.shape: [2, 2]",
+     "--sharded over 4 ranks: 4 ranks on cuda need 4 cards, one a rank; "
+     "this host has 2", None, 2),
 ], ids=["sharded", "engine", "trace", "microbatch", "tenants"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, monkeypatch, extra,
-                                       conf_line, word, ranks):
+                                       conf_line, word, ranks, cards):
+    """Each form still refused exits 2 with its own message, before any
+    rank or engine starts (the card count patched where the case names
+    one)."""
+    monkeypatch.delenv("STREAMBENCH_NUM_PROCESSES", raising=False)
     if ranks is not None:
         monkeypatch.setenv("STREAMBENCH_NUM_PROCESSES", ranks)
+    if cards is not None:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     conf = tmp_path / "conf.yaml"
     conf.write_text('redis.host: ":inprocess:"\n' + conf_line + "\n")
     rc = cli.main(["--confPath", str(conf), "--workdir", str(tmp_path),
                    "--device", "cpu", *extra])
     err = capsys.readouterr().err
     assert rc == 2
-    assert "not ported" in err and word in err
+    assert f"error: {word}" in err
+    assert not list(tmp_path.glob("engine.rank*.log"))
 
 
 def test_cli_rejects_an_unknown_engine_as_the_reference_does():

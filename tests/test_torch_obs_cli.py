@@ -12,6 +12,7 @@ import sys
 import time
 
 import pytest
+import torch
 
 from streambench_tpu_torch.engine import __main__ as cli
 from streambench_tpu_torch.obs import __main__ as obs_cli
@@ -155,32 +156,44 @@ def test_cli_trace_dir_writes_a_profiler_trace(tmp_path, capture):
         assert not glob.glob(os.path.join(workdir, "xprof_*"))
 
 
-@pytest.mark.parametrize("extra,conf_line,word,env", [
-    # jax.obs.query and jax.obs.fleet run with the reach engine, sharded
-    # or not, and the multi-tenant host runs too: they are refused only
-    # with --sharded over more than one process
-    (["--sharded", "--engine", "reach"], "jax.obs.query: true",
-     "--sharded over 2 processes", {"STREAMBENCH_NUM_PROCESSES": "2"}),
-    (["--sharded", "--engine", "reach"], "jax.obs.fleet: true",
-     "--sharded over 3 processes", {"STREAMBENCH_NUM_PROCESSES": "3"}),
-    # jax.obs.shard runs with --sharded on every engine with a sharded
-    # form in one process; more processes stay refused
-    (["--sharded", "--engine", "reach"], "jax.obs.shard: true",
-     "--sharded over 2 processes", {"STREAMBENCH_NUM_PROCESSES": "2"}),
-    (["--sharded"], "jax.obs.shard: true", "--sharded over 4 processes",
-     {"STREAMBENCH_NUM_PROCESSES": "4"}),
+@pytest.mark.parametrize("extra,conf_line,word,env,cards", [
+    # jax.obs.query, jax.obs.fleet and jax.obs.shard run with --sharded
+    # over as many ranks as jax.mesh.shape asks for; refused are more
+    # ranks on cuda than cards, and a mesh whose rank count is not an
+    # outside launcher's
+    (["--sharded", "--engine", "reach", "--device", "cuda"],
+     "jax.obs.query: true\njax.mesh.shape: [2]",
+     "--sharded over 2 ranks: 2 ranks on cuda need 2 cards, one a rank; "
+     "this host has 1", {}, 1),
+    (["--sharded", "--engine", "reach"],
+     "jax.obs.fleet: true\njax.mesh.shape: [2]",
+     "jax.mesh.shape [2] needs 2 ranks; STREAMBENCH_NUM_PROCESSES=3",
+     {"STREAMBENCH_NUM_PROCESSES": "3"}, None),
+    (["--sharded", "--engine", "reach"],
+     "jax.obs.shard: true\njax.mesh.shape: [2, 2]",
+     "jax.mesh.shape [2, 2] needs 4 ranks; STREAMBENCH_NUM_PROCESSES=2",
+     {"STREAMBENCH_NUM_PROCESSES": "2"}, None),
+    (["--sharded", "--device", "cuda"],
+     "jax.obs.shard: true\njax.mesh.shape: [1, 4]",
+     "--sharded over 4 ranks: 4 ranks on cuda need 4 cards, one a rank; "
+     "this host has 0", {}, 0),
 ], ids=["query", "fleet", "shard", "shard_sharded"])
 def test_cli_refuses_the_obs_keys_not_ported(tmp_path, capsys, monkeypatch,
-                                             extra, conf_line, word, env):
+                                             extra, conf_line, word, env,
+                                             cards):
+    monkeypatch.delenv("STREAMBENCH_NUM_PROCESSES", raising=False)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
+    if cards is not None:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     conf = tmp_path / "conf.yaml"
     conf.write_text('redis.host: ":inprocess:"\n' + conf_line + "\n")
     rc = cli.main(["--confPath", str(conf), "--workdir", str(tmp_path),
                    "--device", "cpu", *extra])
     err = capsys.readouterr().err
     assert rc == 2
-    assert "not ported" in err and word in err
+    assert f"error: {word}" in err
+    assert not list(tmp_path.glob("engine.rank*.log"))
 
 
 @pytest.mark.parametrize("args", [["serve", "{tmp}/missing.jsonl"],

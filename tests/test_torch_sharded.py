@@ -654,6 +654,20 @@ def test_chip_smoke_phase17_runs_on_the_cpu(tmp_path, monkeypatch):
         assert out["plain"]["windows_equal_phase6_sampled"] == min(
             chip_smoke.STORE_SAMPLE, len(windows))
         assert out["obs_shard"]["shard_skew"]["rows"] == [record["views"]]
+        # (d): the engine CLI over 2 gloo ranks, its store phase 6's
+        ranks = out["multi_rank"]
+        assert ranks["multi_rank"] == "ran: 2 ranks"
+        assert "ranks=2" in ranks["engine_up"]
+        assert ranks["events"] == 60_000 and ranks["dropped"] == 0
+        assert ranks["store_digest"] == record["store_digest"]
+        assert ranks["follower_exit_codes"] == [0]
+        assert ranks["count_cells_launches_by_rank"] == [0, 0]     # CPU
+        # ... and the card's arm on a host with fewer cards than ranks
+        # (none here): refused by name, no rank started
+        refused = chip_smoke._RanksCli(data, "cuda").finish(
+            record["store_digest"])
+        assert refused["multi_rank"] == "refused: 2 ranks, 0 cards"
+        assert refused["exit_code"] == 2
 
         # one extra window in each sharded store: the digest catches it
         fresh = data.store

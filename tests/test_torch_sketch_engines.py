@@ -470,24 +470,41 @@ def test_cli_engine_on_cpu_matches_the_jax_cli(tmp_path, engine):
 
 # the sharded HLL and sliding engines are ported; their cases moved to
 # the sharded forms of the engines that were not.  The reach and hllx
-# engines, sharded reach, the micro-batch mode and the tenants host are
-# ported too: every case now runs its engine sharded over more than one
-# process, the one combination the CLI still refuses
-@pytest.mark.parametrize("extra,conf_line", [
-    (["--sharded", "--engine", "reach"], ""),
-    (["--sharded", "--engine", "hllx"], ""),
-    (["--sharded", "--engine", "hll", "--microbatch"], ""),
-    (["--sharded", "--engine", "sliding"], "jax.admission.enabled: true")],
+# engines, sharded reach, the micro-batch mode, the tenants host and
+# --sharded over ranks are ported too: every case now runs a form the
+# CLI still refuses, before any rank starts (a mesh whose rank count is
+# not an outside launcher's, more ranks on cuda than cards, hllx
+# sharded as in the reference)
+@pytest.mark.parametrize("extra,conf_line,word,ranks,cards", [
+    (["--sharded", "--engine", "reach"], "jax.mesh.shape: [2]",
+     "jax.mesh.shape [2] needs 2 ranks; STREAMBENCH_NUM_PROCESSES=3", "3",
+     None),
+    (["--sharded", "--engine", "hllx"], "",
+     "--sharded supports exact/hll/sliding/session/reach, not --engine "
+     "hllx", None, None),
+    (["--sharded", "--engine", "hll", "--microbatch"], "",
+     "jax.mesh.shape [1] needs 1 ranks; STREAMBENCH_NUM_PROCESSES=2", "2",
+     None),
+    (["--sharded", "--engine", "sliding", "--device", "cuda"],
+     "jax.admission.enabled: true\njax.mesh.shape: [2]",
+     "--sharded over 2 ranks: 2 ranks on cuda need 2 cards, one a rank; "
+     "this host has 1", None, 1)],
     ids=["reach", "hllx", "sharded_hll", "sharded_sliding"])
 def test_cli_still_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch,
-                                              extra, conf_line):
-    monkeypatch.setenv("STREAMBENCH_NUM_PROCESSES", "2")
+                                              extra, conf_line, word, ranks,
+                                              cards):
+    monkeypatch.delenv("STREAMBENCH_NUM_PROCESSES", raising=False)
+    if ranks is not None:
+        monkeypatch.setenv("STREAMBENCH_NUM_PROCESSES", ranks)
+    if cards is not None:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     conf = tmp_path / "conf.yaml"
     conf.write_text('redis.host: ":inprocess:"\n' + conf_line + "\n")
     rc = cli.main(["--confPath", str(conf), "--workdir", str(tmp_path),
                    "--device", "cpu", *extra])
     err = capsys.readouterr().err
-    assert rc == 2 and "not ported" in err
+    assert rc == 2 and f"error: {word}" in err
+    assert not list(tmp_path.glob("engine.rank*.log"))
 
 
 @pytest.mark.parametrize("name", ["HLLDistinctEngine",
